@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of realtime_video_tpu for NVIDIA Hopper GPUs.
+
+The JAX package `realtime_video_tpu` is the reference: every module here keeps
+the name of its JAX counterpart and is held against it by the CPU tests
+(`tests/test_torch_*.py`). The port imports `torch` and never `jax`.
+
+Layout: `config`, `scheduler`, `models/` (rope, wan_dit, diffusion_wrapper,
+text_encoder, vae, vae_wrapper), `ops/` (attention dispatcher, kv_cache, the
+Hopper kernels' wrapper `hopper_attention` over `csrc/attention.cu`),
+`pipelines/causal_inference`, `serving/` (session, models, server) and
+`utils/` (convert: JAX parameter trees -> the port's).
+"""

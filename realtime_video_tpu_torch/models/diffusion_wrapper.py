@@ -1,0 +1,98 @@
+"""Diffusion model wrapper (port of realtime_video_tpu/models/diffusion_wrapper.py):
+one forward returning (flow_pred, pred_x0, kv) and the per-block denoise loop.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from realtime_video_tpu_torch.config import WAN_CONFIGS, WanModelConfig
+from realtime_video_tpu_torch.models import wan_dit
+from realtime_video_tpu_torch.models.rope import RopeTables
+from realtime_video_tpu_torch.scheduler import FlowMatchSchedule
+
+#: draws renoise for one denoising step: (shape, dtype, device) -> tensor
+NoiseFn = Callable[[Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
+
+
+def generator_noise(generator: torch.Generator) -> NoiseFn:
+    """Standard-normal noise from `generator`, drawn in f32 and cast."""
+
+    def draw(shape, dtype, device):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device).to(dtype)
+
+    return draw
+
+
+class WanDiffusion:
+    """Holds (cfg, params, schedule, rope) on one device."""
+
+    def __init__(self, cfg: Optional[WanModelConfig] = None, params=None,
+                 model_name: str = "t2v-1.3B", timestep_shift: float = 5.0,
+                 device=None, dtype=torch.bfloat16, seed: int = 0,
+                 fuse_qkv: bool = True):
+        if cfg is None:
+            cfg = WAN_CONFIGS[model_name]
+        if params is None:
+            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            params = wan_dit.init_wan_params(cfg, gen, device, dtype)
+        if fuse_qkv:
+            params = wan_dit.fuse_qkv_params(params)
+        self.cfg = cfg
+        self.params = params
+        self.device = params["patch_embedding"]["w"].device
+        self.dtype = params["patch_embedding"]["w"].dtype
+        self.layers = wan_dit.layer_params(params, cfg.num_layers)
+        self.schedule = FlowMatchSchedule.create(
+            shift=timestep_shift, sigma_min=0.0, extra_one_step=True, device=self.device)
+        self.rope = RopeTables.create(cfg.head_dim, device=self.device)
+
+    def compute_crossattn_cache(self, prompt_embeds: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds)
+
+    def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
+                kv_cache: Dict, current_start: int = 0, mode: str = "decode",
+                max_attention_size: Optional[int] = None,
+                schedule: Optional[FlowMatchSchedule] = None):
+        """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
+        (wan_wrapper.py:230-301)."""
+        t = timestep.to(torch.float32)
+        if max_attention_size is None:
+            fsl = self.cfg.frame_seq_length(noisy.shape[-2], noisy.shape[-1])
+            max_attention_size = self.cfg.max_attention_size(fsl)
+        flow, kv = wan_dit.dit_forward(
+            self.cfg, self.params, noisy, t, self.rope, crossattn_cache, mode=mode,
+            kv_cache=kv_cache, current_start=current_start,
+            max_attention_size=max_attention_size, layers=self.layers)
+        x0 = (schedule or self.schedule).flow_to_x0(flow, noisy, t)
+        return flow, x0, kv
+
+    def make_denoise_block_fn(self, steps: Tuple[float, ...], max_attention_size: int,
+                              schedule: Optional[FlowMatchSchedule] = None):
+        """The per-block denoise loop (release_server.py:669-706): a forward at
+        each step's timestep, then x0 renoised to the next step's timestep.
+
+        Returns fn(kv, cross, noisy, current_start, noise_fn) -> (x0, kv).
+        noise_fn is called once per step, the last included (its draw is
+        discarded there), as the JAX loop splits its key every step."""
+        schedule = schedule or self.schedule
+        steps = tuple(float(s) for s in steps)
+        nexts = steps[1:] + (0.0,)
+
+        def fn(kv, cross, noisy, current_start: int, noise_fn: NoiseFn):
+            b, f = noisy.shape[:2]
+            x0 = noisy
+            for i, (t_val, t_next) in enumerate(zip(steps, nexts)):
+                t = torch.full((b, f), t_val, dtype=torch.float32, device=noisy.device)
+                _, x0, kv = self.forward(noisy, cross, t, kv, current_start, "decode",
+                                         max_attention_size, schedule)
+                nz = noise_fn(tuple(x0.shape), x0.dtype, x0.device)
+                if i < len(steps) - 1:
+                    tn = torch.full((b, f), t_next, dtype=torch.float32,
+                                    device=noisy.device)
+                    noisy = schedule.add_noise(x0, nz, tn)
+            return x0, kv
+
+        return fn

@@ -1,0 +1,44 @@
+"""Streaming VAE entry points of the serving loop (port of
+realtime_video_tpu/models/vae_wrapper.py: `decode_block` and `encode_stream`).
+
+Public layout as in the JAX package: [B, T, C, H, W], pixels in [-1, 1].
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from realtime_video_tpu_torch.config import VAE_CONFIGS, VAEConfig
+from realtime_video_tpu_torch.models import vae as vae_mod
+
+
+class VAEWrapper:
+    def __init__(self, cfg: Optional[VAEConfig] = None, params=None, device=None,
+                 dtype=torch.bfloat16, seed: int = 0):
+        if cfg is None:
+            cfg = VAE_CONFIGS["wan2.1"]
+        if params is None:
+            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            params = vae_mod.init_vae_params(cfg, gen, device, dtype)
+        self.cfg = cfg
+        self.params = params
+        self.dtype = params["conv2"]["w"].dtype
+
+    def decode_block(self, latents: torch.Tensor,
+                     cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
+        """[B, Tz, z, h, w] + cache -> ([B, T, 3, H, W] f32, cache). The first
+        call (cache None) yields 1 + 4(Tz-1) frames, later calls 4*Tz."""
+        z = latents.permute(0, 1, 3, 4, 2)
+        out, cache = vae_mod.decode_chunks(self.cfg, self.params, z, cache,
+                                           first=cache is None)
+        return out.permute(0, 1, 4, 2, 3), cache
+
+    def encode_stream(self, pixels: torch.Tensor,
+                      cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
+        """[B, T, C, H, W] + cache -> ([B, Tz, z, h, w], cache). cache None
+        expects T = 1 + 4k (chunks 1, 4, 4, ...); a warm cache expects T = 4k."""
+        video = pixels.permute(0, 1, 3, 4, 2)
+        z, cache = vae_mod.encode_chunks(self.cfg, self.params, video, cache,
+                                         stream=cache is not None)
+        return z.permute(0, 1, 4, 2, 3), cache

@@ -1,0 +1,189 @@
+"""Profile one warm block of the t2v serving path on a GPU.
+
+    python -m realtime_video_tpu_torch.tools.profile_block [--out profile_out]
+
+`load_all` builds t2v-1.3B (random weights from a seed) and the Wan 2.1 VAE
+in bf16 on the card, and one session runs at 832x480, 4 denoising steps and
+3 KV-cache frames, as the server drives it (each block's frames are copied to
+the host). Blocks 0-2 warm up (block 2 is the first with the anti-drift
+re-encode). Then:
+
+  * block 3 runs unprofiled: its host wall time, with a device sync at both
+    ends, and the device time of each phase (anti-drift VAE re-encode, KV
+    prefill, 4-step denoise, streamed VAE decode) from CUDA events;
+  * block 4 runs under torch.profiler inside the range `warm_block`, which
+    ends with a device sync: device time by kernel and by category, and the
+    device's busy time against that range's own span. The span carries the
+    profiler's host overhead, so its idle share is an upper bound.
+
+Writes profile_block.json and the op table profile_block.txt under --out and
+prints the JSON summary.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+import torch
+
+BLOCKS = 5
+CATEGORIES = ("attention_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
+
+
+def category(kernel_name: str) -> str:
+    """Bucket a device kernel by its name."""
+    n = kernel_name.lower()
+    if "attention_kernel" in n:
+        return "attention_kernel"
+    if n.startswith("memcpy") or n.startswith("memset"):
+        return "copy/memset"
+    if "fprop" in n or "conv" in n or "cudnn" in n:
+        return "conv"
+    if "gemm" in n or "nvjet" in n or "cutlass" in n:
+        return "gemm"
+    return "elementwise/other"
+
+
+def union_length(intervals: Iterable[Tuple[float, float]]) -> float:
+    """Total length covered by possibly overlapping [start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+class PhaseTimer:
+    """Wraps callables so that each call, while enabled, is timed on the
+    device with a pair of CUDA events."""
+
+    def __init__(self):
+        self.enabled = False
+        self.events: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            if not self.enabled:
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((name, start, end))
+            return out
+        return timed
+
+    def totals_ms(self) -> Dict[str, float]:
+        torch.cuda.synchronize()
+        out: Dict[str, float] = defaultdict(float)
+        for name, start, end in self.events:
+            out[name] += start.elapsed_time(end)
+        return dict(out)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="profile_out", help="directory for the reports")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
+
+    from torch.autograd.profiler_util import FunctionEventAvg
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.serving.models import load_all
+    from realtime_video_tpu_torch.serving.params import GenerateParams
+    from realtime_video_tpu_torch.serving.session import GenerationSession
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                timestep_shift=5.0)
+    models = load_all(config, dev, seed=0)
+
+    timer = PhaseTimer()
+    vae, gen = models.vae_decoder, models.transformer
+    vae.encode_stream = timer.wrap("vae_reencode", vae.encode_stream)
+    vae.decode_block = timer.wrap("vae_decode", vae.decode_block)
+    wan_dit.context_prefill = timer.wrap("prefill", wan_dit.context_prefill)
+    make_denoise = gen.make_denoise_block_fn
+    gen.make_denoise_block_fn = lambda *a, **k: timer.wrap("denoise", make_denoise(*a, **k))
+
+    params = GenerateParams(prompt="a red fox running through snow", width=832, height=480,
+                            seed=7, num_blocks=BLOCKS, num_denoising_steps=4,
+                            kv_cache_num_frames=3)
+    session = GenerationSession(params, config, models=models,
+                                frame_callback=lambda px, ids, ev: px.float().cpu())
+    for _ in range(BLOCKS - 2):
+        session.generate_block(models)
+
+    timer.enabled = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.generate_block(models)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    timer.enabled = False
+    phases = timer.totals_ms()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("warm_block"):
+            session.generate_block(models)
+            torch.cuda.synchronize()
+
+    events = prof.events()
+    block = next(e for e in events if e.name == "warm_block")
+    span_start, span_end = block.time_range.start, block.time_range.end
+    # device kernels and copies; the range's own annotation on the GPU
+    # timeline is left out
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != "warm_block"]
+    intervals = [(max(e.time_range.start, span_start), min(e.time_range.end, span_end))
+                 for e in device]
+    busy_ms = union_length((a, b) for a, b in intervals if b > a) / 1e3
+    span_ms = (span_end - span_start) / 1e3
+    by_cat: Dict[str, float] = {c: 0.0 for c in CATEGORIES}
+    by_kernel: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_cat[category(e.name)] += ms
+        by_kernel[e.name][0] += ms
+        by_kernel[e.name][1] += 1
+    top = sorted(([ms, n, name[:140]] for name, (ms, n) in by_kernel.items()), reverse=True)
+
+    summary = {
+        "card": card, "blocks": BLOCKS, "timed_block": BLOCKS - 2,
+        "profiled_block": BLOCKS - 1,
+        "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
+        "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
+        "idle_share_of_profiled_span": 1.0 - busy_ms / span_ms,
+        "device_ms_by_category": by_cat, "top_kernels": top[:25],
+    }
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_block.json").write_text(json.dumps(summary, indent=1))
+    sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
+                else "self_cuda_time_total")
+    (out / "profile_block.txt").write_text(
+        prof.key_averages().table(sort_by=sort_key, row_limit=60))
+    print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,55 @@
+"""JAX parameter trees -> the port's parameter trees.
+
+The port keeps the JAX package's parameter layout (layer-stacked DiT blocks,
+linear weights [in, out], VAE conv weights [kt, kh, kw, ci, co]), so a tree of
+numpy leaves (e.g. `jax.device_get(params)`) converts leaf by leaf. bfloat16
+leaves (numpy's `bfloat16` extension dtype) go through float32, which is
+exact. This module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tree_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """Map dicts, lists and tuples of array leaves to torch tensors on
+    `device`; floating leaves are cast to `dtype` when it is given."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device, dtype) for v in tree)
+    return _leaf(tree, device, dtype)
+
+
+def wan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_wan_params` tree (numpy leaves) as the port's DiT params.
+    dtype applies to the bf16 leaves only; the time MLP stays f32 as in JAX."""
+    out = tree_from_numpy(tree, device)
+    if dtype is None:
+        return out
+
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.to(dtype) if node.dtype == torch.bfloat16 else node
+
+    return cast(out)
+
+
+def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_vae_params` tree (numpy leaves) as the port's VAE params."""
+    return tree_from_numpy(tree, device, dtype)

@@ -1,0 +1,69 @@
+"""The block profiler's bookkeeping (it runs on a GPU; these parts do not):
+the busy time of overlapping device intervals, the kernel buckets, the
+live-pair FLOP counts of the attention kernel against its masks, and the
+kernel-vs-plain agreement check."""
+import pytest
+import torch
+
+from realtime_video_tpu_torch.ops import hopper_attention as hk
+from realtime_video_tpu_torch.tools import profile_block as pb
+
+
+@pytest.mark.parametrize("intervals, want", [
+    ([], 0.0),
+    ([(0.0, 1.0)], 1.0),
+    ([(0.0, 2.0), (1.0, 3.0)], 3.0),          # overlap
+    ([(5.0, 6.0), (0.0, 1.0), (0.5, 0.7)], 2.0),  # unsorted, nested
+    ([(0.0, 1.0), (1.0, 2.0)], 2.0),          # touching
+])
+def test_union_length(intervals, want):
+    assert pb.union_length(intervals) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void (anonymous namespace)::attention_kernel<128>(__nv_bfloat16 const*)", "attention_kernel"),
+    ("Memcpy DtoH (Device -> Pageable)", "copy/memset"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv"),
+    ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16>", "conv"),
+    ("nvjet_tst_192x144_64x5_2x1_v_bz_coopB_NNT", "gemm"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::mul>", "elementwise/other"),
+])
+def test_category(name, want):
+    assert pb.category(name) == want
+
+
+def test_phase_timer_passes_through_when_disabled():
+    timer = pb.PhaseTimer()
+    assert timer.wrap("x", lambda a, b=1: a + b)(2, b=3) == 5
+    assert timer.events == []
+
+
+@pytest.mark.parametrize("length, block_tokens, local_window", [
+    (9360, 4680, None), (448, 192, None), (448, 192, 128), (100, 30, 10), (100, 30, 45)])
+def test_block_causal_flops_counts_the_mask(length, block_tokens, local_window):
+    mask = hk.block_causal_mask(length, length, block_tokens, length, local_window, "cpu")
+    assert hk.block_causal_flops(length, block_tokens, 3, 8, local_window) == \
+        4 * 3 * 8 * int(mask.sum())
+
+
+def test_window_flops_counts_live_columns():
+    assert hk.window_flops(4680, 1560, 9360, 12, 128) == 4 * 12 * 128 * 4680 * 7800
+    assert hk.window_flops(10, 5, 5, 1, 1) == 0
+
+
+def test_agreement_passes_rounding_and_catches_dropped_columns():
+    """On the CPU with the plain version: the plain output moved by about one
+    bf16 ulp passes; the same window missing 16 of its 940 columns fails."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 64, 2, 128), generator=g).to(torch.bfloat16),
+               torch.randn((1, 1040, 2, 128), generator=g).to(torch.bfloat16),
+               torch.randn((1, 1040, 2, 128), generator=g).to(torch.bfloat16))
+    q = hk.prescale(q, 128 ** -0.5)
+    inv = 1.0 / hk.LOG2E
+    want = hk.window_attention_plain(q, k, v, 100, 1040, scale=inv)
+    nudged = (want.float() * (1 + 2 ** -8)).to(torch.bfloat16)
+    assert hk.agreement(nudged, want)["within_tol"]
+    dropped = hk.window_attention_plain(q, k, v, 100, 1024, scale=inv)
+    res = hk.agreement(dropped, want)
+    assert not res["within_tol"] and res["rel_fro_err"] > hk.REL_FRO
