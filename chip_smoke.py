@@ -3,35 +3,58 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  1. device: the card's name and power limit (nvidia-smi), the build of the
-     hand-written attention kernel from realtime_video_tpu_torch/csrc/;
-  2. kernels against their plain PyTorch versions in bf16 at the serving
-     shapes of t2v-1.3B at 832x480 (self-attention Lq 4680 / Lk 9360 with
-     lo > 0, cross-attention Lk 512, block-causal 9360 tokens in 4680-token
-     blocks, a large-norm input whose logit bound trips the running-max
-     path), with each error against its bounds and both times, and planted
-     faults in the window's edges that the same check must catch;
+  1. device: the card's name and power limit (nvidia-smi), and the build of the
+     three hand-written kernel libraries from realtime_video_tpu_torch/csrc/
+     (one nvcc per source, all started together);
+  2. kernels against their plain PyTorch versions at the serving shapes of
+     t2v-1.3B at 832x480, with each error against its bound, the kernel's,
+     the plain version's and a library call's CUDA-event time, and the least
+     time the card could take (bound_ms), and planted faults that the same
+     checks must catch:
+       - attention (csrc/attention.cu, K1/K2) in bf16: self-attention Lq 4680 /
+         Lk 9360 with lo > 0, cross-attention Lk 512, a large-norm input whose
+         logit bound trips the running-max path, block-causal 9360 tokens in
+         4680-token blocks;
+       - the fused int8 linear (csrc/int8_mm.cu, K3) at the DiT block linears
+         (qkv, fc1, fc2 with K 8960, and o with a scale computed on the device),
+         within 1 bf16 ulp of the plain version;
+       - the kt x 3 x 3 conv (csrc/conv3x3.cu, K4/K5) at VAE shapes: s8 with
+         kt 3 at C 384 (60x104) and C 96 (480x832), kt 1 with C 3, stride 2,
+         whose int32 sums must equal the plain version's; and bf16 kt 3 with
+         bias under the attention kernel's agreement bound;
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input;
-  4. the server: `load_all` builds t2v-1.3B (random weights from a seed) and
-     the Wan 2.1 VAE in bf16 on the card, the aiohttp server listens on
-     127.0.0.1, and two WebSocket sessions of 3 blocks each (832x480, 4
-     steps, 3 KV-cache frames) must each return 30 finite JPEG frames and
-     "completed" while the attention kernels' launch counters rise and no
-     plain version sees a CUDA tensor.
+  4. the server, twice: `load_all` builds t2v-1.3B (random weights from a
+     seed) and the Wan 2.1 VAE on the card, first in bf16, then in the int8
+     tier (`enable_int8`, `enable_int8_dit`, `int8_static_scales`: calibrated
+     and quantised on the card). For each tier the aiohttp server listens on
+     127.0.0.1 and two WebSocket sessions of 3 blocks each (832x480, 4 steps,
+     3 KV-cache frames) must each return 30 finite JPEG frames and "completed";
+     the launch counters, set to 0 just before a tier's sessions and read just
+     after, must show every kernel of that tier's path, and no plain version
+     may see a CUDA tensor. Then block 0's x0 of the int8 tier must correlate
+     with the bf16 tier's (> 0.99) on the same seed and request, with a random
+     head so that the DiT's output is not zero.
 
 Before its last line it prints the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero without it, and so
-does a host without a CUDA device. Kernel and plain times are CUDA-event
-means; serving times are host-clock times at the WebSocket client.
+does a host without a CUDA device. Kernel, plain and library times are
+CUDA-event means; serving times are host-clock times at the WebSocket client.
+bound_ms is the larger of the bytes a call must move over 3.35 TB/s and its
+operations over the dense peak of their type (989 TFLOP/s bf16, 1979 TOP/s
+int8), the H100 SXM data-sheet figures at 700 W.
 """
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import subprocess
 import sys
 import time
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 
 def fail(msg: str) -> None:
@@ -43,48 +66,66 @@ def phase(name: str, **kv) -> None:
     print(json.dumps({"phase": name, **kv}), flush=True)
 
 
+def bound(bytes_moved: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
     import numpy as np
+    import torch.nn.functional as F
     from aiohttp import ClientSession, WSMsgType, web
     from msgpack import packb
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from realtime_video_tpu_torch.config import WanModelConfig, load_server_config
     from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.models.rope import RopeTables
+    from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
+    from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
     from realtime_video_tpu_torch.ops import kv_cache as kvc
     from realtime_video_tpu_torch.serving import server as server_mod
     from realtime_video_tpu_torch.serving.models import load_all
+    from realtime_video_tpu_torch.serving.params import GenerateParams
+    from realtime_video_tpu_torch.serving.session import GenerationSession
 
     # comparisons below are in full f32 on the plain side: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    kernel_mods = (hk, hm, hc)
 
-    # ---- phase 1: device and kernel build ----
+    # ---- phase 1: device and kernel builds ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
     t0 = time.perf_counter()
-    lib = hk.build()
+    libs = cuda_build.build_all([m.SOURCE for m in kernel_mods])
     build_s = time.perf_counter() - t0
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, kernel_build_s=build_s, library=lib.name,
+          cuda=torch.version.cuda, kernel_build_s=build_s,
+          libraries=[p.name for p in libs.values()],
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
           tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     # ---- phase 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def rnd(shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def rint8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
     def cuda_ms(fn, n):
         fn()
@@ -97,6 +138,7 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
 
+    # -- attention (K1, K2) --
     # The kernel receives q pre-scaled by scale*log2(e) in bf16; the plain
     # version is fed that same q (scale 1/log2 e), so the comparison holds the
     # kernel alone, under hk.agreement's bounds: elementwise atol +
@@ -115,11 +157,16 @@ def main() -> None:
     for name, mode, lq, lk, lo, arg, scale in cases:
         q = hk.prescale(rnd((1, lq, heads, hd), scale), hd ** -0.5)
         k, v = rnd((1, lk, heads, hd), scale), rnd((1, lk, heads, hd))
+        qt = q.transpose(1, 2)
         if mode == "window":
             m_bound = float(hk.logit_bound(q, k)[0])  # the bound the kernel tests
             kern = lambda: hk.window_attention(q, k, v, lo, arg, scale=inv)  # noqa: E731
             plain = lambda: hk.window_attention_plain(q, k, v, lo, arg, scale=inv)  # noqa: E731
             flop = hk.window_flops(lq, lo, arg, heads, hd)
+            io_bytes = 2.0 * heads * hd * (2 * lq + 2 * (arg - lo))
+            ks, vs = k[:, lo:arg].transpose(1, 2), v[:, lo:arg].transpose(1, 2)
+            backend, lib_mask = "flash (window slice k[:, lo:hi])", None
+            backends = [SDPBackend.FLASH_ATTENTION]
             # planted faults, which the check must catch: the window starting
             # 8 columns late (inside the tile that straddles lo), and ending
             # 16 columns early (the ragged tail past the last full tile)
@@ -130,17 +177,36 @@ def main() -> None:
             kern = lambda: hk.block_causal_attention(q, k, v, arg, scale=inv)  # noqa: E731
             plain = lambda: hk.block_causal_attention_plain(q, k, v, arg, scale=inv)  # noqa: E731
             flop = hk.block_causal_flops(lq, arg, heads, hd)
+            io_bytes = 2.0 * heads * hd * 4 * lq
+            ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            lib_mask = hk.block_causal_mask(lq, lk, arg, lk, None, dev)
+            backend, backends = None, [SDPBackend.EFFICIENT_ATTENTION,
+                                       SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
             # planted fault: the last block stops 16 columns short of kv_len
             faults = {"kv_len-16": lambda: hk._launch(q, k, v, None, hk._MODE_BLOCK_CAUSAL,
                                                       0, lk, arg, lk - 16, -1)}
         got, want = kern(), plain()
         torch.cuda.synchronize()
         res = hk.agreement(got, want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-        results[name] = dict(**res, **tol, ms=ms, plain_ms=plain_ms, logit_bound=m_bound,
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = None
+        for b in backends:  # the first backend that takes the masked call
+            try:
+                with sdpa_kernel([b]):
+                    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, ks, vs, attn_mask=lib_mask, scale=inv), 10)
+                backend = backend or f"{b.name} (boolean block mask)"
+                break
+            except RuntimeError:
+                continue
+        bound_ms, bound_by = bound(io_bytes, flop, "bf16")
+        results[name] = dict(**res, **tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             library=f"torch SDPA {backend}", bound_ms=bound_ms,
+                             bound_by=bound_by, logit_bound=m_bound,
                              tflops_live=flop / ms / 1e9)
-        phase("kernel", case=name, mode=mode, lq=lq, lk=lk, lo=lo, heads=heads, head_dim=hd,
-              **results[name], card=card)
+        phase("kernel", kernel="attention", case=name, mode=mode, lq=lq, lk=lk, lo=lo,
+              heads=heads, head_dim=hd, **results[name], card=card)
         if not res["within_tol"]:
             fail(f"{name}: kernel outside the bounds {tol} of the plain version: {res}")
         if name in ("self_attn", "block_causal"):
@@ -150,12 +216,136 @@ def main() -> None:
                       max_abs_err=bad["max_abs_err"], rel_fro_err=bad["rel_fro_err"])
                 if bad["within_tol"]:
                     fail(f"{name}: the check passes the planted fault {fault}: {bad}")
-        del q, k, v, got, want
+        del q, k, v, got, want, qt, ks, vs, lib_mask
     if results["large_norm"]["logit_bound"] < hk.STATIC_MAX_LIMIT:
         fail("the large-norm case does not reach the running-max path")
     if results["self_attn"]["logit_bound"] >= hk.STATIC_MAX_LIMIT:
         fail("the self-attention case does not take the static-max path")
     torch.cuda.empty_cache()
+
+    # -- the fused int8 linear (K3) --
+    # Quanta and s32 sums are the same on both sides (IEEE division, round
+    # half to even, exact sums), so only the f32 epilogue's bf16 rounding may
+    # differ: within 1 bf16 ulp elementwise.
+    def ulps(got, want):
+        _, exp = torch.frexp(want.float())
+        ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exp - 8).clamp_min(2.0 ** -126)
+        return ((got.float() - want.float()).abs() / ulp).max().item()
+
+    mm_results = {}
+    mm_cases = [("qkv", 4680, 1536, 4608, True), ("fc1", 4680, 1536, 8960, True),
+                ("fc2", 4680, 8960, 1536, True), ("o_dynamic", 4680, 1536, 1536, False)]
+    for name, m, kdim, n, static in mm_cases:
+        x = rnd((1, m, kdim))
+        w_q, bias = rint8((kdim, n)), rnd((n,))
+        w_scale = (torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-3)
+        a_scale = (x.float().abs().amax() * 1.5 / 127.0).reshape(1) if static \
+            else hm.dynamic_scale(x)
+        kern = lambda: hm.int8_linear(x, w_q, w_scale, a_scale, bias)  # noqa: E731
+        plain = lambda: hm.int8_linear_plain(x, w_q, w_scale, a_scale, bias)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err_ulps = ulps(got, want)
+        max_abs = (got.float() - want.float()).abs().max().item()
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 3)
+        x2 = x.reshape(m, kdim)
+
+        def library():  # quantise, torch._int_mm, dequantise: one PyTorch call each
+            xq = hm.quantize(x2, a_scale)
+            return hm.dequantize(torch._int_mm(xq, w_q), a_scale, w_scale, bias, x.dtype)
+
+        try:
+            library_ms, lib_note = cuda_ms(library, 10), "quantise + torch._int_mm + epilogue"
+        except RuntimeError as e:
+            library_ms, lib_note = None, f"torch._int_mm refused: {e}"
+        bf16_w = rnd((kdim, n))
+        bf16_matmul_ms = cuda_ms(lambda: torch.matmul(x, bf16_w), 10)
+        bound_ms, bound_by = bound(hm.int8_linear_bytes(m, kdim, n),
+                                   hm.int8_linear_ops(m, kdim, n), "int8")
+        mm_results[name] = dict(max_abs_err=max_abs, max_err_bf16_ulps=err_ulps, ms=ms,
+                                plain_ms=plain_ms, library_ms=library_ms, library=lib_note,
+                                bf16_matmul_ms=bf16_matmul_ms, bound_ms=bound_ms,
+                                bound_by=bound_by,
+                                tops=hm.int8_linear_ops(m, kdim, n) / ms / 1e9)
+        phase("kernel", kernel="int8_linear", case=name, m=m, k=kdim, n=n,
+              static_scale=static, tol_bf16_ulps=1, **mm_results[name], card=card)
+        if not (err_ulps <= 1.0 and torch.isfinite(got).all()):
+            fail(f"int8 linear {name}: {err_ulps} bf16 ulps from the plain version")
+        if name == "qkv":
+            for fault, code in (("last_k_tile_dropped", hm.FAULT_DROP_LAST_K_TILE),
+                                ("w_scale_one_column_off", hm.FAULT_W_SCALE_SHIFT)):
+                bad = ulps(hm._launch(x, w_q, w_scale, a_scale, bias, fault=code), want)
+                phase("planted_fault", case=f"int8_linear_{name}", fault=fault,
+                      caught=bad > 1.0, max_err_bf16_ulps=bad)
+                if bad <= 1.0:
+                    fail(f"the int8 linear check passes the planted fault {fault}")
+        del x, w_q, bias, got, want, bf16_w, x2
+    torch.cuda.empty_cache()
+
+    # -- the kt x 3 x 3 conv (K4/K5) --
+    pad1, down = ((1, 1), (1, 1)), ((0, 1), (0, 1))
+    conv_results = {}
+    conv_cases = [  # (name, dtype, T_in, H, W, C, Co, kt, stride, padding)
+        ("s8_kt3_c384_60x104", torch.int8, 3, 60, 104, 384, 384, 3, (1, 1), pad1),
+        ("s8_kt3_c96_480x832", torch.int8, 6, 480, 832, 96, 96, 3, (1, 1), pad1),
+        ("s8_kt1_c3_480x832", torch.int8, 1, 480, 832, 3, 96, 1, (1, 1), pad1),
+        ("s8_stride2_c96_480x832", torch.int8, 1, 480, 832, 96, 96, 1, (2, 2), down),
+        ("bf16_kt3_bias_c384_60x104", torch.bfloat16, 3, 60, 104, 384, 384, 3, (1, 1), pad1),
+    ]
+    for name, dtype, t, h, w, c, co, kt, stride, padding in conv_cases:
+        s8 = dtype == torch.int8
+        if s8:
+            x, wt, b = rint8((t, h, w, c)), rint8((kt, 3, 3, c, co)), None
+        else:
+            x, wt = rnd((t, h, w, c)), rnd((kt, 3, 3, c, co), (kt * 9 * c) ** -0.5)
+            b = rnd((co,))
+        kern = lambda: hc.conv3x3(x, wt, stride, padding, bias=b)  # noqa: E731
+        plain = lambda: hc.conv3x3_plain(x, wt, stride, padding, bias=b)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if s8:
+            ok, res = torch.equal(got, want), {"equal_int32": torch.equal(got, want)}
+        else:
+            res = hk.agreement(got, want)
+            ok = res["within_tol"]
+        max_abs = (got.float() - want.float()).abs().max().item()
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms, lib_note = None, "no PyTorch call computes an s8 convolution on CUDA"
+        if not s8:  # cuDNN on channels-last views of the same tensors
+            (ph0, ph1), (pw0, pw1) = padding
+            xl = F.pad(x.permute(3, 0, 1, 2)[None], (pw0, pw1, ph0, ph1))
+            wl = wt.permute(4, 3, 0, 1, 2)
+            library_ms = cuda_ms(lambda: F.conv3d(xl, wl, b, stride=(1, *stride)), 10)
+            lib_note = "cuDNN F.conv3d (bf16, TF32 off)"
+            del xl, wl
+        ops = hc.conv3x3_ops(x.shape, wt.shape, stride, padding)
+        bound_ms, bound_by = bound(
+            hc.conv3x3_bytes(x.shape, wt.shape, stride, padding, in_bytes=1 if s8 else 2,
+                             out_bytes=4 if s8 else 2, bias=not s8),
+            ops, "int8" if s8 else "bf16")
+        conv_results[name] = dict(res, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, library=lib_note,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  tops=ops / ms / 1e9)
+        phase("kernel", kernel="conv3x3", case=name, shape=[t, h, w, c], co=co, kt=kt,
+              stride=list(stride), padding=[list(p) for p in padding],
+              check="int32 equal" if s8 else f"agreement atol {hk.ATOL} rtol {hk.RTOL} "
+              f"rel_fro {hk.REL_FRO}", **conv_results[name], card=card)
+        if not ok:
+            fail(f"conv {name}: kernel disagrees with its plain version: {res}")
+        if name == "s8_kt3_c384_60x104":
+            for fault, code in (("halo_row_zeroed", hc.FAULT_ZERO_HALO_ROW),
+                                ("last_ci_chunk_dropped", hc.FAULT_DROP_LAST_CI_CHUNK)):
+                bad = hc._launch(x, wt, stride, padding, fault=code)
+                caught = not torch.equal(bad, want)
+                phase("planted_fault", case=f"conv3x3_{name}", fault=fault, caught=caught,
+                      elements_differing=int((bad != want).sum()))
+                if not caught:
+                    fail(f"the conv check passes the planted fault {fault}")
+        del x, wt, b, got, want
+        torch.cuda.empty_cache()
 
     # ---- phase 3: a small DiT block step on the card against the CPU ----
     small = WanModelConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2)
@@ -195,13 +385,7 @@ def main() -> None:
     if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all()):
         fail(f"small DiT block step on the card disagrees with the CPU: {rel}")
 
-    # ---- phase 4: the server ----
-    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                timestep_shift=5.0)
-    t0 = time.perf_counter()
-    models = load_all(config, dev, seed=0)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    # ---- phase 4: the server, bf16 tier then int8 tier ----
     request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
                "seed": 7, "num_blocks": 3, "num_denoising_steps": 4,
                "kv_cache_num_frames": 3}
@@ -216,7 +400,7 @@ def main() -> None:
 
     server_mod._jpeg_bytes = checked_jpeg
 
-    async def drive():
+    async def drive(config, models, sids):
         app = server_mod.create_app(config, models)
         runner = web.AppRunner(app)
         await runner.setup()
@@ -226,7 +410,7 @@ def main() -> None:
         sessions = []
         try:
             async with ClientSession() as client:
-                for sid in ("smoke-0", "smoke-1"):
+                for sid in sids:
                     async with client.ws_connect(f"http://127.0.0.1:{port}/session/{sid}",
                                                  max_msg_size=0) as ws:
                         ready = await ws.receive_json(timeout=60)
@@ -252,49 +436,114 @@ def main() -> None:
             await runner.cleanup()
         return sessions
 
-    hk.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    sessions = asyncio.run(drive())
-    launches, plain_on_cuda = dict(hk.LAUNCHES), dict(hk.PLAIN_ON_CUDA)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    head_gen = torch.Generator(device=dev).manual_seed(11)
+    head_w = None
 
-    for sid, t_send, stamps, sizes, final, frames in sessions:
-        if final != {"session_id": sid, "status": "completed"}:
-            fail(f"{sid}: final message {final}")
-        if len(stamps) != 30:
-            fail(f"{sid}: {len(stamps)} frames, expected 30")
-        if len(frames) != 30 or any(shape != (3, 480, 832) or not finite
-                                    for shape, finite, _ in frames):
-            fail(f"{sid}: encoded frames {[(s, f) for s, f, _ in frames]}")
-        ends = [stamps[5], stamps[17], stamps[29]]  # blocks end at frames 6, 18, 30
-        block_s = [ends[0] - t_send, ends[1] - ends[0], ends[2] - ends[1]]
-        phase("session", session=sid, frames=len(stamps), jpeg_bytes_mean=float(np.mean(sizes)),
-              ttff_ms=(stamps[0] - t_send) * 1e3, block_ms=[b * 1e3 for b in block_s],
-              fps_warm=24 / (ends[2] - ends[0]), fps_session=30 / (ends[2] - t_send),
-              pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
-    phase("server", model="t2v-1.3B", tier="bf16", load_s=load_s, peak_mem_gib=peak_gb,
-          launches=launches, plain_on_cuda=plain_on_cuda, card=card)
-    if launches["window"] <= 0 or launches["block_causal"] <= 0:
-        fail(f"a kernel of the path was not launched: {launches}")
-    if any(plain_on_cuda.values()):
-        fail(f"a plain version ran on a CUDA tensor in the serving path: {plain_on_cuda}")
+    def block0_x0(models):
+        """Block 0's x0 of a direct session, with the DiT head given random
+        weights (its init is zero, which would make every flow zero)."""
+        head = models.transformer.params["head"]["head"]
+        saved = head["w"]
+        head["w"] = head_w.to(saved.dtype)
+        try:
+            session = GenerationSession(GenerateParams(**request), config, models=models,
+                                        frame_callback=lambda *a: None)
+            session.generate_block_internal(models)
+            return session.all_latents[:, :3].float().cpu()
+        finally:
+            head["w"] = saved
 
-    src = "realtime_video_tpu_torch/csrc/attention.cu"
+    tiers = {}
+    kernel_paths = {"bf16": ("window", "block_causal"),
+                    "int8": ("window", "block_causal", "int8_linear", "conv3x3")}
+    for tier, flags in (("bf16", {}), ("int8", {"enable_int8": True, "enable_int8_dit": True,
+                                               "int8_static_scales": True})):
+        config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                    timestep_shift=5.0, **flags)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = load_all(config, dev, seed=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if head_w is None:
+            shape = models.transformer.params["head"]["head"]["w"].shape
+            head_w = torch.randn(shape, generator=head_gen, device=dev) * 0.05
+
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sessions = asyncio.run(drive(config, models, (f"{tier}-0", f"{tier}-1")))
+        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+        plain_on_cuda = {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+        for sid, t_send, stamps, sizes, final, frames in sessions:
+            if final != {"session_id": sid, "status": "completed"}:
+                fail(f"{sid}: final message {final}")
+            if len(stamps) != 30:
+                fail(f"{sid}: {len(stamps)} frames, expected 30")
+            if len(frames) != 30 or any(shape != (3, 480, 832) or not finite
+                                        for shape, finite, _ in frames):
+                fail(f"{sid}: encoded frames {[(s, f) for s, f, _ in frames]}")
+            ends = [stamps[5], stamps[17], stamps[29]]  # blocks end at frames 6, 18, 30
+            block_s = [ends[0] - t_send, ends[1] - ends[0], ends[2] - ends[1]]
+            phase("session", tier=tier, session=sid, frames=len(stamps),
+                  jpeg_bytes_mean=float(np.mean(sizes)),
+                  ttff_ms=(stamps[0] - t_send) * 1e3, block_ms=[b * 1e3 for b in block_s],
+                  fps_warm=24 / (ends[2] - ends[0]), fps_session=30 / (ends[2] - t_send),
+                  pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
+        phase("server", model="t2v-1.3B", tier=tier, load_and_calibrate_s=load_s,
+              peak_mem_gib=peak_gb, launches=launches, plain_on_cuda=plain_on_cuda,
+              card=card)
+        missing = [k for k in kernel_paths[tier] if launches.get(k, 0) <= 0]
+        if missing:
+            fail(f"{tier} tier: kernels of the path not launched: {missing} ({launches})")
+        if any(plain_on_cuda.values()):
+            fail(f"{tier} tier: a plain version ran on a CUDA tensor: {plain_on_cuda}")
+        tiers[tier] = dict(launches=launches, x0=block0_x0(models))
+        del models, sessions
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    a, b = tiers["int8"]["x0"].flatten(), tiers["bf16"]["x0"].flatten()
+    corr = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    phase("int8_vs_bf16", block0_x0_corr=corr, bar=0.99, finite=bool(torch.isfinite(a).all()))
+    if not (corr > 0.99 and torch.isfinite(a).all()):
+        fail(f"int8 tier's block-0 x0 does not track the bf16 tier's: corr {corr}")
+
+    def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max_abs_err, "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+                **(extra or {})}
+
+    bf16_l, int8_l = tiers["bf16"]["launches"], tiers["int8"]["launches"]
+    attn_src = "realtime_video_tpu_torch/csrc/attention.cu"
     kernels = [
-        {"name": "window_attention (K1 static-max; in-kernel running-max fallback)",
-         "route": "cuda", "source": src,
-         "replaces": "realtime_video_tpu/ops/pallas_attention.py:220",
-         "launches": launches["window"],
-         "max_abs_err": max(results["self_attn"]["max_abs_err"],
-                            results["cross_attn"]["max_abs_err"]),
-         "fallback_max_abs_err": results["large_norm"]["max_abs_err"],
-         "ms": results["self_attn"]["ms"], "plain_ms": results["self_attn"]["plain_ms"]},
-        {"name": "block_causal_attention (K2 running-max flash, block-causal mode)",
-         "route": "cuda", "source": src,
-         "replaces": "realtime_video_tpu/ops/pallas_attention.py:97",
-         "launches": launches["block_causal"],
-         "max_abs_err": results["block_causal"]["max_abs_err"],
-         "ms": results["block_causal"]["ms"], "plain_ms": results["block_causal"]["plain_ms"]},
+        entry("window_attention (K1 static-max; in-kernel running-max fallback)", attn_src,
+              "realtime_video_tpu/ops/pallas_attention.py:220", bf16_l["window"],
+              results["self_attn"], max(results["self_attn"]["max_abs_err"],
+                                        results["cross_attn"]["max_abs_err"]),
+              {"fallback_max_abs_err": results["large_norm"]["max_abs_err"],
+               "launches_int8_path": int8_l["window"]}),
+        entry("block_causal_attention (K2 running-max flash, block-causal mode)", attn_src,
+              "realtime_video_tpu/ops/pallas_attention.py:97", bf16_l["block_causal"],
+              results["block_causal"], results["block_causal"]["max_abs_err"],
+              {"launches_int8_path": int8_l["block_causal"]}),
+        entry("int8_linear (K3a/K3b fused quantise + s8 mma + dequant)",
+              "realtime_video_tpu_torch/csrc/int8_mm.cu",
+              "realtime_video_tpu/ops/pallas_int8_mm.py:42", int8_l["int8_linear"],
+              mm_results["qkv"], max(r["max_abs_err"] for r in mm_results.values()),
+              {"case": "qkv 4680x1536x4608",
+               "replaces_also": "realtime_video_tpu/ops/pallas_int8_mm.py:62"}),
+        entry("conv3x3 (K4 3x3 conv with K5's kt x 3 x 3 + bias form)",
+              "realtime_video_tpu_torch/csrc/conv3x3.cu",
+              "realtime_video_tpu/ops/pallas_conv2.py:67", int8_l["conv3x3"],
+              conv_results["s8_kt3_c96_480x832"],
+              max(r["max_abs_err"] for r in conv_results.values()),
+              {"case": "s8 kt3 C96 480x832",
+               "replaces_also": "realtime_video_tpu/ops/pallas_conv.py:53"}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

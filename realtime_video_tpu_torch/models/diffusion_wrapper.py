@@ -3,14 +3,16 @@ one forward returning (flow_pred, pred_x0, kv) and the per-block denoise loop.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from realtime_video_tpu_torch.config import WAN_CONFIGS, WanModelConfig
 from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.rope import RopeTables
+from realtime_video_tpu_torch.ops import kv_cache as kvc
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule
+from realtime_video_tpu_torch.utils.device import resolve_device
 
 #: draws renoise for one denoising step: (shape, dtype, device) -> tensor
 NoiseFn = Callable[[Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
@@ -27,7 +29,9 @@ def generator_noise(generator: torch.Generator) -> NoiseFn:
 
 
 class WanDiffusion:
-    """Holds (cfg, params, schedule, rope) on one device."""
+    """Holds (cfg, params, schedule, rope) on one device. Without `params` it
+    random-initialises them from `seed` on `device` (default: the CUDA card;
+    pass device="cpu" for the CPU); with them, it runs where they lie."""
 
     def __init__(self, cfg: Optional[WanModelConfig] = None, params=None,
                  model_name: str = "t2v-1.3B", timestep_shift: float = 5.0,
@@ -36,7 +40,8 @@ class WanDiffusion:
         if cfg is None:
             cfg = WAN_CONFIGS[model_name]
         if params is None:
-            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            device = resolve_device(device)
+            gen = torch.Generator(device=device).manual_seed(seed)
             params = wan_dit.init_wan_params(cfg, gen, device, dtype)
         if fuse_qkv:
             params = wan_dit.fuse_qkv_params(params)
@@ -49,13 +54,57 @@ class WanDiffusion:
             shift=timestep_shift, sigma_min=0.0, extra_one_step=True, device=self.device)
         self.rope = RopeTables.create(cfg.head_dim, device=self.device)
 
+    def calibrate_act_scales(self, steps: Sequence[float], lat_h: int = 16, lat_w: int = 16,
+                             kv_frames: int = 6, nfpb: int = 3,
+                             noisy: Optional[Sequence[torch.Tensor]] = None,
+                             context: Optional[torch.Tensor] = None,
+                             seed: int = 0) -> Dict[Tuple[str, str], torch.Tensor]:
+        """Per-(site, layer) activation maxima over eager float decode forwards
+        at each denoise timestep plus the t=0 context refresh, the KV cache
+        carried from one to the next (diffusion_wrapper.py:84-172 of the JAX
+        package, its eager form). Feed the result to
+        wan_dit.quantize_wan_linears(act_scales=); call it before quantising.
+
+        `noisy` (one [1, nfpb, in_dim, lat_h, lat_w] latent per timestep) and
+        `context` ([1, T, text_dim]) default to normal draws from `seed`."""
+        cfg = self.cfg
+        sa = self.params["blocks"]["self_attn"]
+        if "w" not in sa.get("qkv", sa.get("q", {})):
+            raise ValueError("calibrate on float params, before quantising")
+        fsl = cfg.frame_seq_length(lat_h, lat_w)
+        cache_size = kv_frames * fsl
+        ts = [float(t) for t in steps]
+        if not ts or ts[-1] != 0.0:  # cover the t=0 refresh pass once
+            ts.append(0.0)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if noisy is None:
+            noisy = [torch.randn((1, nfpb, cfg.in_dim, lat_h, lat_w), generator=gen,
+                                 device=self.device) for _ in ts]
+        if context is None:
+            context = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                                  device=self.device)
+        if len(noisy) != len(ts):
+            raise ValueError(f"{len(noisy)} noisy latents for {len(ts)} timesteps")
+        cross = self.compute_crossattn_cache(context.to(self.device, self.dtype))
+        # a bf16 cache whatever the params' dtype, as the JAX method's default
+        kv = kvc.init_kv_cache(cfg.num_layers, 1, cache_size, cfg.num_heads, cfg.head_dim,
+                               torch.bfloat16, self.device)
+        records: list = []
+        for x, t in zip(noisy, ts):
+            tt = torch.full((1, nfpb), t, dtype=torch.float32, device=self.device)
+            _, _, kv = self.forward(x.to(self.device, self.dtype), cross, tt, kv,
+                                    (kv_frames - nfpb) * fsl, "decode", cache_size,
+                                    act_calib=records)
+        return wan_dit.calibrate_wan_act_scales(records, self.params["blocks"], cfg.num_layers)
+
     def compute_crossattn_cache(self, prompt_embeds: torch.Tensor) -> Dict[str, torch.Tensor]:
         return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds)
 
     def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
                 kv_cache: Dict, current_start: int = 0, mode: str = "decode",
                 max_attention_size: Optional[int] = None,
-                schedule: Optional[FlowMatchSchedule] = None):
+                schedule: Optional[FlowMatchSchedule] = None,
+                act_calib: Optional[list] = None):
         """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
         (wan_wrapper.py:230-301)."""
         t = timestep.to(torch.float32)
@@ -65,7 +114,8 @@ class WanDiffusion:
         flow, kv = wan_dit.dit_forward(
             self.cfg, self.params, noisy, t, self.rope, crossattn_cache, mode=mode,
             kv_cache=kv_cache, current_start=current_start,
-            max_attention_size=max_attention_size, layers=self.layers)
+            max_attention_size=max_attention_size, layers=self.layers,
+            act_calib=act_calib)
         x0 = (schedule or self.schedule).flow_to_x0(flow, noisy, t)
         return flow, x0, kv
 

@@ -1,5 +1,5 @@
-"""Wan 2.1 causal 3D VAE in PyTorch, bf16, `conv` formulation (port of
-realtime_video_tpu/models/vae.py).
+"""Wan 2.1 causal 3D VAE in PyTorch, `conv` formulation, bf16 and int8 tiers
+(port of realtime_video_tpu/models/vae.py).
 
 Same architecture, layout and cache semantics as the JAX package:
   * activations are THWC (time is the conv batch axis, channels last);
@@ -10,9 +10,19 @@ Same architecture, layout and cache semantics as the JAX package:
     the chunk, and each conv's new cache is the last CACHE_T frames
     (vae.py:379-428); caches are a flat tuple in a fixed traversal order.
 
-The 2D convs are `torch.nn.functional.conv2d` on a channels-last view of the
-THWC tensor (no copy), as the JAX package leaves them to `lax.conv`. Weights
-keep the JAX layout: conv3d [kt, kh, kw, ci, co], conv2d [kh, kw, ci, co].
+The bf16 tier's 2D convs are `torch.nn.functional.conv2d` on a channels-last
+view of the THWC tensor (no copy), as the JAX package leaves them to
+`lax.conv`. Weights keep the JAX layout: conv3d [kt, kh, kw, ci, co], conv2d
+[kh, kw, ci, co].
+
+The int8 tier (`quantize_vae_params`: the 3x3 convs carry `w_q` [kt, 3, 3,
+ci, co] s8, per-output-channel `scale`, and a static `a_scale` from
+`calibrate_vae_act_scales` or none for a per-call amax) quantises each conv's
+input per tensor and runs the kt x 3 x 3 s8 conv in one kernel
+(`ops/hopper_conv.py`) with the temporal taps, the zero halos and the stride
+inside it, so neither the tap concat nor a padded copy is written; the int32
+sums are then dequantised. Calibration passes a record dict down the graph
+(`calib`), keyed by the id of each float conv's param dict.
 """
 from __future__ import annotations
 
@@ -23,19 +33,25 @@ import torch
 import torch.nn.functional as F
 
 from realtime_video_tpu_torch.config import VAE_LATENT_MEAN, VAE_LATENT_STD, VAEConfig
+from realtime_video_tpu_torch.ops import hopper_conv, hopper_int8_mm
 
 Params = Dict[str, Any]
 Cache = Tuple[torch.Tensor, ...]
+#: calibration records: id(param dict) -> max|input| over the calls
+Calib = Dict[int, torch.Tensor]
 
 CACHE_T = 2
 
 
 class _CacheIO:
     """Threads the flat cache tuple through the module graph in its static
-    traversal order: `get` reads the next entry, `put` appends an update."""
+    traversal order: `get` reads the next entry, `put` appends an update. It
+    also carries the calibration records, if any, down the graph."""
 
-    def __init__(self, entries: Optional[Sequence[torch.Tensor]]):
+    def __init__(self, entries: Optional[Sequence[torch.Tensor]],
+                 calib: Optional[Calib] = None):
         self.entries = list(entries) if entries is not None else None
+        self.calib = calib
         self.out: List[torch.Tensor] = []
         self.i = 0
 
@@ -68,10 +84,47 @@ def _spatial_conv(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     return y.permute(0, 2, 3, 1)
 
 
+def _record_calib(calib: Optional[Calib], p: Params, x: torch.Tensor) -> None:
+    """Keep max|x| of a float conv's input under id(p) (stays on the device)."""
+    if calib is not None:
+        amax = x.float().abs().amax()
+        prev = calib.get(id(p))
+        calib[id(p)] = amax if prev is None else torch.maximum(prev, amax)
+
+
+def _quantize_act(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor int8 activation quantisation with the static `a_scale`, or
+    a per-call amax when there is none. Returns (xq int8, a_scale f32 0-d)."""
+    if "a_scale" in p:
+        a_scale = p["a_scale"].float()
+    else:
+        a_scale = hopper_int8_mm.dynamic_scale(x).reshape(())
+    return hopper_int8_mm.quantize(x, a_scale), a_scale
+
+
+def _int8_conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
+                 padding=((0, 0), (0, 0))) -> torch.Tensor:
+    """int8 conv: quantise x [T, H, W, C] per tensor, run the s8 conv of
+    w_q [kt, 3, 3, ci, co] with its temporal taps inside the kernel, and
+    dequantise the int32 sums with a_scale * scale[co] + b in f32
+    (vae.py:325-341 of the JAX package, whose w_q arrives tap-merged)."""
+    xq, a_scale = _quantize_act(p, x)
+    # the bf16 convs hand back channels-last views; the kernel reads [T, H, W, C]
+    yq = hopper_conv.conv3x3(xq.contiguous(), p["w_q"], stride, padding)
+    y = yq.float() * (a_scale * p["scale"].float())
+    return (y + p["b"].float()).to(x.dtype)
+
+
 def conv3d(p: Params, x: torch.Tensor, stride=(1, 1, 1),
-           padding=((0, 0), (0, 0))) -> torch.Tensor:
+           padding=((0, 0), (0, 0)), calib: Optional[Calib] = None) -> torch.Tensor:
     """3D conv as kt 2D convs: y[t] = sum_i conv2d(x[st*t + i], w[i]); with
-    stride 1 the taps are channel-concatenated into one wide conv."""
+    stride 1 the taps are channel-concatenated into one wide conv. On int8
+    weights one kernel takes all kt taps."""
+    if "w_q" in p:
+        if stride[0] != 1:
+            raise ValueError("the int8 tier has no strided temporal conv")
+        return _int8_conv2d(p, x, stride[1:], padding)
+    _record_calib(calib, p, x)
     w = p["w"].to(x.dtype)  # [kt, kh, kw, ci, co]
     kt, kh, kw = w.shape[:3]
     st, sh, sw = stride
@@ -93,7 +146,10 @@ def conv3d(p: Params, x: torch.Tensor, stride=(1, 1, 1),
 
 
 def conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
-           padding=((0, 0), (0, 0))) -> torch.Tensor:
+           padding=((0, 0), (0, 0)), calib: Optional[Calib] = None) -> torch.Tensor:
+    if "w_q" in p:  # [1, kh, kw, ci, co]
+        return _int8_conv2d(p, x, stride, padding)
+    _record_calib(calib, p, x)
     y = _spatial_conv(x, p["w"].to(x.dtype), stride, padding)
     return y + p["b"].to(x.dtype)
 
@@ -103,7 +159,8 @@ def causal_conv3d(p: Params, x: torch.Tensor, cache: Optional[torch.Tensor],
     """CausalConv3d with the cache splice (vae.py:17-36) and cache update
     (the last CACHE_T input frames, carrying a cached frame over when the
     chunk is shorter)."""
-    kt, kh, kw = p["w"].shape[:3]
+    key = "w_q" if "w_q" in p else "w"
+    kt, kh, kw = p[key].shape[:3]
     pad_t, pad_h, pad_w = 2 * (kt // 2), kh // 2, kw // 2
     spad = ((pad_h, pad_h), (pad_w, pad_w))
     if pad_t > 0:
@@ -111,8 +168,10 @@ def causal_conv3d(p: Params, x: torch.Tensor, cache: Optional[torch.Tensor],
             # fresh single-frame chunk (the anti-drift re-encode and the first
             # decode chunk): the zero-padded taps contribute nothing, so only
             # the last tap's 2D conv runs
+            _record_calib(io.calib, p, x)  # under the original param dict
             io.put(torch.cat([torch.zeros_like(x), x], dim=0)[-CACHE_T:])
-            return conv3d(dict(p, w=p["w"][kt - 1:]), x, stride=stride, padding=spad)
+            return conv3d(dict(p, **{key: p[key][kt - 1:]}), x, stride=stride,
+                          padding=spad, calib=io.calib)
         if cache is None:
             xin = F.pad(x, (0, 0, 0, 0, 0, 0, pad_t, 0))
             new_cache = x[-CACHE_T:]
@@ -127,7 +186,7 @@ def causal_conv3d(p: Params, x: torch.Tensor, cache: Optional[torch.Tensor],
         io.put(new_cache)
     else:
         xin = x
-    return conv3d(p, xin, stride=stride, padding=spad)
+    return conv3d(p, xin, stride=stride, padding=spad, calib=io.calib)
 
 
 def rms_norm_image(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +204,7 @@ def residual_block(p: Params, x: torch.Tensor, io: _CacheIO) -> torch.Tensor:
     """ResidualBlock (vae.py:175-209): RMS-SiLU-conv x2 + shortcut."""
     h = x
     if "shortcut" in p:
-        h = conv3d(p["shortcut"], x)
+        h = conv3d(p["shortcut"], x, calib=io.calib)
     y = F.silu(rms_norm_image(p["norm1"], x))
     y = causal_conv3d(p["conv1"], y, io.get(), io)
     y = F.silu(rms_norm_image(p["norm2"], y))
@@ -178,7 +237,8 @@ def resample(p: Params, mode: str, x: torch.Tensor, io: _CacheIO,
         else:
             cache = io.get()
             xin = torch.cat([cache.to(x.dtype), x], dim=0)
-            y = conv3d(p["time_conv"], xin)  # (3,1,1) valid -> t frames, 2c channels
+            # (3,1,1) valid -> t frames, 2c channels
+            y = conv3d(p["time_conv"], xin, calib=io.calib)
             if t >= CACHE_T:
                 new_cache = x[-CACHE_T:]
             else:
@@ -195,10 +255,10 @@ def resample(p: Params, mode: str, x: torch.Tensor, io: _CacheIO,
         # nearest 2x, then a 3x3 conv dim -> dim // 2
         up = x[:, :, None, :, None, :].expand(t, hh, 2, ww, 2, c).reshape(
             t, 2 * hh, 2 * ww, c)
-        x = conv2d(p["conv"], up, (1, 1), padding=((1, 1), (1, 1)))
+        x = conv2d(p["conv"], up, (1, 1), padding=((1, 1), (1, 1)), calib=io.calib)
     elif mode in ("downsample2d", "downsample3d"):
         # ZeroPad2d (0,1,0,1) + 3x3 stride-2 conv (vae.py:90-98)
-        x = conv2d(p["conv"], x, (2, 2), padding=((0, 1), (0, 1)))
+        x = conv2d(p["conv"], x, (2, 2), padding=((0, 1), (0, 1)), calib=io.calib)
 
     if mode == "downsample3d":
         if first:
@@ -207,7 +267,7 @@ def resample(p: Params, mode: str, x: torch.Tensor, io: _CacheIO,
             cache = io.get()
             pre = x
             xin = torch.cat([cache[-1:].to(x.dtype), x], dim=0)
-            x = conv3d(p["time_conv"], xin, stride=(2, 1, 1))
+            x = conv3d(p["time_conv"], xin, stride=(2, 1, 1), calib=io.calib)
             io.put(pre[-1:])
     return x
 
@@ -246,9 +306,10 @@ def _decoder_plan(cfg: VAEConfig):
 
 
 def encoder_apply(cfg: VAEConfig, params: Params, x: torch.Tensor,
-                  cache: Optional[Cache], first: bool) -> Tuple[torch.Tensor, Cache]:
+                  cache: Optional[Cache], first: bool,
+                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
     """Encoder3d (vae.py:254-345). x [T, H, W, 3] -> [T', H/8, W/8, 2z]."""
-    io = _CacheIO(cache)
+    io = _CacheIO(cache, calib)
     x = causal_conv3d(params["conv1"], x, io.get(), io)
     _, plan = _encoder_plan(cfg)
     for spec, p in zip(plan, params["downsamples"]):
@@ -265,9 +326,10 @@ def encoder_apply(cfg: VAEConfig, params: Params, x: torch.Tensor,
 
 
 def decoder_apply(cfg: VAEConfig, params: Params, x: torch.Tensor,
-                  cache: Optional[Cache], first: bool) -> Tuple[torch.Tensor, Cache]:
+                  cache: Optional[Cache], first: bool,
+                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
     """Decoder3d (vae.py:348-446). x [T, h, w, z] -> [~4T, 8h, 8w, 3]."""
-    io = _CacheIO(cache)
+    io = _CacheIO(cache, calib)
     x = causal_conv3d(params["conv1"], x, io.get(), io)
     x = residual_block(params["middle_res1"], x, io)
     x = attention_block(params["middle_attn"], x)
@@ -389,8 +451,8 @@ def latent_scale(cfg: VAEConfig, device=None) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
-                  cache: Optional[Cache] = None,
-                  stream: bool = False) -> Tuple[torch.Tensor, Cache]:
+                  cache: Optional[Cache] = None, stream: bool = False,
+                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
     """Chunked encode of video [1, T, H, W, 3]: chunks 1,4,4,... fresh
     (vae.py:491-517) or 4,4,... streaming. Returns normalised latents
     [1, Tz, h, w, z] and the cache."""
@@ -402,7 +464,8 @@ def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
     if not stream:
         if cache is not None:
             raise ValueError("pass stream=True to continue a warm encode")
-        z, cache = encoder_apply(cfg, params["encoder"], vid[:1], None, first=True)
+        z, cache = encoder_apply(cfg, params["encoder"], vid[:1], None, first=True,
+                                 calib=calib)
         outs.append(z)
         rest = range(1, t, 4)
     else:
@@ -410,10 +473,11 @@ def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
             raise ValueError("streaming encode needs a warm cache")
         rest = range(0, t, 4)
     for s in rest:
-        z, cache = encoder_apply(cfg, params["encoder"], vid[s:s + 4], cache, first=False)
+        z, cache = encoder_apply(cfg, params["encoder"], vid[s:s + 4], cache, first=False,
+                                 calib=calib)
         outs.append(z)
     out = torch.cat(outs, dim=0)
-    mu, _log_var = conv3d(params["conv1"], out).chunk(2, dim=-1)
+    mu, _log_var = conv3d(params["conv1"], out, calib=calib).chunk(2, dim=-1)
     mean, std = latent_scale(cfg, video.device)
     mu = (mu.float() - mean) / std
     return mu.to(video.dtype)[None], cache
@@ -421,7 +485,7 @@ def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
 
 def decode_chunks(cfg: VAEConfig, params: Params, latents: torch.Tensor,
                   cache: Optional[Cache] = None, first: Optional[bool] = None,
-                  chunk: int = 1) -> Tuple[torch.Tensor, Cache]:
+                  chunk: int = 1, calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
     """Streaming decode of normalised latents [1, Tz, h, w, z] (vae.py:519-567).
 
     The first chunk of a stream (cache None) skips temporal upsampling for
@@ -433,17 +497,101 @@ def decode_chunks(cfg: VAEConfig, params: Params, latents: torch.Tensor,
         raise ValueError("streaming VAE paths are single-stream (B=1)")
     mean, std = latent_scale(cfg, latents.device)
     z = (latents[0].float() * std + mean).to(latents.dtype)
-    x = conv3d(params["conv2"], z)
+    x = conv3d(params["conv2"], z, calib=calib)
     outs = []
     start = 0
     if first:
-        y, cache = decoder_apply(cfg, params["decoder"], x[:1], cache, first=True)
+        y, cache = decoder_apply(cfg, params["decoder"], x[:1], cache, first=True,
+                                 calib=calib)
         outs.append(y)
         start = 1
     while start < x.shape[0]:
         stop = min(start + chunk, x.shape[0])
-        y, cache = decoder_apply(cfg, params["decoder"], x[start:stop], cache, first=False)
+        y, cache = decoder_apply(cfg, params["decoder"], x[start:stop], cache, first=False,
+                                 calib=calib)
         outs.append(y)
         start = stop
     out = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
     return torch.clamp(out.float(), -1.0, 1.0)[None], cache
+
+
+# ---------------------------------------------------------------------------
+# int8 tier: calibration and quantisation
+# ---------------------------------------------------------------------------
+
+
+def calibrate_vae_act_scales(cfg: VAEConfig, params: Params, latents: torch.Tensor,
+                             pixels: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """Per-conv max|input| over a float streaming decode of latents [1, Tz, h,
+    w, z] (first chunk, then one latent at a time) and, with pixels [1, T, H,
+    W, 3], a fresh encode: {tree path: amax} for quantize_vae_params
+    (vae.py:762-791 of the JAX package). Path keys survive copies of the
+    tree between calibration and quantisation."""
+    calib: Calib = {}
+    _, cache = decode_chunks(cfg, params, latents[:, :1], None, first=True, calib=calib)
+    for i in range(1, latents.shape[1]):
+        _, cache = decode_chunks(cfg, params, latents[:, i:i + 1], cache, first=False,
+                                 calib=calib)
+    if pixels is not None:
+        encode_chunks(cfg, params, pixels, None, stream=False, calib=calib)
+    return {path: float(calib[id(node)]) for path, node in _walk_paths(params)
+            if id(node) in calib}
+
+
+def _walk_paths(node, path=""):
+    """Yield (path, node) for every dict node of a VAE param tree."""
+    if isinstance(node, dict):
+        yield path, node
+        for k, v in node.items():
+            yield from _walk_paths(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _walk_paths(v, f"{path}/{i}")
+
+
+def quantize_vae_params(params: Params, act_scales: Optional[Dict[str, float]] = None,
+                        margin: float = 1.5) -> Params:
+    """int8-quantise the 3x3 spatial convs of a VAE param tree in torch on the
+    parameters' device (vae.py:805-874 of the JAX package): w_q [kt, 3, 3, ci,
+    co] (conv2d weights gain a leading kt = 1) with per-output-channel scales,
+    encoder and decoder both. 1x1 convs, time convs, attention and norms stay
+    as they are. Convs found in `act_scales` get a static activation scale
+    amax * margin / 127."""
+    attached = [0]
+
+    def quant(p, path):
+        w = p["w"].float()
+        if w.dim() == 5:  # conv3d [kt, kh, kw, ci, co]
+            if w.shape[1] != 3:  # 1x1 spatial and time convs stay float
+                return p
+            wq5 = w
+        elif w.dim() == 4:  # conv2d [kh, kw, ci, co]
+            if w.shape[0] != 3:
+                return p
+            wq5 = w[None]
+        else:
+            return p
+        co = wq5.shape[-1]
+        scale = torch.clamp(wq5.abs().reshape(-1, co).amax(dim=0), min=1e-8) / 127.0
+        out = {"w_q": torch.clamp(torch.round(wq5 / scale), -127, 127).to(torch.int8),
+               "scale": scale, "b": p["b"]}
+        if act_scales and path in act_scales:
+            out["a_scale"] = torch.tensor(max(act_scales[path], 1e-6) * margin / 127.0,
+                                          dtype=torch.float32, device=w.device)
+            attached[0] += 1
+        return out
+
+    def walk(node, path=""):
+        if isinstance(node, dict):
+            if "w" in node and "b" in node and torch.is_tensor(node["w"]):
+                return quant(node, path)
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+        return node
+
+    out = walk(params)
+    if act_scales and not attached[0]:
+        raise ValueError("act_scales attached to no conv: its paths do not match this "
+                         "param tree")
+    return out

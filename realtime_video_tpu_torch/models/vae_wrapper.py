@@ -11,15 +11,21 @@ import torch
 
 from realtime_video_tpu_torch.config import VAE_CONFIGS, VAEConfig
 from realtime_video_tpu_torch.models import vae as vae_mod
+from realtime_video_tpu_torch.utils.device import resolve_device
 
 
 class VAEWrapper:
+    """Holds (cfg, params). Without `params` it random-initialises them from
+    `seed` on `device` (default: the CUDA card; pass device="cpu" for the
+    CPU); with them, it runs where they lie, bf16 or int8 tier alike."""
+
     def __init__(self, cfg: Optional[VAEConfig] = None, params=None, device=None,
                  dtype=torch.bfloat16, seed: int = 0):
         if cfg is None:
             cfg = VAE_CONFIGS["wan2.1"]
         if params is None:
-            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            device = resolve_device(device)
+            gen = torch.Generator(device=device).manual_seed(seed)
             params = vae_mod.init_vae_params(cfg, gen, device, dtype)
         self.cfg = cfg
         self.params = params

@@ -14,11 +14,20 @@ transformer blocks stacked on a leading layer axis, linear weights `w` as
 
 AdaLN modulation is per frame ([B, F, 6, C], causal_model.py:463-491).
 Numerics as in the JAX package: params and activations bf16, norms, RoPE and
-the time MLP in f32. The block linears are plain `torch.matmul`, as the JAX
-package leaves them to `jnp.dot`; attention goes through `ops/attention.py`.
+the time MLP in f32. Attention goes through `ops/attention.py`.
+
+Two tiers of block linears, chosen by the parameters:
+  * bf16 (`w`): plain `torch.matmul`, as the JAX package leaves them to `jnp.dot`;
+  * int8 (`w_q` [in, out] s8, `scale` [out] f32 per output channel, `a_scale`
+    a static per-tensor activation scale, or none for a per-call amax):
+    `quantize_wan_linears` makes them, `calibrate_wan_act_scales` folds the
+    calibration records that `dit_forward(act_calib=...)` collects, and
+    `linear` runs them through the fused int8 kernel
+    (`ops/hopper_int8_mm.py`) on a card, or its plain version on the CPU.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -32,6 +41,7 @@ from realtime_video_tpu_torch.models.rope import (
     sinusoidal_embedding_1d,
 )
 from realtime_video_tpu_torch.ops import attention as attn_ops
+from realtime_video_tpu_torch.ops import hopper_int8_mm
 from realtime_video_tpu_torch.ops import kv_cache as kvc
 
 Params = Dict[str, Any]
@@ -42,11 +52,93 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, record: Optional[list] = None) -> torch.Tensor:
+    """x @ w + b. On int8 weights (`w_q`): quantise x per tensor with the
+    static `a_scale`, or with max|x| / 127 taken on the device when there is
+    none, then the s8 product and the dequantising epilogue in one kernel
+    (wan_dit.py:84-126 of the JAX package). `record`, when given, collects
+    max|x| of a float linear for activation calibration."""
+    if record is not None and "w" in p:
+        record.append(x.float().abs().amax())
+    if "w_q" in p:
+        a_scale = p["a_scale"] if "a_scale" in p else hopper_int8_mm.dynamic_scale(x)
+        return hopper_int8_mm.int8_linear(x, p["w_q"], p["scale"], a_scale, p.get("b"))
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _calib_site_order(blocks: Params) -> List[Tuple[str, str]]:
+    """The block-linear call order inside one layer of dit_forward (self-attn
+    projection(s), o, cross q, cross o, ffn fc1, fc2)."""
+    sa = blocks["self_attn"]
+    sites = ([("self_attn", "qkv")] if "qkv" in sa else
+             [("self_attn", "q"), ("self_attn", "k"), ("self_attn", "v")])
+    sites += [("self_attn", "o"), ("cross_attn", "q"), ("cross_attn", "o"),
+              ("ffn", "fc1"), ("ffn", "fc2")]
+    return sites
+
+
+def calibrate_wan_act_scales(records: List[torch.Tensor], blocks: Params,
+                             num_layers: int) -> Dict[Tuple[str, str], torch.Tensor]:
+    """Fold call-order calibration records (one per block linear per layer,
+    over >= 1 forwards) into {(group, name): [L] amax}, float64 on the CPU;
+    several forwards are max-reduced elementwise."""
+    sites = _calib_site_order(blocks)
+    per_fwd = num_layers * len(sites)
+    if not records or len(records) % per_fwd:
+        raise ValueError(f"{len(records)} calibration records do not tile "
+                         f"{num_layers} layers x {len(sites)} sites")
+    arr = torch.stack([r.reshape(()) for r in records]).double().cpu()
+    amax = arr.reshape(-1, num_layers, len(sites)).amax(dim=0)  # [L, sites]
+    return {site: amax[:, j] for j, site in enumerate(sites)}
+
+
+def quantize_wan_linears(params: Params, act_scales: Optional[dict] = None,
+                         margin: float = 1.5) -> Params:
+    """int8-quantise the transformer block linears (self/cross attention
+    projections and FFN) with per-output-channel weight scales, in torch on the
+    parameters' device (wan_dit.py:182-242 of the JAX package). Sites in
+    `act_scales` ({(group, name): [L] amax}) get a static per-layer activation
+    scale amax * margin / 127; the rest quantise with a per-call amax."""
+
+    def quant(p, a_amax=None):
+        w = p["w"].float()  # [L, in, out]
+        scale = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0  # [L, out]
+        wq = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127).to(torch.int8)
+        out = {"w_q": wq, "scale": scale}
+        if a_amax is not None:
+            a = torch.as_tensor(a_amax, dtype=torch.float64)
+            out["a_scale"] = (torch.clamp(a, min=1e-6) * margin / 127.0).to(
+                device=w.device, dtype=torch.float32)
+        if "b" in p:
+            out["b"] = p["b"]
+        return out
+
+    def is_linear(v):
+        return isinstance(v, dict) and "w" in v and v["w"].dim() == 3
+
+    def walk(node, group):
+        if is_linear(node):
+            return quant(node)
+        if not isinstance(node, dict):
+            return node
+        return {k: quant(v, act_scales[(group, k)])
+                if act_scales and (group, k) in act_scales and is_linear(v)
+                else walk(v, group) for k, v in node.items()}
+
+    blocks = params["blocks"]
+    new_blocks = dict(blocks)
+    for key in ("self_attn", "cross_attn", "ffn"):
+        new_blocks[key] = walk(blocks[key], key)
+    if act_scales and not any(isinstance(v, dict) and "a_scale" in v
+                              for g in ("self_attn", "cross_attn", "ffn")
+                              for v in new_blocks[g].values()):
+        # calibrated on another layout (e.g. unfused q/k/v, then fused)
+        raise ValueError("act_scales matched no linear: calibrate and quantise on the "
+                         f"same param layout (scale keys: {sorted(act_scales)})")
+    return dict(params, blocks=new_blocks)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -247,7 +339,14 @@ def compute_crossattn_cache(cfg: WanModelConfig, params: Params,
     ca = params["blocks"]["cross_attn"]
     b, T, _ = ctx.shape
     n, dh, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
-    wk, wv = ca["k"]["w"].to(ctx.dtype), ca["v"]["w"].to(ctx.dtype)
+
+    def dense_w(pp):
+        # int8 weights are dequantised for this once-per-prompt product
+        if "w_q" in pp:
+            return (pp["w_q"].float() * pp["scale"][:, None, :]).to(ctx.dtype)
+        return pp["w"].to(ctx.dtype)
+
+    wk, wv = dense_w(ca["k"]), dense_w(ca["v"])
     k = torch.matmul(ctx[None], wk[:, None]) + ca["k"]["b"].to(ctx.dtype)[:, None, None, :]
     k = rms_norm({"scale": ca["norm_k"]["scale"][:, None, None, :]}, k)
     v = torch.matmul(ctx[None], wv[:, None]) + ca["v"]["b"].to(ctx.dtype)[:, None, None, :]
@@ -275,10 +374,12 @@ def dit_forward(
     rolling: bool = False,
     prefill_block_tokens: Optional[int] = None,
     layers: Optional[List[Params]] = None,
+    act_calib: Optional[list] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
     the cache updated in place. `layers` may carry precomputed per-layer views
-    of params["blocks"] (`layer_params`)."""
+    of params["blocks"] (`layer_params`). `act_calib`, when given, receives
+    max|input| of every block linear, layer by layer in `_calib_site_order`."""
     if kv_cache is None:
         raise ValueError("the port's dit_forward needs a kv_cache (decode or prefill)")
     b, f, c, H, W = x.shape
@@ -317,6 +418,7 @@ def dit_forward(
     rope_cos, rope_sin = rope_tables.fused(*grid, start_frame)
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
+    lin = linear if act_calib is None else functools.partial(linear, record=act_calib)
 
     for lid, bp in enumerate(layers):
         em = bp["modulation"][None].float() + e0  # [B, F, 6, D]
@@ -327,9 +429,9 @@ def dit_forward(
         xn = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa)
         sa = bp["self_attn"]
         if "qkv" in sa:
-            q, k, v = linear(sa["qkv"], xn).chunk(3, dim=-1)
+            q, k, v = lin(sa["qkv"], xn).chunk(3, dim=-1)
         else:
-            q, k, v = linear(sa["q"], xn), linear(sa["k"], xn), linear(sa["v"], xn)
+            q, k, v = lin(sa["q"], xn), lin(sa["k"], xn), lin(sa["v"], xn)
         q = rms_norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
         k = rms_norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
         v = v.reshape(b, L, n, dh)
@@ -349,7 +451,7 @@ def dit_forward(
         else:
             y = attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
                                                 prefill_block_tokens)
-        y = linear(sa["o"], y.reshape(b, L, cfg.dim))
+        y = lin(sa["o"], y.reshape(b, L, cfg.dim))
         tokens = tokens + gate(y, f, g_msa)
 
         # ---- cross attention over the cached text K/V ----
@@ -358,16 +460,16 @@ def dit_forward(
             xc = layer_norm(tokens, bp["norm3"]["scale"], bp["norm3"]["bias"], eps=cfg.eps)
         else:
             xc = tokens
-        qc = rms_norm(ca["norm_q"], linear(ca["q"], xc), eps=cfg.eps).reshape(b, L, n, dh)
+        qc = rms_norm(ca["norm_q"], lin(ca["q"], xc), eps=cfg.eps).reshape(b, L, n, dh)
         cak = crossattn_cache["k"][lid].to(qc.dtype)
         cav = crossattn_cache["v"][lid].to(qc.dtype)
         yc = attn_ops.attention(qc, cak, cav)
-        tokens = tokens + linear(ca["o"], yc.reshape(b, L, cfg.dim))
+        tokens = tokens + lin(ca["o"], yc.reshape(b, L, cfg.dim))
 
         # ---- ffn ----
         xf2 = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn)
         ff = bp["ffn"]
-        y = linear(ff["fc2"], gelu_tanh(linear(ff["fc1"], xf2)))
+        y = lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
         tokens = tokens + gate(y, f, g_ffn)
 
     kv_cache["global_end"] = new_global_end

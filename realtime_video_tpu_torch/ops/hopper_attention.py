@@ -16,8 +16,7 @@ Both take q [B, Lq, N, D], k/v [B, Lk, N, D]. A tensor on the CPU goes to the
 plain PyTorch version beside the kernel (`window_attention_plain`,
 `block_causal_attention_plain`); a CUDA tensor goes to the kernel or the call
 raises. The kernel is compiled with nvcc for sm_90a into a shared library with
-a plain C interface at first use, under `_build/` next to this package, and
-bound with ctypes.
+a plain C interface at first use (`ops/cuda_build.py`), and bound with ctypes.
 
 `LAUNCHES` counts kernel launches per entry point; nothing else touches it.
 `PLAIN_ON_CUDA` counts calls of a plain version on a CUDA tensor, which the
@@ -26,15 +25,13 @@ serving path never makes (only a comparison against the kernel does).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+from realtime_video_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
 #: exp2(s - M) cannot underflow a whole row while M stays below this bound
@@ -45,11 +42,7 @@ NEG_INF = -1e30
 _MODE_WINDOW = 0
 _MODE_BLOCK_CAUSAL = 1
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = cuda_build.CSRC / "attention.cu"
 
 #: kernel launches per entry point (plain-version calls are not counted)
 LAUNCHES: Dict[str, int] = {"window": 0, "block_causal": 0}
@@ -65,34 +58,10 @@ def reset_launch_counts() -> None:
         PLAIN_ON_CUDA[key] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the Hopper attention kernel cannot be built")
-
-
 def build() -> Path:
-    """Compile csrc/attention.cu (if its content-keyed library is missing) and
-    return the library path. The name carries a hash of source and flags, so
-    a stale build is never loaded."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libattention_{tag}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
+    """Compile csrc/attention.cu if its content-keyed library is missing and
+    return the library path."""
+    return cuda_build.build(SOURCE)
 
 
 def _load():

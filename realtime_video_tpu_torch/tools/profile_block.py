@@ -1,9 +1,11 @@
 """Profile one warm block of the t2v serving path on a GPU.
 
-    python -m realtime_video_tpu_torch.tools.profile_block [--out profile_out]
+    python -m realtime_video_tpu_torch.tools.profile_block [--tier bf16|int8] [--out profile_out]
 
 `load_all` builds t2v-1.3B (random weights from a seed) and the Wan 2.1 VAE
-in bf16 on the card, and one session runs at 832x480, 4 denoising steps and
+on the card, in bf16 or in the int8 tier (the server flags `enable_int8`,
+`enable_int8_dit` and `int8_static_scales`: calibrated and quantised on the
+card), and one session runs at 832x480, 4 denoising steps and
 3 KV-cache frames, as the server drives it (each block's frames are copied to
 the host). Blocks 0-2 warm up (block 2 is the first with the anti-drift
 re-encode). Then:
@@ -16,8 +18,8 @@ re-encode). Then:
     device's busy time against that range's own span. The span carries the
     profiler's host overhead, so its idle share is an upper bound.
 
-Writes profile_block.json and the op table profile_block.txt under --out and
-prints the JSON summary.
+Writes profile_block_<tier>.json and the op table profile_block_<tier>.txt
+under --out and prints the JSON summary.
 """
 from __future__ import annotations
 
@@ -32,14 +34,22 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 BLOCKS = 5
-CATEGORIES = ("attention_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
+CATEGORIES = ("attention_kernel", "int8_linear_kernel", "conv3x3_kernel", "gemm", "conv",
+              "copy/memset", "elementwise/other")
+TIER_FLAGS = {"bf16": {},
+              "int8": {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}}
 
 
 def category(kernel_name: str) -> str:
-    """Bucket a device kernel by its name."""
+    """Bucket a device kernel by its name: the port's three hand-written
+    kernels, then library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
     if "attention_kernel" in n:
         return "attention_kernel"
+    if "int8_linear_kernel" in n:
+        return "int8_linear_kernel"
+    if "conv_kernel<" in n:
+        return "conv3x3_kernel"
     if n.startswith("memcpy") or n.startswith("memset"):
         return "copy/memset"
     if "fprop" in n or "conv" in n or "cudnn" in n:
@@ -95,6 +105,8 @@ class PhaseTimer:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tier", choices=sorted(TIER_FLAGS), default="bf16",
+                    help="the serving tier to profile")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -114,7 +126,7 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda")
     config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                timestep_shift=5.0)
+                                timestep_shift=5.0, **TIER_FLAGS[args.tier])
     models = load_all(config, dev, seed=0)
 
     timer = PhaseTimer()
@@ -168,7 +180,7 @@ def main() -> None:
     top = sorted(([ms, n, name[:140]] for name, (ms, n) in by_kernel.items()), reverse=True)
 
     summary = {
-        "card": card, "blocks": BLOCKS, "timed_block": BLOCKS - 2,
+        "card": card, "tier": args.tier, "blocks": BLOCKS, "timed_block": BLOCKS - 2,
         "profiled_block": BLOCKS - 1,
         "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
         "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
@@ -177,10 +189,10 @@ def main() -> None:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_block.json").write_text(json.dumps(summary, indent=1))
+    (out / f"profile_block_{args.tier}.json").write_text(json.dumps(summary, indent=1))
     sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
                 else "self_cuda_time_total")
-    (out / "profile_block.txt").write_text(
+    (out / f"profile_block_{args.tier}.txt").write_text(
         prof.key_averages().table(sort_by=sort_key, row_limit=60))
     print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
 

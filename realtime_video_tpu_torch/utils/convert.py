@@ -5,6 +5,10 @@ linear weights [in, out], VAE conv weights [kt, kh, kw, ci, co]), so a tree of
 numpy leaves (e.g. `jax.device_get(params)`) converts leaf by leaf. bfloat16
 leaves (numpy's `bfloat16` extension dtype) go through float32, which is
 exact. This module imports no JAX.
+
+int8 trees (`quantize_wan_linears`, `quantize_vae_params`) carry across as they
+are: `w_q` stays int8, and the `scale` and `a_scale` beside it stay float32
+whatever `dtype` asks, since they are dequantisation factors, not weights.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+#: leaves of an int8 node that keep float32
+_INT8_SCALES = ("scale", "a_scale")
 
 
 def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -27,9 +34,12 @@ def _leaf(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def tree_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Map dicts, lists and tuples of array leaves to torch tensors on
-    `device`; floating leaves are cast to `dtype` when it is given."""
+    `device`; floating leaves are cast to `dtype` when it is given, except the
+    float32 scales of an int8 node (a dict holding `w_q`)."""
     if isinstance(tree, dict):
-        return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+        int8_node = "w_q" in tree
+        return {k: _leaf(v, device, None) if int8_node and k in _INT8_SCALES
+                else tree_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device, dtype) for v in tree)
     return _leaf(tree, device, dtype)
@@ -51,5 +61,6 @@ def wan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = N
 
 
 def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
-    """A JAX `init_vae_params` tree (numpy leaves) as the port's VAE params."""
+    """A JAX `init_vae_params` or `quantize_vae_params` tree (numpy leaves) as
+    the port's VAE params."""
     return tree_from_numpy(tree, device, dtype)

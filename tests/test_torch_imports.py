@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX: a fresh interpreter imports the package,
 its serving stack and every other module of it, and `jax` stays out of
-sys.modules. Also holds that the port's kernel wrapper takes a CUDA tensor
-only to the kernel (on a CPU-only host it must raise, not fall back)."""
+sys.modules. Also holds that the port's kernel wrappers take a CUDA tensor
+only to their kernels (on a CPU-only host they must raise, not fall back),
+and that its entry points build on the card unless asked for the CPU."""
 import pathlib
 import subprocess
 import sys
@@ -50,3 +51,45 @@ def test_kernel_wrapper_never_falls_back_for_cuda_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="no nvcc"):
         hk.block_causal_attention(q, q, q, 2)
     assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0}
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """WanDiffusion and VAEWrapper with device=None build on the CUDA card; on
+    a host without one they raise instead of building on the CPU."""
+    from realtime_video_tpu_torch.config import VAEConfig, WanModelConfig
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WanDiffusion(cfg=WanModelConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VAEWrapper(VAEConfig(dim=8, z_dim=4, dim_mult=(1, 1, 2, 2), num_res_blocks=1))
+    vae = VAEWrapper(VAEConfig(dim=8, z_dim=4, dim_mult=(1, 1, 2, 2), num_res_blocks=1),
+                     device="cpu")
+    assert vae.params["conv2"]["w"].device.type == "cpu"
+
+
+def test_int8_kernel_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):
+    """The fused int8 linear and the conv take a (fake) CUDA tensor only to
+    their kernels: when a kernel cannot be built the call raises, and no plain
+    version runs in its place."""
+    from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
+
+    for mod in (hm, hc):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "build",
+                            lambda: (_ for _ in ()).throw(RuntimeError("no nvcc")))
+        monkeypatch.setattr(mod, "_check", lambda *a: None)
+        mod.reset_launch_counts()
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    x = torch.zeros((4, 16), dtype=torch.bfloat16)
+    w_q = torch.zeros((16, 8), dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        hm.int8_linear(x, w_q, torch.ones(8), torch.ones(1))
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        hc.conv3x3(torch.zeros((1, 4, 4, 8), dtype=torch.int8),
+                   torch.zeros((1, 3, 3, 8, 8), dtype=torch.int8))
+    assert hm.PLAIN_ON_CUDA == {"int8_linear": 0} and hc.PLAIN_ON_CUDA == {"conv3x3": 0}
+    assert hm.LAUNCHES == {"int8_linear": 0} and hc.LAUNCHES == {"conv3x3": 0}

@@ -1,0 +1,137 @@
+"""The hand-written fused int8 linear (K3, csrc/int8_mm.cu) and kt x 3 x 3 conv
+(K4/K5, csrc/conv3x3.cu) against their plain PyTorch versions on a card
+(marked `cuda`; skips on a host without one). This file imports no JAX, so it
+runs on the GPU machine:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_int8_kernels_cuda.py
+
+Bounds: the int8 linear's quanta and s32 sums equal the plain version's, so
+only the f32 epilogue's bf16 rounding may differ: within 1 bf16 ulp. The s8
+conv's int32 sums must be equal element for element. The bf16 conv is held
+by hopper_attention.agreement (elementwise atol 2e-3 + rtol 1.6e-2, relative
+Frobenius error 1e-2: both sides sum bf16 products in f32, in different
+orders, and round to bf16). Planted faults (the last K tile dropped, w_scale
+one column off; a halo row zeroed, the last input-channel chunk dropped)
+must fail the same checks.
+"""
+import numpy as np
+import pytest
+import torch
+
+from realtime_video_tpu_torch.ops import hopper_attention as hk
+from realtime_video_tpu_torch.ops import hopper_conv as hc
+from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
+
+# (name, M, K, N, bias dtype or None, dynamic scale)
+MM_CASES = [
+    ("ragged_m", 300, 256, 192, torch.bfloat16, False),
+    ("k_tiled", 200, 2304, 128, torch.float32, False),
+    ("dynamic", 130, 512, 272, torch.bfloat16, True),
+    ("no_bias", 77, 136, 64, None, False),
+]
+# (name, dtype, T, H, W, C, Co, kt, stride, padding)
+CONV_CASES = [
+    ("s8_kt3", torch.int8, 4, 12, 20, 64, 96, 3, (1, 1), ((1, 1), (1, 1))),
+    ("s8_kt1_c3", torch.int8, 1, 16, 24, 3, 64, 1, (1, 1), ((1, 1), (1, 1))),
+    ("s8_c16_co3", torch.int8, 3, 10, 14, 16, 3, 3, (1, 1), ((1, 1), (1, 1))),
+    ("s8_stride2", torch.int8, 1, 16, 24, 32, 32, 1, (2, 2), ((0, 1), (0, 1))),
+    ("s8_c96_ragged_rows", torch.int8, 3, 9, 13, 96, 192, 3, (1, 1), ((1, 1), (1, 1))),
+    ("s8_co32", torch.int8, 1, 8, 12, 64, 32, 1, (1, 1), ((1, 1), (1, 1))),
+    ("bf16_kt3_bias", torch.bfloat16, 4, 12, 20, 48, 64, 3, (1, 1), ((1, 1), (1, 1))),
+    ("bf16_co3_bias", torch.bfloat16, 3, 10, 14, 16, 3, 3, (1, 1), ((1, 1), (1, 1))),
+]
+
+
+def _device_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    return torch.device("cuda")
+
+
+def within_bf16_ulps(got: torch.Tensor, want: torch.Tensor, ulps: int = 1) -> bool:
+    """|got - want| <= ulps * ulp(want) elementwise, ulp of bf16's 8-bit significand."""
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8).clamp_min(2.0 ** -126)
+    return bool(((got - want).abs() <= ulps * ulp).all())
+
+
+def mm_inputs(dev, m, k, n, bias_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    w_q = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+    w_scale = torch.from_numpy(rng.uniform(1e-3, 2e-3, size=n).astype(np.float32)).to(dev)
+    a_scale = torch.tensor([3.0 / 127.0], device=dev)
+    bias = None if bias_dtype is None else torch.from_numpy(
+        rng.normal(size=n).astype(np.float32)).to(dev, bias_dtype)
+    return x, w_q, w_scale, a_scale, bias
+
+
+def conv_inputs(dev, dtype, t, h, w, c, co, kt, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, size=(t, h, w, c)).astype(np.int8))
+        wt = torch.from_numpy(rng.integers(-127, 128, size=(kt, 3, 3, c, co)).astype(np.int8))
+        return x.to(dev), wt.to(dev), None
+    x = torch.from_numpy(rng.normal(size=(t, h, w, c)).astype(np.float32))
+    wt = torch.from_numpy((rng.normal(size=(kt, 3, 3, c, co)) / np.sqrt(kt * 9 * c))
+                          .astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=co).astype(np.float32))
+    return x.to(dev, dtype), wt.to(dev, dtype), b.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, m, k, n, bias_dtype, dynamic", MM_CASES)
+def test_int8_linear_matches_plain_on_gpu(name, m, k, n, bias_dtype, dynamic):
+    dev = _device_or_skip()
+    x, w_q, w_scale, a_scale, bias = mm_inputs(dev, m, k, n, bias_dtype)
+    if dynamic:
+        a_scale = hm.dynamic_scale(x)
+    got = hm.int8_linear(x, w_q, w_scale, a_scale, bias)
+    want = hm.int8_linear_plain(x, w_q, w_scale, a_scale, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (m, n) and got.dtype == torch.bfloat16
+    assert within_bf16_ulps(got, want), (name, (got.float() - want.float()).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [hm.FAULT_DROP_LAST_K_TILE, hm.FAULT_W_SCALE_SHIFT])
+def test_int8_linear_check_catches_planted_fault_on_gpu(fault):
+    dev = _device_or_skip()
+    x, w_q, w_scale, a_scale, bias = mm_inputs(dev, 300, 256, 192, torch.bfloat16)
+    want = hm.int8_linear_plain(x, w_q, w_scale, a_scale, bias)
+    assert within_bf16_ulps(hm._launch(x, w_q, w_scale, a_scale, bias), want)
+    assert not within_bf16_ulps(hm._launch(x, w_q, w_scale, a_scale, bias, fault=fault), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype, t, h, w, c, co, kt, stride, padding", CONV_CASES)
+def test_conv3x3_matches_plain_on_gpu(name, dtype, t, h, w, c, co, kt, stride, padding):
+    dev = _device_or_skip()
+    x, wt, b = conv_inputs(dev, dtype, t, h, w, c, co, kt)
+    got = hc.conv3x3(x, wt, stride, padding, bias=b)
+    want = hc.conv3x3_plain(x, wt, stride, padding, bias=b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want), (name, (got - want).abs().max().item())
+    else:
+        res = hk.agreement(got, want)
+        assert res["within_tol"], (name, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("fault", [hc.FAULT_ZERO_HALO_ROW, hc.FAULT_DROP_LAST_CI_CHUNK])
+def test_conv3x3_check_catches_planted_fault_on_gpu(dtype, fault):
+    dev = _device_or_skip()
+    x, wt, b = conv_inputs(dev, dtype, 4, 12, 20, 64, 96, 3)
+    pad = ((1, 1), (1, 1))
+    want = hc.conv3x3_plain(x, wt, (1, 1), pad, bias=b)
+    got = hc._launch(x, wt, (1, 1), pad, b, fault=fault)
+    if dtype == torch.int8:
+        assert torch.equal(hc._launch(x, wt, (1, 1), pad), want)
+        assert not torch.equal(got, want)
+    else:
+        assert hk.agreement(hc._launch(x, wt, (1, 1), pad, b), want)["within_tol"]
+        assert not hk.agreement(got, want)["within_tol"]

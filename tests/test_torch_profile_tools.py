@@ -28,6 +28,10 @@ def test_union_length(intervals, want):
     ("nvjet_tst_192x144_64x5_2x1_v_bz_coopB_NNT", "gemm"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::mul>", "elementwise/other"),
+    ("(anonymous namespace)::int8_linear_kernel(__nv_bfloat16 const*, signed char const*)",
+     "int8_linear_kernel"),
+    ("void (anonymous namespace)::conv_kernel<true, 3>(void const*, void const*)",
+     "conv3x3_kernel"),
 ])
 def test_category(name, want):
     assert pb.category(name) == want
