@@ -6,47 +6,69 @@ Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), and the build of the
      three hand-written kernel libraries from realtime_video_tpu_torch/csrc/
      (one nvcc per source, all started together);
-  2. kernels against their plain PyTorch versions at the serving shapes of
-     t2v-1.3B at 832x480, with each error against its bound, the kernel's,
-     the plain version's and a library call's CUDA-event time, and the least
-     time the card could take (bound_ms), and planted faults that the same
-     checks must catch:
-       - attention (csrc/attention.cu, K1/K2) in bf16: self-attention Lq 4680 /
-         Lk 9360 with lo > 0, cross-attention Lk 512, a large-norm input whose
-         logit bound trips the running-max path, block-causal 9360 tokens in
-         4680-token blocks;
+  2. kernels against their plain PyTorch versions at serving shapes, with each
+     error against its bound, the kernel's, the plain version's and a library
+     call's CUDA-event time, and the least time the card could take
+     (bound_ms), and planted faults that the same checks must catch:
+       - attention (csrc/attention.cu) in bf16, t2v-1.3B shapes (K1/K2):
+         self-attention Lq 4680 / Lk 9360 with lo > 0, cross-attention Lk 512,
+         a large-norm input whose logit bound trips the running-max path,
+         block-causal 9360 tokens in 4680-token blocks;
+       - the same kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
+         heads): self-attention Lq 4680 / Lk 9360 over [1560, 9360),
+         cross-attention Lk 512, block-causal 4680 in one block, and keys that
+         share an offset, on which one mean over the whole sequence and the
+         last segment's k scales one row off must be caught; its pre-pass's
+         s8 quanta must equal the plain version's but for a share <= 1e-3,
+         off by 1 at most;
+       - its skewed loops (K6a running max, K6b static max with the M >= 64
+         fallback, also on a large-norm input) at the 1.3B self-attention
+         shape, where skipping the drain step must be caught;
        - the fused int8 linear (csrc/int8_mm.cu, K3) at the DiT block linears
          (qkv, fc1, fc2 with K 8960, and o with a scale computed on the device),
          within 1 bf16 ulp of the plain version;
        - the kt x 3 x 3 conv (csrc/conv3x3.cu, K4/K5) at VAE shapes: s8 with
-         kt 3 at C 384 (60x104) and C 96 (480x832), kt 1 with C 3, stride 2,
-         whose int32 sums must equal the plain version's; and bf16 kt 3 with
-         bias under the attention kernel's agreement bound;
+         kt 3 at C 384 (60x104) and C 96 (480x832), kt 1 with C 96 and C 3,
+         stride 2, whose int32 sums must equal the plain version's; and bf16
+         kt 3 with bias under the attention kernel's agreement bound;
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input;
-  4. the server, twice: `load_all` builds t2v-1.3B (random weights from a
-     seed) and the Wan 2.1 VAE on the card, first in bf16, then in the int8
-     tier (`enable_int8`, `enable_int8_dit`, `int8_static_scales`: calibrated
-     and quantised on the card). For each tier the aiohttp server listens on
-     127.0.0.1 and two WebSocket sessions of 3 blocks each (832x480, 4 steps,
-     3 KV-cache frames) must each return 30 finite JPEG frames and "completed";
-     the launch counters, set to 0 just before a tier's sessions and read just
-     after, must show every kernel of that tier's path, and no plain version
-     may see a CUDA tensor. Then block 0's x0 of the int8 tier must correlate
-     with the bf16 tier's (> 0.99) on the same seed and request, with a random
-     head so that the DiT's output is not zero.
+  4. the server: `load_all` builds a DiT (random weights from a seed) and the
+     Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
+     every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
+     must return 30 finite JPEG frames and "completed"; the launch counters,
+     set to 0 just before a set of sessions and read just after, must show
+     every kernel of that path, and no plain version may see a CUDA tensor:
+       - t2v-1.3B in bf16, two sessions; then, on the same models, one
+         session with RTV_ATTN_SKEW2's switch (K6b) and one with
+         RTV_ATTN_SKEW's (K6a), whose block-0 x0 must match the default
+         attention's (cosine > 0.999);
+       - t2v-1.3B in the int8 tier (`enable_int8`, `enable_int8_dit`,
+         `int8_static_scales`: calibrated and quantised on the card), two
+         sessions; block 0's x0 must correlate with the bf16 tier's (> 0.99)
+         on the same seed and request, with a random head so that the DiT's
+         output is not zero;
+       - t2v-14B in the int8 tier with the int8 QK^T attention on
+         (RTV_ATTN_INT8's switch), one session, with its load peak and
+         serving peak beside the memory plan's total; block 0's x0 with the
+         int8 QK^T attention on against off, on the same model (> 0.99).
 
-Before its last line it prints the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}. Any failure exits non-zero without it, and so
-does a host without a CUDA device. Kernel, plain and library times are
-CUDA-event means; serving times are host-clock times at the WebSocket client.
-bound_ms is the larger of the bytes a call must move over 3.35 TB/s and its
-operations over the dense peak of their type (989 TFLOP/s bf16, 1979 TOP/s
-int8), the H100 SXM data-sheet figures at 700 W.
+Before its last line it prints the kernels' JSON summary, one row per TPU
+kernel of the repo; the last line is {"ok": true, "device": {...}}. Any
+failure exits non-zero without it, and so does a host without a CUDA device.
+Every phase line carries t_s, the seconds since the start; a run that
+outlasts WATCHDOG_S dumps every thread's Python stack to stderr and exits 1.
+Kernel, plain and library times are CUDA-event means; serving times are
+host-clock times at the WebSocket client. bound_ms is the larger of the
+bytes a call must move over 3.35 TB/s and its operations over the dense
+peak of their type (989 TFLOP/s bf16, 1979 TOP/s int8; the int8 QK^T mode's
+QK^T counts as int8, its PV as bf16), the H100 SXM data-sheet figures at
+700 W.
 """
 from __future__ import annotations
 
 import asyncio
+import faulthandler
 import gc
 import json
 import subprocess
@@ -55,6 +77,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+#: a stalled run ends here, inside the 1200 s a run may take, with a stack dump
+WATCHDOG_S = 1100
+_T0 = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -63,16 +88,24 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    print(json.dumps({"phase": name, "t_s": time.perf_counter() - _T0, **kv}), flush=True)
 
 
-def bound(bytes_moved: float, ops: float, kind: str):
-    """(bound_ms, bound_by): the least time the card could take."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+def bound(bytes_moved: float, ops: float, kind: str, more_ops=()):
+    """(bound_ms, bound_by): the least time the card could take; more_ops adds
+    (operations, kind) pairs of other types to the operations' time."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[kind] + sum(o / PEAK_OPS[k] for o, k in more_ops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cosine(a, b) -> float:
+    a, b = a.flatten(), b.flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
 def main() -> None:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -83,7 +116,7 @@ def main() -> None:
     from msgpack import packb
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from realtime_video_tpu_torch.config import WanModelConfig, load_server_config
+    from realtime_video_tpu_torch.config import WAN_CONFIGS, WanModelConfig, load_server_config
     from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.models.rope import RopeTables
     from realtime_video_tpu_torch.ops import cuda_build
@@ -91,6 +124,7 @@ def main() -> None:
     from realtime_video_tpu_torch.ops import hopper_conv as hc
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
     from realtime_video_tpu_torch.ops import kv_cache as kvc
+    from realtime_video_tpu_torch.parallel.plan import serving_memory_plan
     from realtime_video_tpu_torch.serving import server as server_mod
     from realtime_video_tpu_torch.serving.models import load_all
     from realtime_video_tpu_torch.serving.params import GenerateParams
@@ -223,6 +257,122 @@ def main() -> None:
         fail("the self-attention case does not take the static-max path")
     torch.cuda.empty_cache()
 
+    # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed loops
+    # (K6a, K6b, t2v-1.3B shapes) of the same kernel, each route named
+    # explicitly; the same bounds as K1/K2. The int8 mode's plain version
+    # computes the TPU kernel's per-segment mean, quanta and s32 scores; its
+    # pre-pass's quanta are compared too. No PyTorch call computes int8 QK^T
+    # attention: library_ms is bf16 SDPA flash on the live window slice.
+    mode_results = {}
+    mode_cases = [  # (name, route, lq, lk, lo, hi or block, heads, scale, key offset)
+        ("int8qk_self_14b", "window_int8qk", 4680, 9360, 1560, 9360, 40, 1.0, 0.0),
+        ("int8qk_cross_14b", "window_int8qk", 4680, 512, 0, 512, 40, 1.0, 0.0),
+        ("int8qk_block_causal_14b", "block_causal_int8qk", 4680, 4680, 0, 4680, 40, 1.0, 0.0),
+        ("int8qk_shared_offset_14b", "window_int8qk", 4680, 9360, 1560, 9360, 40, 1.0, 2.0),
+        ("skew_self", "window_skew", 4680, 9360, 1560, 9360, 12, 1.0, 0.0),
+        ("skew_staticmax_self", "window_skew_staticmax", 4680, 9360, 1560, 9360, 12, 1.0, 0.0),
+        ("skew_staticmax_large_norm", "window_skew_staticmax", 4680, 9360, 1560, 9360, 12,
+         3.0, 0.0),
+    ]
+    for name, route, lq, lk, lo, arg, nh, scale, offset in mode_cases:
+        q = hk.prescale(rnd((1, lq, nh, hd), scale), hd ** -0.5)
+        k = (rnd((1, lk, nh, hd), scale).float() + offset * rnd((1, 1, nh, hd)).float()).to(
+            torch.bfloat16)
+        v = rnd((1, lk, nh, hd))
+        int8 = route.endswith("int8qk")
+        seg = hk.segment_rows(lk)
+        if route == "block_causal_int8qk":
+            kern = lambda: hk.block_causal_attention(q, k, v, arg, scale=inv,  # noqa: E731
+                                                     route=route)
+            plain = lambda: hk.block_causal_attention_int8qk_plain(  # noqa: E731
+                q, k, v, arg, scale=inv)
+            live_pairs = hk.block_causal_flops(lq, arg, nh, hd) / (4.0 * nh * hd)
+            ks, vs, lib_mask = k.transpose(1, 2), v.transpose(1, 2), \
+                hk.block_causal_mask(lq, lk, arg, lk, None, dev)
+            lib_note = "torch SDPA with the boolean block mask (bf16)"
+            v_bytes = 2.0 * nh * hd * lk
+        else:
+            kern = lambda: hk.window_attention(q, k, v, lo, arg, scale=inv,  # noqa: E731
+                                               route=route)
+            plain_fn = hk.window_attention_int8qk_plain if int8 else hk.window_attention_plain
+            plain = lambda: plain_fn(q, k, v, lo, arg, scale=inv)  # noqa: E731
+            live_pairs = float(lq * (arg - lo))
+            ks, vs, lib_mask = k[:, lo:arg].transpose(1, 2), v[:, lo:arg].transpose(1, 2), None
+            lib_note = "torch SDPA flash (bf16) on k[:, lo:hi]"
+            v_bytes = 2.0 * nh * hd * (arg - lo)
+        if int8:
+            lib_note += ": no PyTorch call computes int8 QK^T attention"
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        res = hk.agreement(got, want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
+        extra = {}
+        if int8:
+            extra = hk.quanta_agreement(hk._quantize_launch(q, k, seg),
+                                        hk.int8_qk_quantize_plain(q, k, seg))
+            extra["quanta_within_tol"] = extra.pop("within_tol")
+            extra["segment_rows"] = seg
+        else:
+            extra["logit_bound"] = float(hk.logit_bound(q, k)[0])
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 2)
+        qt = q.transpose(1, 2)
+        backends = [SDPBackend.FLASH_ATTENTION] if lib_mask is None else [
+            SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+        library_ms = None
+        for b in backends:
+            try:
+                with sdpa_kernel([b]):
+                    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, ks, vs, attn_mask=lib_mask, scale=inv), 5)
+                lib_note += f" ({b.name})"
+                break
+            except RuntimeError:
+                continue
+        # bytes: q and the output once, k whole (the int8 mean reads every
+        # row; the bf16 routes only the live ones), v's live rows
+        k_bytes = 2.0 * nh * hd * lk if int8 else v_bytes
+        io_bytes = 2.0 * nh * hd * 2 * lq + k_bytes + v_bytes
+        half = 2.0 * nh * hd * live_pairs  # QK^T or PV
+        if int8:
+            bound_ms, bound_by = bound(io_bytes, half, "int8", [(half, "bf16")])
+        else:
+            bound_ms, bound_by = bound(io_bytes, 2 * half, "bf16")
+        mode_results[name] = dict(**res, **tol, **extra, ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, library=lib_note, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+        phase("kernel", kernel="attention", case=name, route=route, lq=lq, lk=lk, lo=lo,
+              arg=arg, heads=nh, head_dim=hd, key_offset=offset, **mode_results[name],
+              card=card)
+        if not res["within_tol"]:
+            fail(f"{name}: kernel outside the bounds {tol} of the plain version: {res}")
+        if int8 and not extra["quanta_within_tol"]:
+            fail(f"{name}: the pre-pass's quanta differ from the plain version's: {extra}")
+        faults = {}
+        if name == "int8qk_shared_offset_14b":
+            faults = {
+                "one_mean_over_the_sequence": lambda: hk._launch_int8(
+                    q, k, v, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=lk),
+                "last_segment_k_scale_one_row_off": lambda: hk._launch_int8(
+                    q, k, v, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=seg,
+                    fault=hk.FAULT_K_SCALE_SHIFT)}
+        elif name in ("skew_self", "skew_staticmax_self"):
+            m_bound = hk.logit_bound(q, k) if route == "window_skew_staticmax" else None
+            faults = {"drain_step_skipped": lambda: hk._launch(
+                q, k, v, m_bound, hk._MODE_WINDOW, lo, arg, 1, lk, -1, skew=True,
+                fault=hk.FAULT_SKIP_DRAIN)}
+        for fault, fn in faults.items():
+            bad = hk.agreement(fn(), want)
+            phase("planted_fault", case=name, fault=fault, caught=not bad["within_tol"],
+                  max_abs_err=bad["max_abs_err"], rel_fro_err=bad["rel_fro_err"])
+            if bad["within_tol"]:
+                fail(f"{name}: the check passes the planted fault {fault}: {bad}")
+        del q, k, v, got, want, qt, ks, vs, lib_mask
+        torch.cuda.empty_cache()
+    if mode_results["skew_staticmax_large_norm"]["logit_bound"] < hk.STATIC_MAX_LIMIT:
+        fail("the large-norm case does not reach K6b's running-max fallback")
+    if mode_results["skew_staticmax_self"]["logit_bound"] >= hk.STATIC_MAX_LIMIT:
+        fail("the K6b self-attention case does not take the static-max path")
+
     # -- the fused int8 linear (K3) --
     # Quanta and s32 sums are the same on both sides (IEEE division, round
     # half to even, exact sums), so only the f32 epilogue's bf16 rounding may
@@ -289,6 +439,7 @@ def main() -> None:
     conv_cases = [  # (name, dtype, T_in, H, W, C, Co, kt, stride, padding)
         ("s8_kt3_c384_60x104", torch.int8, 3, 60, 104, 384, 384, 3, (1, 1), pad1),
         ("s8_kt3_c96_480x832", torch.int8, 6, 480, 832, 96, 96, 3, (1, 1), pad1),
+        ("s8_kt1_c96_480x832", torch.int8, 1, 480, 832, 96, 96, 1, (1, 1), pad1),
         ("s8_kt1_c3_480x832", torch.int8, 1, 480, 832, 3, 96, 1, (1, 1), pad1),
         ("s8_stride2_c96_480x832", torch.int8, 1, 480, 832, 96, 96, 1, (2, 2), down),
         ("bf16_kt3_bias_c384_60x104", torch.bfloat16, 3, 60, 104, 384, 384, 3, (1, 1), pad1),
@@ -385,7 +536,7 @@ def main() -> None:
     if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all()):
         fail(f"small DiT block step on the card disagrees with the CPU: {rel}")
 
-    # ---- phase 4: the server, bf16 tier then int8 tier ----
+    # ---- phase 4: the server: 1.3B bf16 (+ skew sessions), 1.3B int8, 14B int8 ----
     request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
                "seed": 7, "num_blocks": 3, "num_denoising_steps": 4,
                "kv_cache_num_frames": 3}
@@ -437,9 +588,8 @@ def main() -> None:
         return sessions
 
     head_gen = torch.Generator(device=dev).manual_seed(11)
-    head_w = None
 
-    def block0_x0(models):
+    def block0_x0(config, models, head_w):
         """Block 0's x0 of a direct session, with the DiT head given random
         weights (its init is zero, which would make every flow zero)."""
         head = models.transformer.params["head"]["head"]
@@ -453,30 +603,21 @@ def main() -> None:
         finally:
             head["w"] = saved
 
-    tiers = {}
-    kernel_paths = {"bf16": ("window", "block_causal"),
-                    "int8": ("window", "block_causal", "int8_linear", "conv3x3")}
-    for tier, flags in (("bf16", {}), ("int8", {"enable_int8": True, "enable_int8_dit": True,
-                                               "int8_static_scales": True})):
-        config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                    timestep_shift=5.0, **flags)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        models = load_all(config, dev, seed=0)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        if head_w is None:
-            shape = models.transformer.params["head"]["head"]["w"].shape
-            head_w = torch.randn(shape, generator=head_gen, device=dev) * 0.05
+    def random_head(models):
+        shape = models.transformer.params["head"]["head"]["w"].shape
+        return torch.randn(shape, generator=head_gen, device=dev) * 0.05
 
+    def serve(config, models, sids, label, required):
+        """Drive the sessions with every launch count set to 0 just before and
+        read just after; check each session's frames, that every kernel in
+        `required` launched, and that no plain version saw a CUDA tensor."""
         for m in kernel_mods:
             m.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        sessions = asyncio.run(drive(config, models, (f"{tier}-0", f"{tier}-1")))
+        sessions = asyncio.run(drive(config, models, sids))
         launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
         plain_on_cuda = {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-
         for sid, t_send, stamps, sizes, final, frames in sessions:
             if final != {"session_id": sid, "status": "completed"}:
                 fail(f"{sid}: final message {final}")
@@ -487,29 +628,101 @@ def main() -> None:
                 fail(f"{sid}: encoded frames {[(s, f) for s, f, _ in frames]}")
             ends = [stamps[5], stamps[17], stamps[29]]  # blocks end at frames 6, 18, 30
             block_s = [ends[0] - t_send, ends[1] - ends[0], ends[2] - ends[1]]
-            phase("session", tier=tier, session=sid, frames=len(stamps),
+            phase("session", tier=label, session=sid, frames=len(stamps),
                   jpeg_bytes_mean=float(np.mean(sizes)),
                   ttff_ms=(stamps[0] - t_send) * 1e3, block_ms=[b * 1e3 for b in block_s],
                   fps_warm=24 / (ends[2] - ends[0]), fps_session=30 / (ends[2] - t_send),
                   pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
+        missing = [k for k in required if launches.get(k, 0) <= 0]
+        if missing:
+            fail(f"{label}: kernels of the path not launched: {missing} ({launches})")
+        if any(plain_on_cuda.values()):
+            fail(f"{label}: a plain version ran on a CUDA tensor: {plain_on_cuda}")
+        return launches, plain_on_cuda, peak_gb
+
+    int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
+    tiers, skew_launches, head_w = {}, {}, None
+    kernel_paths = {"bf16": ("window", "block_causal"),
+                    "int8": ("window", "block_causal", "int8_linear", "conv3x3")}
+    for tier, flags in (("bf16", {}), ("int8", int8_flags)):
+        config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                    timestep_shift=5.0, **flags)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = load_all(config, dev, seed=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        head_w = random_head(models) if head_w is None else head_w
+        launches, plain_on_cuda, peak_gb = serve(
+            config, models, (f"{tier}-0", f"{tier}-1"), tier, kernel_paths[tier])
         phase("server", model="t2v-1.3B", tier=tier, load_and_calibrate_s=load_s,
               peak_mem_gib=peak_gb, launches=launches, plain_on_cuda=plain_on_cuda,
               card=card)
-        missing = [k for k in kernel_paths[tier] if launches.get(k, 0) <= 0]
-        if missing:
-            fail(f"{tier} tier: kernels of the path not launched: {missing} ({launches})")
-        if any(plain_on_cuda.values()):
-            fail(f"{tier} tier: a plain version ran on a CUDA tensor: {plain_on_cuda}")
-        tiers[tier] = dict(launches=launches, x0=block0_x0(models))
-        del models, sessions
+        tiers[tier] = dict(launches=launches, x0=block0_x0(config, models, head_w))
+        if tier == "bf16":
+            # the skewed loops on the same models: RTV_ATTN_SKEW2's switch
+            # (K6b), then RTV_ATTN_SKEW's (K6a)
+            for switch, key in (("SKEW2", "window_skew_staticmax"), ("SKEW", "window_skew")):
+                setattr(hk, switch, True)
+                try:
+                    got, _, _ = serve(config, models, (f"bf16-{switch.lower()}",),
+                                      f"bf16 {switch}", (key, "block_causal"))
+                    x0 = block0_x0(config, models, head_w)
+                finally:
+                    setattr(hk, switch, False)
+                cos = cosine(x0, tiers["bf16"]["x0"])
+                phase("skew_session", switch=switch, route=key, launches=got,
+                      block0_x0_cosine_vs_default=cos, bar=0.999,
+                      finite=bool(torch.isfinite(x0).all()), card=card)
+                if not (cos > 0.999 and torch.isfinite(x0).all()):
+                    fail(f"{switch}: block-0 x0 does not match the default attention: {cos}")
+                skew_launches[key] = got[key]
+        del models
         gc.collect()
         torch.cuda.empty_cache()
 
-    a, b = tiers["int8"]["x0"].flatten(), tiers["bf16"]["x0"].flatten()
-    corr = float(torch.dot(a, b) / (a.norm() * b.norm()))
-    phase("int8_vs_bf16", block0_x0_corr=corr, bar=0.99, finite=bool(torch.isfinite(a).all()))
-    if not (corr > 0.99 and torch.isfinite(a).all()):
+    corr = cosine(tiers["int8"]["x0"], tiers["bf16"]["x0"])
+    finite = bool(torch.isfinite(tiers["int8"]["x0"]).all())
+    phase("int8_vs_bf16", block0_x0_corr=corr, bar=0.99, finite=finite)
+    if not (corr > 0.99 and finite):
         fail(f"int8 tier's block-0 x0 does not track the bf16 tier's: corr {corr}")
+
+    # -- t2v-14B in the int8 tier with the int8 QK^T attention on --
+    config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
+                                timestep_shift=5.0, **int8_flags)
+    plan = serving_memory_plan(WAN_CONFIGS["t2v-14B"], window_frames=6)
+    hk.INT8_QK = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        models = load_all(config, dev, seed=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        launches14, plain14, peak14 = serve(
+            config, models, ("14b-int8qk-0",), "t2v-14B int8 + int8 QK^T",
+            ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3"))
+        phase("server", model="t2v-14B", tier="int8 + int8 QK^T attention",
+              load_and_calibrate_s=load_s, load_peak_mem_gib=load_peak_gb,
+              peak_mem_gib=peak14, plan_total_gib=plan.total / 2**30,
+              plan=plan.table().splitlines(), launches=launches14, plain_on_cuda=plain14,
+              card=card)
+        head14 = random_head(models)
+        x0_on = block0_x0(config, models, head14)
+        hk.INT8_QK = False
+        x0_off = block0_x0(config, models, head14)
+    finally:
+        hk.INT8_QK = False
+    cos14 = cosine(x0_on, x0_off)
+    finite = bool(torch.isfinite(x0_on).all())
+    phase("int8qk_vs_bf16_attention_14b", block0_x0_cosine=cos14, bar=0.99, finite=finite)
+    if not (cos14 > 0.99 and finite):
+        fail(f"14B: block-0 x0 with the int8 QK^T attention does not track the bf16 "
+             f"attention's: cosine {cos14}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -520,30 +733,67 @@ def main() -> None:
 
     bf16_l, int8_l = tiers["bf16"]["launches"], tiers["int8"]["launches"]
     attn_src = "realtime_video_tpu_torch/csrc/attention.cu"
+    int8qk_cases = ("int8qk_self_14b", "int8qk_cross_14b", "int8qk_block_causal_14b",
+                    "int8qk_shared_offset_14b")
     kernels = [
         entry("window_attention (K1 static-max; in-kernel running-max fallback)", attn_src,
               "realtime_video_tpu/ops/pallas_attention.py:220", bf16_l["window"],
               results["self_attn"], max(results["self_attn"]["max_abs_err"],
                                         results["cross_attn"]["max_abs_err"]),
-              {"fallback_max_abs_err": results["large_norm"]["max_abs_err"],
-               "launches_int8_path": int8_l["window"]}),
+              {"case": "1.3B self-attn", "fallback_max_abs_err":
+               results["large_norm"]["max_abs_err"], "launches_int8_path": int8_l["window"]}),
         entry("block_causal_attention (K2 running-max flash, block-causal mode)", attn_src,
               "realtime_video_tpu/ops/pallas_attention.py:97", bf16_l["block_causal"],
               results["block_causal"], results["block_causal"]["max_abs_err"],
-              {"launches_int8_path": int8_l["block_causal"]}),
-        entry("int8_linear (K3a/K3b fused quantise + s8 mma + dequant)",
+              {"case": "1.3B block-causal 9360 / 4680",
+               "launches_int8_path": int8_l["block_causal"]}),
+        entry("int8qk_attention (K2's int8_qk mode: s8 pre-pass + s8 QK^T / bf16 PV flash)",
+              attn_src, "realtime_video_tpu/ops/pallas_attention.py:155",
+              launches14["window_int8qk"] + launches14["block_causal_int8qk"],
+              mode_results["int8qk_self_14b"],
+              max(mode_results[c]["max_abs_err"] for c in int8qk_cases),
+              {"case": "14B self-attn 4680 / 9360, 40 heads",
+               "launches_window": launches14["window_int8qk"],
+               "launches_block_causal": launches14["block_causal_int8qk"],
+               "quanta_differing_share": max(mode_results[c]["quanta_differing_share"]
+                                             for c in int8qk_cases),
+               "library": mode_results["int8qk_self_14b"]["library"]}),
+        entry("int8_linear, K-resident form (K3a: K <= 2048)",
               "realtime_video_tpu_torch/csrc/int8_mm.cu",
-              "realtime_video_tpu/ops/pallas_int8_mm.py:42", int8_l["int8_linear"],
-              mm_results["qkv"], max(r["max_abs_err"] for r in mm_results.values()),
-              {"case": "qkv 4680x1536x4608",
-               "replaces_also": "realtime_video_tpu/ops/pallas_int8_mm.py:62"}),
-        entry("conv3x3 (K4 3x3 conv with K5's kt x 3 x 3 + bias form)",
+              "realtime_video_tpu/ops/pallas_int8_mm.py:42",
+              int8_l["int8_linear"] - int8_l["int8_linear_k_tiled"], mm_results["qkv"],
+              max(mm_results[c]["max_abs_err"] for c in ("qkv", "fc1", "o_dynamic")),
+              {"case": "qkv 4680x1536x4608"}),
+        entry("int8_linear, K-tiled form (K3b: K > 2048; every 14B block linear)",
+              "realtime_video_tpu_torch/csrc/int8_mm.cu",
+              "realtime_video_tpu/ops/pallas_int8_mm.py:62", int8_l["int8_linear_k_tiled"],
+              mm_results["fc2"], mm_results["fc2"]["max_abs_err"],
+              {"case": "fc2 4680x8960x1536",
+               "launches_14b": launches14["int8_linear_k_tiled"]}),
+        entry("conv3x3, 3x3 form (K4: kt 1)", "realtime_video_tpu_torch/csrc/conv3x3.cu",
+              "realtime_video_tpu/ops/pallas_conv2.py:67",
+              int8_l["conv3x3"] - int8_l["conv3x3_temporal"],
+              conv_results["s8_kt1_c96_480x832"],
+              max(conv_results[c]["max_abs_err"] for c in (
+                  "s8_kt1_c96_480x832", "s8_kt1_c3_480x832", "s8_stride2_c96_480x832")),
+              {"case": "s8 kt1 C96 480x832"}),
+        entry("conv3x3, kt x 3 x 3 form (K5: kt 3, the temporal taps inside)",
               "realtime_video_tpu_torch/csrc/conv3x3.cu",
-              "realtime_video_tpu/ops/pallas_conv2.py:67", int8_l["conv3x3"],
+              "realtime_video_tpu/ops/pallas_conv.py:53", int8_l["conv3x3_temporal"],
               conv_results["s8_kt3_c96_480x832"],
-              max(r["max_abs_err"] for r in conv_results.values()),
-              {"case": "s8 kt3 C96 480x832",
-               "replaces_also": "realtime_video_tpu/ops/pallas_conv.py:53"}),
+              max(conv_results[c]["max_abs_err"] for c in (
+                  "s8_kt3_c96_480x832", "s8_kt3_c384_60x104", "bf16_kt3_bias_c384_60x104")),
+              {"case": "s8 kt3 C96 480x832"}),
+        entry("skew_attention (K6a: skewed loop, running max)", attn_src,
+              "realtime_video_tpu/ops/pallas_attention.py:445",
+              skew_launches["window_skew"], mode_results["skew_self"],
+              mode_results["skew_self"]["max_abs_err"], {"case": "1.3B self-attn"}),
+        entry("skew_staticmax_attention (K6b: skewed loop, static max; running-max fallback)",
+              attn_src, "realtime_video_tpu/ops/pallas_attention.py:323",
+              skew_launches["window_skew_staticmax"], mode_results["skew_staticmax_self"],
+              mode_results["skew_staticmax_self"]["max_abs_err"],
+              {"case": "1.3B self-attn", "fallback_max_abs_err":
+               mode_results["skew_staticmax_large_norm"]["max_abs_err"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

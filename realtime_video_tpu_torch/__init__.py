@@ -5,8 +5,9 @@ the name of its JAX counterpart and is held against it by the CPU tests
 (`tests/test_torch_*.py`). The port imports `torch` and never `jax`.
 
 Layout: `config`, `scheduler`, `models/` (rope, wan_dit, diffusion_wrapper,
-text_encoder, vae, vae_wrapper), `ops/` (attention dispatcher, kv_cache, the
-Hopper kernels' wrapper `hopper_attention` over `csrc/attention.cu`),
+text_encoder, vae, vae_wrapper), `ops/` (attention dispatcher, kv_cache, and
+the Hopper kernels' wrappers `hopper_attention`, `hopper_int8_mm`,
+`hopper_conv` over `csrc/*.cu`), `parallel/plan` (the serving memory plan),
 `pipelines/causal_inference`, `serving/` (session, models, server) and
 `utils/` (convert: JAX parameter trees -> the port's).
 """

@@ -101,12 +101,20 @@ def quantize_wan_linears(params: Params, act_scales: Optional[dict] = None,
     projections and FFN) with per-output-channel weight scales, in torch on the
     parameters' device (wan_dit.py:182-242 of the JAX package). Sites in
     `act_scales` ({(group, name): [L] amax}) get a static per-layer activation
-    scale amax * margin / 127; the rest quantise with a per-call amax."""
+    scale amax * margin / 127; the rest quantise with a per-call amax.
+
+    Each stacked weight is quantised a layer at a time: the f32 temporaries of
+    a whole [L, in, out] stack (11 GB for the 14B's fc1) would not fit beside
+    the model on an 80 GB card. The quanta are those of the whole-stack form."""
 
     def quant(p, a_amax=None):
-        w = p["w"].float()  # [L, in, out]
-        scale = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0  # [L, out]
-        wq = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127).to(torch.int8)
+        w = p["w"]  # [L, in, out]
+        wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
+        for i in range(w.shape[0]):
+            wl = w[i].float()
+            scale[i] = torch.clamp(wl.abs().amax(dim=0), min=1e-8) / 127.0
+            wq[i] = torch.clamp(torch.round(wl / scale[i]), -127, 127)
         out = {"w_q": wq, "scale": scale}
         if a_amax is not None:
             a = torch.as_tensor(a_amax, dtype=torch.float64)
@@ -340,16 +348,19 @@ def compute_crossattn_cache(cfg: WanModelConfig, params: Params,
     b, T, _ = ctx.shape
     n, dh, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
 
-    def dense_w(pp):
-        # int8 weights are dequantised for this once-per-prompt product
-        if "w_q" in pp:
-            return (pp["w_q"].float() * pp["scale"][:, None, :]).to(ctx.dtype)
-        return pp["w"].to(ctx.dtype)
+    def project(pp):
+        """ctx @ w for every layer, a layer at a time: int8 weights are
+        dequantised for this once-per-prompt product, and a whole 14B stack
+        in f32 would take 8 GB."""
+        def dense_w(i):
+            if "w_q" in pp:
+                return (pp["w_q"][i].float() * pp["scale"][i]).to(ctx.dtype)
+            return pp["w"][i].to(ctx.dtype)
+        y = torch.stack([torch.matmul(ctx, dense_w(i)) for i in range(nl)])
+        return y + pp["b"].to(ctx.dtype)[:, None, None, :]
 
-    wk, wv = dense_w(ca["k"]), dense_w(ca["v"])
-    k = torch.matmul(ctx[None], wk[:, None]) + ca["k"]["b"].to(ctx.dtype)[:, None, None, :]
-    k = rms_norm({"scale": ca["norm_k"]["scale"][:, None, None, :]}, k)
-    v = torch.matmul(ctx[None], wv[:, None]) + ca["v"]["b"].to(ctx.dtype)[:, None, None, :]
+    k = rms_norm({"scale": ca["norm_k"]["scale"][:, None, None, :]}, project(ca["k"]))
+    v = project(ca["v"])
     return {"k": k.reshape(nl, b, T, n, dh).contiguous(),
             "v": v.reshape(nl, b, T, n, dh).contiguous()}
 

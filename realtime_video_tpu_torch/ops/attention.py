@@ -12,6 +12,12 @@ kernel cannot take raises.
   * `decode_attention(q, k, v, lo, hi)` — the rolling-cache window [lo, hi).
   * `block_causal_attention(q, k, v, block_tokens, local_window)` —
     kv < ends[q] (get_block_mask semantics, causal_model.py:108-141).
+
+Which mode of the kernel a call takes follows the JAX package's attention
+switches (RTV_ATTN_INT8, _SKEW, _SKEW2, _STATICMAX, _BK), which
+`hopper_attention` reads into module attributes: the unmasked entry and the
+decode window share `hopper_attention.window_route`, as `flash_attention`
+and `decode_attention` share one path there.
 """
 from __future__ import annotations
 

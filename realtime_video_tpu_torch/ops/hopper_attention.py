@@ -1,33 +1,58 @@
-"""Hand-written Hopper attention: build, bind, launch, count.
+"""Hand-written Hopper attention: switches, dispatch, build, bind, launch, count.
 
-`csrc/attention.cu` holds one CUDA kernel that replaces two Pallas TPU
-kernels of `realtime_video_tpu/ops/pallas_attention.py`:
+`csrc/attention.cu` holds one CUDA kernel template that replaces the Pallas
+TPU kernels of `realtime_video_tpu/ops/pallas_attention.py`:
 
-  * `window_attention` -- `_staticmax_kernel` (K1): softmax over KV columns in
-    [lo, hi) with a static logit bound M; when M >= 64 the same launch keeps a
-    running max instead (the `_flash_kernel` fallback the JAX package takes
-    with `lax.cond`). M lives in device memory and the kernel reads it, so the
-    choice costs no host sync.
-  * `block_causal_attention` -- `_flash_kernel` (K2) in block-causal mode:
-    kv < min(ends[q], kv_len) with ends[q] = (q // block_tokens + 1) *
-    block_tokens, an optional local window, and the diagonal.
+  * K1 `_staticmax_kernel`: softmax over KV columns in [lo, hi) with a static
+    logit bound M; when M >= 64 the same launch keeps a running max instead
+    (the `_flash_kernel` fallback the JAX package takes with `lax.cond`). M
+    lives in device memory and the kernel reads it, so the choice costs no
+    host sync.
+  * K2 `_flash_kernel` in window mode (K1's fallback, or every window call
+    with STATIC_MAX off) and in block-causal mode: kv < min(ends[q], kv_len)
+    with ends[q] = (q // block_tokens + 1) * block_tokens, an optional local
+    window, and the diagonal.
+  * K2-int8, `_flash_kernel`'s `int8_qk` branch (the SageAttention analog): a
+    pre-pass kernel quantises q, and k minus the mean of its `bk`-row segment
+    (`segment_rows`), to s8 with per-row f32 scales; the main kernel takes the
+    s8 QK^T to f32 by sq * sk and runs K2's softmax and bf16 PV.
+  * K6a `_skew_kernel` and K6b `_staticmax_skew_kernel`: K2's and K1's window
+    math with the QK^T of tile j+1 issued before the softmax and PV of tile j.
 
-Both take q [B, Lq, N, D], k/v [B, Lk, N, D]. A tensor on the CPU goes to the
-plain PyTorch version beside the kernel (`window_attention_plain`,
-`block_causal_attention_plain`); a CUDA tensor goes to the kernel or the call
-raises. The kernel is compiled with nvcc for sm_90a into a shared library with
-a plain C interface at first use (`ops/cuda_build.py`), and bound with ctypes.
+The switches are module attributes of the JAX module's names, read from the
+same environment variables at import and read again by every call, so a test
+sets them as tests/test_pallas_attention.py sets `pat.INT8_QK`:
 
-`LAUNCHES` counts kernel launches per entry point; nothing else touches it.
-`PLAIN_ON_CUDA` counts calls of a plain version on a CUDA tensor, which the
-serving path never makes (only a comparison against the kernel does).
+  INT8_QK (RTV_ATTN_INT8), SKEW (RTV_ATTN_SKEW), SKEW2 (RTV_ATTN_SKEW2),
+  STATIC_MAX (RTV_ATTN_STATICMAX, default on), BK (RTV_ATTN_BK).
+
+`window_route` keeps `decode_attention`'s precedence: SKEW2 and not INT8_QK
+-> K6b (with its M >= 64 running-max fallback); else SKEW and not INT8_QK ->
+K6a; else STATIC_MAX and not INT8_QK -> K1 with its fallback; else the
+running-max window, int8 under INT8_QK. Block-causal calls take K2, int8
+under INT8_QK. BK changes a result: under INT8_QK it sets the width of the
+mean segments. RTV_ATTN_BQ, _BKM, _SKEW2_BK and _NOPAD do not apply: they
+size or pad the TPU's VMEM tiles and change no result there, and this kernel
+tiles 64 x 64 and never pads.
+
+Every entry takes q [B, Lq, N, D], k/v [B, Lk, N, D]. A tensor on the CPU
+goes to the plain PyTorch version beside the kernel; a CUDA tensor goes to
+the kernel or the call raises. The kernel is compiled with nvcc for sm_90a
+into a shared library with a plain C interface at first use
+(`ops/cuda_build.py`), and bound with ctypes.
+
+`LAUNCHES` counts kernel launches per route (one int8 call = its pre-pass
+and its main kernel); nothing else touches it. `PLAIN_ON_CUDA` counts calls
+of a plain version on a CUDA tensor, which the serving path never makes
+(only a comparison against the kernel does).
 """
 from __future__ import annotations
 
 import ctypes
+import os as _os
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,13 +64,26 @@ LOG2E = 1.4426950408889634
 STATIC_MAX_LIMIT = 64.0
 NEG_INF = -1e30
 
+# ---- switches (pallas_attention.py:49-90) ----
+BK = int(_os.getenv("RTV_ATTN_BK", "1024"))
+INT8_QK = _os.getenv("RTV_ATTN_INT8", "0") in ("1", "true")
+SKEW = _os.getenv("RTV_ATTN_SKEW", "0") in ("1", "true")
+SKEW2 = _os.getenv("RTV_ATTN_SKEW2", "0") in ("1", "true")
+STATIC_MAX = _os.getenv("RTV_ATTN_STATICMAX", "1") in ("1", "true")
+
 _MODE_WINDOW = 0
 _MODE_BLOCK_CAUSAL = 1
 
+#: planted faults for the checks that must catch them (kernel argument)
+FAULT_SKIP_DRAIN = 1  # skewed loop: the last tile's softmax and PV step dropped
+FAULT_K_SCALE_SHIFT = 2  # int8: the last segment's columns take the next row's k scale
+
 SOURCE = cuda_build.CSRC / "attention.cu"
 
-#: kernel launches per entry point (plain-version calls are not counted)
-LAUNCHES: Dict[str, int] = {"window": 0, "block_causal": 0}
+WINDOW_ROUTES = ("window", "window_int8qk", "window_skew", "window_skew_staticmax")
+BLOCK_CAUSAL_ROUTES = ("block_causal", "block_causal_int8qk")
+#: kernel launches per route (plain-version calls are not counted)
+LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES}
 PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0}
 
 _lib = None
@@ -53,9 +91,40 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-        PLAIN_ON_CUDA[key] = 0
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for key in d:
+            d[key] = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def segment_rows(lk: int) -> int:
+    """The int8 mode's mean segment width: the bk that
+    pallas_attention._tiles_for gives for the current BK."""
+    return min(BK, _round_up(lk, 128))
+
+
+def window_route() -> str:
+    """The route a window call takes under the current switches, in
+    pallas_attention.decode_attention's precedence."""
+    if INT8_QK:
+        return "window_int8qk"
+    if SKEW2:
+        return "window_skew_staticmax"
+    return "window_skew" if SKEW else "window"
+
+
+def static_max(route: str) -> bool:
+    """Whether a window route bounds the softmax by the static logit bound
+    (falling back to the running max in the kernel when it is >= 64)."""
+    return route == "window_skew_staticmax" or (route == "window" and STATIC_MAX)
+
+
+def block_causal_route() -> str:
+    """The route of a block-causal call (pallas_attention.prefill_attention)."""
+    return "block_causal_int8qk" if INT8_QK else "block_causal"
 
 
 def build() -> Path:
@@ -69,10 +138,11 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.rtv_attention
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.rtv_attention.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 10 + [p]
+            lib.rtv_attention.restype = i
+            lib.rtv_int8_qk_quantize.argtypes = [p] * 7 + [i] * 6 + [p]
+            lib.rtv_int8_qk_quantize.restype = i
             _lib = lib
     return _lib
 
@@ -91,15 +161,20 @@ def _masked_softmax_attention(q, k, v, valid, scale: float) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def _window_mask(lk: int, lo: int, hi: int, device) -> torch.Tensor:
+    col = torch.arange(lk, device=device)
+    return ((col >= lo) & (col < hi))[None, :]
+
+
 def window_attention_plain(q, k, v, lo: int, hi: int,
                            scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version of every bf16 window route (K1, K2 window, K6a, K6b)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
         PLAIN_ON_CUDA["window"] += 1
-    col = torch.arange(k.shape[1], device=q.device)
-    valid = ((col >= lo) & (col < hi))[None, :]
-    return _masked_softmax_attention(q, k, v, valid, scale)
+    return _masked_softmax_attention(q, k, v, _window_mask(k.shape[1], lo, hi, q.device),
+                                     scale)
 
 
 def block_causal_mask(lq: int, lk: int, block_tokens: int, kv_len: int,
@@ -140,6 +215,78 @@ def logit_bound(q_scaled: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return (qn * kn + 1e-3).reshape(1)
 
 
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x f32 [B, L, N, D] -> (rint(x / s) s8, s [B, N, L] f32) with
+    s = max|row| / 127 + 1e-8, f32 division and round half to even, as the
+    TPU kernel's int8_qk branch (pallas_attention.py:160-166)."""
+    s = x.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    return torch.round(x / s).to(torch.int8), s[..., 0].transpose(1, 2).contiguous()
+
+
+def int8_qk_quantize_plain(q_scaled, k, seg: int):
+    """The int8 mode's quanta: (q8, sq, k8, sk). q_scaled is the pre-scaled q
+    (`prescale`); k is taken minus the mean of its `seg`-row segment
+    (segments from row 0, the zero pad of the last one counted, the sum
+    divided by seg), as the TPU kernel means each zero-padded bk sub-tile."""
+    b, lk, n, d = k.shape
+    nseg = -(-lk // seg)
+    kf = k.float()
+    kp = torch.cat([kf, kf.new_zeros((b, nseg * seg - lk, n, d))], 1)
+    km = kp.reshape(b, nseg, seg, n, d).mean(dim=2)
+    kc = kf - km.repeat_interleave(seg, dim=1)[:, :lk]
+    q8, sq = _quantize_rows(q_scaled.float())
+    k8, sk = _quantize_rows(kc)
+    return q8, sq, k8, sk
+
+
+def int8_qk_attention_plain(q8, sq, k8, sk, v, valid, out_dtype,
+                            heads_per_chunk: int = 4) -> torch.Tensor:
+    """Masked softmax of float(s8 q8 @ k8^T) * (sq * sk) in the log2 domain,
+    P cast to v's dtype before PV and the row sum applied after, as the
+    kernels do. The s8 product is exact (float64). Heads go in chunks so the
+    score tensor stays small at serving shapes."""
+    outs = []
+    for h0 in range(0, q8.shape[2], heads_per_chunk):
+        hs = slice(h0, h0 + heads_per_chunk)
+        s32 = torch.einsum("bqnd,bknd->bnqk", q8[:, :, hs].double(), k8[:, :, hs].double())
+        s = s32.float() * (sq[:, hs, :, None] * sk[:, hs, None, :])
+        s = s.masked_fill(~valid, NEG_INF)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v[:, :, hs].float())
+        outs.append(o / p.sum(-1).transpose(1, 2)[..., None])
+        del s32, s, p
+    return torch.cat(outs, 2).to(out_dtype)
+
+
+def window_attention_int8qk_plain(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
+                                  seg: Optional[int] = None) -> torch.Tensor:
+    """K2-int8 in window mode; seg defaults to segment_rows(Lk)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        PLAIN_ON_CUDA["window"] += 1
+    seg = seg or segment_rows(k.shape[1])
+    quanta = int8_qk_quantize_plain(prescale(q, scale), k, seg)
+    return int8_qk_attention_plain(*quanta, v, _window_mask(k.shape[1], lo, hi, q.device),
+                                   q.dtype)
+
+
+def block_causal_attention_int8qk_plain(q, k, v, block_tokens: int,
+                                        local_window: Optional[int] = None,
+                                        scale: Optional[float] = None,
+                                        seg: Optional[int] = None) -> torch.Tensor:
+    """K2-int8 in block-causal mode; seg defaults to segment_rows(Lk)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        PLAIN_ON_CUDA["block_causal"] += 1
+    seg = seg or segment_rows(k.shape[1])
+    quanta = int8_qk_quantize_plain(prescale(q, scale), k, seg)
+    valid = block_causal_mask(q.shape[1], k.shape[1], block_tokens, k.shape[1],
+                              local_window, q.device)
+    return int8_qk_attention_plain(*quanta, v, valid, q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -165,47 +312,102 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on different devices")
 
 
-def _launch(q, k, v, m_bound, mode, lo, hi, block_tokens, kv_len, local_window):
+def _launch(q, k, v, m_bound, mode, lo, hi, block_tokens, kv_len, local_window, *,
+            q_scale=None, k_scale=None, skew: bool = False, seg: int = 0,
+            fault: int = 0) -> torch.Tensor:
+    """One launch of the attention kernel. With q_scale/k_scale, q and k are
+    the int8 pre-pass's quanta (`_quantize_launch`)."""
     lib = _load()
     b, lq, n, d = q.shape
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    int8 = q_scale is not None
     err = lib.rtv_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1],
-        n, d, None if m_bound is None else m_bound.data_ptr(), mode, lo, hi,
-        block_tokens, kv_len, local_window, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_scale.data_ptr() if int8 else None, k_scale.data_ptr() if int8 else None,
+        b, lq, k.shape[1], n, d, None if m_bound is None else m_bound.data_ptr(), mode,
+        lo, hi, block_tokens, kv_len, local_window, int(int8), int(skew), seg, fault,
+        stream)
     if err != 0:
         raise RuntimeError(f"rtv_attention launch failed: cudaError {err}")
     return out
 
 
-def window_attention(q, k, v, lo: int, hi: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attend q to KV positions [lo, hi) (host ints). K1, with K2's running
-    max as the in-kernel fallback when the logit bound is >= 64."""
+def _quantize_launch(q_scaled, k, seg: int):
+    """The int8 pre-pass on the card: (q8, sq, k8, sk) as int8_qk_quantize_plain."""
+    lib = _load()
+    b, lq, n, d = q_scaled.shape
+    lk = k.shape[1]
+    dev = q_scaled.device
+    q8 = torch.empty((b, lq, n, d), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b, lk, n, d), dtype=torch.int8, device=dev)
+    sq = torch.empty((b, n, lq), dtype=torch.float32, device=dev)
+    sk = torch.empty((b, n, lk), dtype=torch.float32, device=dev)
+    km = torch.empty((b, -(-lk // seg), n, d), dtype=torch.float32, device=dev)
+    err = lib.rtv_int8_qk_quantize(
+        q_scaled.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+        sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rtv_int8_qk_quantize launch failed: cudaError {err}")
+    return q8, sq, k8, sk
+
+
+def _launch_int8(q_scaled, k, v, mode, lo, hi, block_tokens, kv_len, local_window,
+                 seg: int, fault: int = 0) -> torch.Tensor:
+    """The int8 mode: pre-pass, then the main kernel on its quanta."""
+    q8, sq, k8, sk = _quantize_launch(q_scaled, k, seg)
+    return _launch(q8, k8, v, None, mode, lo, hi, block_tokens, kv_len, local_window,
+                   q_scale=sq, k_scale=sk, seg=seg, fault=fault)
+
+
+def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
+                     route: Optional[str] = None) -> torch.Tensor:
+    """Attend q to KV positions [lo, hi) (host ints), by `route` (one of
+    WINDOW_ROUTES; default: `window_route()` under the current switches)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     lk = k.shape[1]
     lo, hi = max(int(lo), 0), min(int(hi), lk)
+    route = route or window_route()
+    if route not in WINDOW_ROUTES:
+        raise ValueError(f"window route {route!r} not in {WINDOW_ROUTES}")
+    int8 = route == "window_int8qk"
     if not q.is_cuda:
+        if int8:
+            return window_attention_int8qk_plain(q, k, v, lo, hi, scale)
         return window_attention_plain(q, k, v, lo, hi, scale)
     _check(q, k, v)
     qs = prescale(q, scale)
-    m_bound = logit_bound(qs, k)
-    out = _launch(qs, k, v, m_bound, _MODE_WINDOW, lo, hi, 1, lk, -1)
-    LAUNCHES["window"] += 1
+    if int8:
+        out = _launch_int8(qs, k, v, _MODE_WINDOW, lo, hi, 1, lk, -1,
+                           seg=segment_rows(lk))
+    else:
+        m_bound = logit_bound(qs, k) if static_max(route) else None
+        out = _launch(qs, k, v, m_bound, _MODE_WINDOW, lo, hi, 1, lk, -1,
+                      skew=route.startswith("window_skew"))
+    LAUNCHES[route] += 1
     return out
 
 
 def block_causal_attention(q, k, v, block_tokens: int,
                            local_window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """Blockwise-causal self attention (K2, block_causal mode)."""
+                           scale: Optional[float] = None,
+                           route: Optional[str] = None) -> torch.Tensor:
+    """Blockwise-causal self attention (K2 block-causal mode; int8 QK^T on the
+    `block_causal_int8qk` route, the default under INT8_QK)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if block_tokens <= 0:
         raise ValueError(f"block_tokens must be positive, got {block_tokens}")
+    route = route or block_causal_route()
+    if route not in BLOCK_CAUSAL_ROUTES:
+        raise ValueError(f"block-causal route {route!r} not in {BLOCK_CAUSAL_ROUTES}")
+    int8 = route == "block_causal_int8qk"
     if not q.is_cuda:
+        if int8:
+            return block_causal_attention_int8qk_plain(q, k, v, block_tokens, local_window,
+                                                       scale)
         return block_causal_attention_plain(q, k, v, block_tokens, local_window, scale)
     _check(q, k, v)
     if q.shape[1] != k.shape[1]:
@@ -213,15 +415,21 @@ def block_causal_attention(q, k, v, block_tokens: int,
     if local_window is not None and local_window <= 0:
         raise ValueError(f"local_window must be positive, got {local_window}")
     qs = prescale(q, scale)
-    out = _launch(qs, k, v, None, _MODE_BLOCK_CAUSAL, 0, k.shape[1], int(block_tokens),
-                  k.shape[1], -1 if local_window is None else int(local_window))
-    LAUNCHES["block_causal"] += 1
+    lk = k.shape[1]
+    args = (_MODE_BLOCK_CAUSAL, 0, lk, int(block_tokens), lk,
+            -1 if local_window is None else int(local_window))
+    if int8:
+        out = _launch_int8(qs, k, v, *args, seg=segment_rows(lk))
+    else:
+        out = _launch(qs, k, v, None, *args)
+    LAUNCHES[route] += 1
     return out
 
 
 def window_flops(lq: int, lo: int, hi: int, heads: int, head_dim: int,
                  batch: int = 1) -> float:
-    """FLOP of QK^T and PV over the live columns [lo, hi) of a window call."""
+    """FLOP of QK^T and PV over the live columns [lo, hi) of a window call
+    (half of it QK^T, half PV)."""
     return 4.0 * batch * heads * head_dim * lq * max(hi - lo, 0)
 
 
@@ -268,3 +476,19 @@ def agreement(got: torch.Tensor, want: torch.Tensor,
     return {"max_abs_err": diff.max().item(), "rel_fro_err": rel_fro, "atol": atol,
             "within_tol": bool(torch.isfinite(got).all()) and elementwise
             and rel_fro <= REL_FRO}
+
+
+def quanta_agreement(got, want) -> Dict[str, object]:
+    """Share of s8 quanta (q8 and k8 together) that differ between the
+    pre-pass kernel and the plain version, and the largest difference. Only
+    the summation order of the segment means may differ, so a quantum may
+    move by 1 in rare elements: the bar is a share <= 1e-3, off by <= 1."""
+    n_diff, n_all, worst = 0, 0, 0
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        d = (g.int() - w.int()).abs()
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        worst = max(worst, int(d.max()))
+    share = n_diff / n_all
+    return {"quanta_differing_share": share, "quanta_max_diff": worst,
+            "within_tol": share <= 1e-3 and worst <= 1}

@@ -34,7 +34,9 @@ from realtime_video_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "conv3x3.cu"
 
-LAUNCHES: Dict[str, int] = {"conv3x3": 0}
+#: "conv3x3" counts every launch; "conv3x3_temporal" those of them with kt > 1
+#: (K5's form: the temporal taps inside the kernel)
+LAUNCHES: Dict[str, int] = {"conv3x3": 0, "conv3x3_temporal": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"conv3x3": 0}
 
 #: planted faults for the checks that must catch them (kernel argument)
@@ -50,9 +52,9 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-        PLAIN_ON_CUDA[key] = 0
+    for counts in (LAUNCHES, PLAIN_ON_CUDA):
+        for key in counts:
+            counts[key] = 0
 
 
 def build() -> Path:
@@ -169,6 +171,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     _check(x, w, bias, stride, padding)
     out = _launch(x, w, stride, padding, bias)
     LAUNCHES["conv3x3"] += 1
+    if w.shape[0] > 1:
+        LAUNCHES["conv3x3_temporal"] += 1
     return out
 
 

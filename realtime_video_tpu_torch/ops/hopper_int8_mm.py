@@ -37,8 +37,13 @@ from realtime_video_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "int8_mm.cu"
 
-LAUNCHES: Dict[str, int] = {"int8_linear": 0}
+#: "int8_linear" counts every launch; "int8_linear_k_tiled" those of them
+#: with K > K_RESIDENT_MAX, which the TPU sends to K3b (`_mm_kernel`) and not
+#: K3a (`_mm_kernel_kres`), so the two forms' shares of a run can be read
+LAUNCHES: Dict[str, int] = {"int8_linear": 0, "int8_linear_k_tiled": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"int8_linear": 0}
+#: pallas_int8_mm.int8_linear keeps K resident (K3a) up to this K
+K_RESIDENT_MAX = 2048
 
 #: planted faults for the checks that must catch them (kernel argument)
 FAULT_DROP_LAST_K_TILE = 1
@@ -51,9 +56,9 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-        PLAIN_ON_CUDA[key] = 0
+    for counts in (LAUNCHES, PLAIN_ON_CUDA):
+        for key in counts:
+            counts[key] = 0
 
 
 def build() -> Path:
@@ -172,6 +177,8 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     _check(x, w_q, w_scale, a_scale, bias)
     out = _launch(x, w_q, w_scale, a_scale, bias)
     LAUNCHES["int8_linear"] += 1
+    if w_q.shape[0] > K_RESIDENT_MAX:
+        LAUNCHES["int8_linear_k_tiled"] += 1
     return out
 
 

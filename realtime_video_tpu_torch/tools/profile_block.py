@@ -1,11 +1,14 @@
 """Profile one warm block of the t2v serving path on a GPU.
 
-    python -m realtime_video_tpu_torch.tools.profile_block [--tier bf16|int8] [--out profile_out]
+    python -m realtime_video_tpu_torch.tools.profile_block [--model t2v-1.3B|t2v-14B]
+        [--tier bf16|int8] [--int8-qk] [--out profile_out]
 
-`load_all` builds t2v-1.3B (random weights from a seed) and the Wan 2.1 VAE
-on the card, in bf16 or in the int8 tier (the server flags `enable_int8`,
-`enable_int8_dit` and `int8_static_scales`: calibrated and quantised on the
-card), and one session runs at 832x480, 4 denoising steps and
+`load_all` builds the DiT (default t2v-1.3B; random weights from a seed) and
+the Wan 2.1 VAE on the card, in bf16 or in the int8 tier (the server flags
+`enable_int8`, `enable_int8_dit` and `int8_static_scales`: calibrated and
+quantised on the card), with the int8 QK^T attention when `--int8-qk` is
+given (RTV_ATTN_INT8's switch, set before the load), and one session runs at
+832x480, 4 denoising steps and
 3 KV-cache frames, as the server drives it (each block's frames are copied to
 the host). Blocks 0-2 warm up (block 2 is the first with the anti-drift
 re-encode). Then:
@@ -18,7 +21,7 @@ re-encode). Then:
     device's busy time against that range's own span. The span carries the
     profiler's host overhead, so its idle share is an upper bound.
 
-Writes profile_block_<tier>.json and the op table profile_block_<tier>.txt
+Writes profile_block_<model>_<tier>[_int8qk].json and the op table (.txt)
 under --out and prints the JSON summary.
 """
 from __future__ import annotations
@@ -34,18 +37,21 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 BLOCKS = 5
-CATEGORIES = ("attention_kernel", "int8_linear_kernel", "conv3x3_kernel", "gemm", "conv",
-              "copy/memset", "elementwise/other")
+CATEGORIES = ("attention_kernel", "attention_int8_prepass", "int8_linear_kernel",
+              "conv3x3_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
 TIER_FLAGS = {"bf16": {},
               "int8": {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}}
 
 
 def category(kernel_name: str) -> str:
-    """Bucket a device kernel by its name: the port's three hand-written
-    kernels, then library GEMMs and convolutions, copies, and the rest."""
+    """Bucket a device kernel by its name: the port's hand-written kernels
+    (the attention kernel, its int8 QK^T pre-pass, the int8 linear, the
+    conv), then library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
     if "attention_kernel" in n:
         return "attention_kernel"
+    if "attn_int8_" in n:
+        return "attention_int8_prepass"
     if "int8_linear_kernel" in n:
         return "int8_linear_kernel"
     if "conv_kernel<" in n:
@@ -105,8 +111,12 @@ class PhaseTimer:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("t2v-1.3B", "t2v-14B"), default="t2v-1.3B",
+                    help="the DiT to serve")
     ap.add_argument("--tier", choices=sorted(TIER_FLAGS), default="bf16",
                     help="the serving tier to profile")
+    ap.add_argument("--int8-qk", action="store_true",
+                    help="the int8 QK^T attention (RTV_ATTN_INT8's switch)")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -117,6 +127,7 @@ def main() -> None:
 
     from realtime_video_tpu_torch.config import load_server_config
     from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.ops import hopper_attention
     from realtime_video_tpu_torch.serving.models import load_all
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
@@ -125,9 +136,12 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
-    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+    config = load_server_config(model_name=args.model, num_frame_per_block=3,
                                 timestep_shift=5.0, **TIER_FLAGS[args.tier])
+    hopper_attention.INT8_QK = args.int8_qk
+    torch.cuda.reset_peak_memory_stats()
     models = load_all(config, dev, seed=0)
+    load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     timer = PhaseTimer()
     vae, gen = models.vae_decoder, models.transformer
@@ -144,6 +158,7 @@ def main() -> None:
                                 frame_callback=lambda px, ids, ev: px.float().cpu())
     for _ in range(BLOCKS - 2):
         session.generate_block(models)
+    torch.cuda.reset_peak_memory_stats()
 
     timer.enabled = True
     torch.cuda.synchronize()
@@ -180,7 +195,10 @@ def main() -> None:
     top = sorted(([ms, n, name[:140]] for name, (ms, n) in by_kernel.items()), reverse=True)
 
     summary = {
-        "card": card, "tier": args.tier, "blocks": BLOCKS, "timed_block": BLOCKS - 2,
+        "card": card, "model": args.model, "tier": args.tier, "int8_qk": args.int8_qk,
+        "load_peak_mem_gib": load_peak_gib,
+        "warm_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "blocks": BLOCKS, "timed_block": BLOCKS - 2,
         "profiled_block": BLOCKS - 1,
         "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
         "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
@@ -189,10 +207,11 @@ def main() -> None:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_block_{args.tier}.json").write_text(json.dumps(summary, indent=1))
+    stem = f"profile_block_{args.model}_{args.tier}" + ("_int8qk" if args.int8_qk else "")
+    (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
                 else "self_cuda_time_total")
-    (out / f"profile_block_{args.tier}.txt").write_text(
+    (out / f"{stem}.txt").write_text(
         prof.key_averages().table(sort_by=sort_key, row_limit=60))
     print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
 

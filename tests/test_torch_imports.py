@@ -92,4 +92,5 @@ def test_int8_kernel_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):
         hc.conv3x3(torch.zeros((1, 4, 4, 8), dtype=torch.int8),
                    torch.zeros((1, 3, 3, 8, 8), dtype=torch.int8))
     assert hm.PLAIN_ON_CUDA == {"int8_linear": 0} and hc.PLAIN_ON_CUDA == {"conv3x3": 0}
-    assert hm.LAUNCHES == {"int8_linear": 0} and hc.LAUNCHES == {"conv3x3": 0}
+    assert hm.LAUNCHES == {"int8_linear": 0, "int8_linear_k_tiled": 0}
+    assert hc.LAUNCHES == {"conv3x3": 0, "conv3x3_temporal": 0}

@@ -81,4 +81,5 @@ def test_plain_version_counts_only_cuda_calls():
     x, p = make(8, 16, 8, True, True)
     hm.reset_launch_counts()
     tdit.linear(torch_params(p, torch.float32), torch.from_numpy(x))
-    assert hm.LAUNCHES == {"int8_linear": 0} and hm.PLAIN_ON_CUDA == {"int8_linear": 0}
+    assert hm.LAUNCHES == {"int8_linear": 0, "int8_linear_k_tiled": 0}
+    assert hm.PLAIN_ON_CUDA == {"int8_linear": 0}

@@ -22,6 +22,12 @@ def test_union_length(intervals, want):
 
 @pytest.mark.parametrize("name, want", [
     ("void (anonymous namespace)::attention_kernel<128>(__nv_bfloat16 const*)", "attention_kernel"),
+    ("void (anonymous namespace)::attention_kernel<128, true, false>(void const*)",
+     "attention_kernel"),
+    ("void (anonymous namespace)::attn_int8_quantize_rows<128>(__nv_bfloat16 const*)",
+     "attention_int8_prepass"),
+    ("void (anonymous namespace)::attn_int8_segment_mean<128>(__nv_bfloat16 const*)",
+     "attention_int8_prepass"),
     ("Memcpy DtoH (Device -> Pageable)", "copy/memset"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv"),
     ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16>", "conv"),
