@@ -3,18 +3,27 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
-  1. device: the card's name and power limit (nvidia-smi), and the build of the
-     three hand-written kernel libraries from realtime_video_tpu_torch/csrc/
-     (one nvcc per source, all started together);
+  1. device: the card's name and power limit (nvidia-smi), the build of the
+     four hand-written kernel libraries from realtime_video_tpu_torch/csrc/
+     (one nvcc per source, all started together; with the earlier kernels'
+     sources under _archive/, those too, for the A/B times below), and, per
+     library, its counts of HGMMA / IGMMA (wgmma) and UTMALDG (TMA load)
+     instructions in `cuobjdump -sass`: the wgmma libraries must show them;
   2. kernels against their plain PyTorch versions at serving shapes, with each
      error against its bound, the kernel's, the plain version's and a library
      call's CUDA-event time, and the least time the card could take
      (bound_ms), and planted faults that the same checks must catch:
-       - attention (csrc/attention.cu) in bf16, t2v-1.3B shapes (K1/K2):
-         self-attention Lq 4680 / Lk 9360 with lo > 0, cross-attention Lk 512,
-         a large-norm input whose logit bound trips the running-max path,
-         block-causal 9360 tokens in 4680-token blocks;
-       - the same kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
+       - attention in bf16 (csrc/attention_sm90.cu: wgmma, TMA, warp
+         specialisation), t2v-1.3B shapes (K1/K2): self-attention Lq 4680 /
+         Lk 9360 with lo > 0, cross-attention Lk 512, a large-norm input whose
+         logit bound trips the running-max path, block-causal 9360 tokens in
+         4680-token blocks; each timed as the route (the bound pre-pass, then
+         the kernel) and as the kernel alone, and, with _archive/ present,
+         beside the earlier mma.sync kernel in the same turns (earlier,
+         new, new, earlier); the bound pre-pass's M against `logit_bound`'s
+         (relative 1e-5); planted faults: the window's edges, the last
+         block's end, and a ring stage filled with the previous tile;
+       - the mma.sync kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
          heads): self-attention Lq 4680 / Lk 9360 over [1560, 9360),
          cross-attention Lk 512, block-causal 4680 in one block, and keys that
          share an offset, on which one mean over the whole sequence and the
@@ -24,9 +33,13 @@ Phases, each reported on its own lines:
        - its skewed loops (K6a running max, K6b static max with the M >= 64
          fallback, also on a large-norm input) at the 1.3B self-attention
          shape, where skipping the drain step must be caught;
-       - the fused int8 linear (csrc/int8_mm.cu, K3) at the DiT block linears
-         (qkv, fc1, fc2 with K 8960, and o with a scale computed on the device),
-         within 1 bf16 ulp of the plain version;
+       - the fused int8 linear (csrc/int8_mm.cu, K3: s8 wgmma, TMA) at the
+         DiT block linears of t2v-1.3B (qkv, fc1, fc2 with K 8960, and o with
+         a scale computed on the device) and of t2v-14B (qkv 4680 x 5120 x
+         15360, fc2 4680 x 13824 x 5120), on K-major weights, within 1 bf16
+         ulp of the plain version, beside the earlier kernel (_archive/) in
+         the same turns; planted faults: the last K tile, w_scale a column
+         off, a ring stage holding the previous K tile;
        - the kt x 3 x 3 conv (csrc/conv3x3.cu, K4/K5) at VAE shapes: s8 with
          kt 3 at C 384 (60x104) and C 96 (480x832), kt 1 with C 96 and C 3,
          stride 2, whose int32 sums must equal the plain version's; and bf16
@@ -54,7 +67,9 @@ Phases, each reported on its own lines:
          int8 QK^T attention on against off, on the same model (> 0.99).
 
 Before its last line it prints the kernels' JSON summary, one row per TPU
-kernel of the repo; the last line is {"ok": true, "device": {...}}. Any
+kernel of the repo (K1, K2, K3a and K3b with `earlier_ms`, the earlier
+kernel's time in this run, or null without _archive/); the last line is
+{"ok": true, "device": {...}}. Any
 failure exits non-zero without it, and so does a host without a CUDA device.
 Every phase line carries t_s, the seconds since the start; a run that
 outlasts WATCHDOG_S dumps every thread's Python stack to stderr and exits 1.
@@ -68,18 +83,25 @@ QK^T counts as int8, its PV as bf16), the H100 SXM data-sheet figures at
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import faulthandler
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 #: a stalled run ends here, inside the 1200 s a run may take, with a stack dump
 WATCHDOG_S = 1100
 _T0 = time.perf_counter()
+#: the earlier (mma.sync) K1/K2 and K3 sources, kept out of git for A/B runs
+ARCHIVE = Path(__file__).resolve().parent / "_archive"
+V1_SOURCES = (ARCHIVE / "attention_v1.cu", ARCHIVE / "int8_mm_v1.cu")
 
 
 def fail(msg: str) -> None:
@@ -97,6 +119,30 @@ def bound(bytes_moved: float, ops: float, kind: str, more_ops=()):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[kind] + sum(o / PEAK_OPS[k] for o, k in more_ops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_counts(lib: Path, nvcc: str) -> dict:
+    """Counts of wgmma (HGMMA bf16, IGMMA s8) and TMA load (UTMALDG)
+    instructions in a library's SASS."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA", "UTMALDG")}
+
+
+def load_v1(libs: dict):
+    """The earlier kernels' libraries, bound as their sources declare them,
+    or None without _archive/."""
+    if not all(src in libs for src in V1_SOURCES):
+        return None
+    p, i = ctypes.c_void_p, ctypes.c_int
+    att = ctypes.CDLL(str(libs[V1_SOURCES[0]]))
+    att.rtv_attention.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 10 + [p]
+    att.rtv_attention.restype = i
+    mm = ctypes.CDLL(str(libs[V1_SOURCES[1]]))
+    mm.rtv_int8_linear.argtypes = [p] * 5 + [i, p] + [i] * 4 + [p]
+    mm.rtv_int8_linear.restype = i
+    return att, mm
 
 
 def cosine(a, b) -> float:
@@ -142,15 +188,24 @@ def main() -> None:
                          timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
+    sources = [*hk.SOURCES, hm.SOURCE, hc.SOURCE]
+    archived = [src for src in V1_SOURCES if src.exists()]
     t0 = time.perf_counter()
-    libs = cuda_build.build_all([m.SOURCE for m in kernel_mods])
+    libs = cuda_build.build_all(sources + archived)
     build_s = time.perf_counter() - t0
+    v1 = load_v1(libs)
+    sass = {libs[src].name: sass_counts(libs[src], cuda_build.nvcc()) for src in sources}
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, kernel_build_s=build_s,
-          libraries=[p.name for p in libs.values()],
+          libraries=[libs[src].name for src in sources],
+          archived_earlier_kernels=[src.name for src in archived], sass=sass,
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
           tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "UTMALDG")), (hm.SOURCE, ("IGMMA", "UTMALDG"))):
+        counts = sass[libs[src].name]
+        if not all(counts[op] > 0 for op in ops):
+            fail(f"{src.name}: no {ops} in its SASS: {counts}")
 
     # ---- phase 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -172,12 +227,49 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
 
+    def ab_ms(new, old, n):
+        """(new ms, earlier ms or None): with an earlier version, timed in
+        turns earlier, new, new, earlier, each a mean over n launches."""
+        if old is None:
+            return cuda_ms(new, n), None
+        t = [cuda_ms(old, n), cuda_ms(new, n), cuda_ms(new, n), cuda_ms(old, n)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def v1_attention(q, k, v, m_bound, mode, lo, hi, bt, kv_len):
+        """The earlier mma.sync kernel's bf16 launch on a pre-scaled q."""
+        out = torch.empty_like(q)
+        b, lq, n, d = q.shape
+        err = v1[0].rtv_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  None, None, b, lq, k.shape[1], n, d,
+                                  None if m_bound is None else m_bound.data_ptr(), mode, lo, hi,
+                                  bt, kv_len, -1, 0, 0, 0, 0, stream())
+        if err:
+            fail(f"earlier attention kernel launch failed: cudaError {err}")
+        return out
+
+    def v1_int8_linear(x, w_nk, w_scale, a_scale, bias):
+        """The earlier K3 launch, on w_q [K, N] N-contiguous (its layout)."""
+        k, n = w_nk.shape
+        out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+        err = v1[1].rtv_int8_linear(x.data_ptr(), w_nk.data_ptr(), w_scale.data_ptr(),
+                                    a_scale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
+                                    x.numel() // k, k, n, 0, stream())
+        if err:
+            fail(f"earlier int8 linear launch failed: cudaError {err}")
+        return out
+
     # -- attention (K1, K2) --
-    # The kernel receives q pre-scaled by scale*log2(e) in bf16; the plain
-    # version is fed that same q (scale 1/log2 e), so the comparison holds the
-    # kernel alone, under hk.agreement's bounds: elementwise atol +
-    # hk.RTOL*|plain| (atol hk.ATOL, or hk.sharp_atol(v) for the sharp
-    # softmax of the large-norm input) and relative Frobenius error hk.REL_FRO.
+    # The plain version is fed the q the kernel multiplies by bf16(scale *
+    # log2 e): here q is pre-scaled once and every side takes scale 1/log2 e
+    # (a factor of exactly 1), so the comparison holds the kernel alone, under
+    # hk.agreement's bounds: elementwise atol + hk.RTOL*|plain| (atol
+    # hk.ATOL, or hk.sharp_atol(v) for the sharp softmax of the large-norm
+    # input) and relative Frobenius error hk.REL_FRO. "ms" is the kernel
+    # alone (the bound's maxima computed beforehand), "route_ms" the route as
+    # the main path calls it (the bound pre-pass, then the kernel); SDPA's
+    # time is its kernel alone.
     inv = 1.0 / hk.LOG2E
     heads, hd = 12, 128
     tol = dict(rtol=hk.RTOL, rel_fro=hk.REL_FRO)
@@ -193,8 +285,21 @@ def main() -> None:
         k, v = rnd((1, lk, heads, hd), scale), rnd((1, lk, heads, hd))
         qt = q.transpose(1, 2)
         if mode == "window":
-            m_bound = float(hk.logit_bound(q, k)[0])  # the bound the kernel tests
+            maxima = hk.logit_bound_maxima(q, k, inv)
+            m_bound = float(hk.logit_bound_from_maxima(maxima)[0])  # the bound the kernel tests
+            m_ref = float(hk.logit_bound(hk.prescale(q, inv), k)[0])
+            if abs(m_bound - m_ref) > 1e-5 * m_ref:
+                fail(f"{name}: the bound pre-pass's M {m_bound} is not logit_bound's {m_ref}")
             kern = lambda: hk.window_attention(q, k, v, lo, arg, scale=inv)  # noqa: E731
+            alone = lambda: hk._launch_sm90(q, k, v, inv, maxima, hk._MODE_WINDOW,  # noqa: E731
+                                            lo, arg, 1, lk, -1)
+            if v1 is not None:
+                mb1 = hk.logit_bound(q, k)
+                v1_route = lambda: v1_attention(  # noqa: E731
+                    hk.prescale(q, inv), k, v, hk.logit_bound(hk.prescale(q, inv), k),
+                    hk._MODE_WINDOW, lo, arg, 1, lk)
+                v1_alone = lambda: v1_attention(q, k, v, mb1, hk._MODE_WINDOW,  # noqa: E731
+                                                lo, arg, 1, lk)
             plain = lambda: hk.window_attention_plain(q, k, v, lo, arg, scale=inv)  # noqa: E731
             flop = hk.window_flops(lq, lo, arg, heads, hd)
             io_bytes = 2.0 * heads * hd * (2 * lq + 2 * (arg - lo))
@@ -202,13 +307,23 @@ def main() -> None:
             backend, lib_mask = "flash (window slice k[:, lo:hi])", None
             backends = [SDPBackend.FLASH_ATTENTION]
             # planted faults, which the check must catch: the window starting
-            # 8 columns late (inside the tile that straddles lo), and ending
-            # 16 columns early (the ragged tail past the last full tile)
+            # 8 columns late (inside the tile that straddles lo), ending 16
+            # columns early (the ragged tail past the last full tile), and the
+            # last ring stage filled with the previous tile's rows
             faults = {"lo+8": lambda: hk.window_attention(q, k, v, lo + 8, arg, scale=inv),
-                      "hi-16": lambda: hk.window_attention(q, k, v, lo, arg - 16, scale=inv)}
+                      "hi-16": lambda: hk.window_attention(q, k, v, lo, arg - 16, scale=inv),
+                      "stale_ring_stage": lambda: hk._launch_sm90(
+                          q, k, v, inv, maxima, hk._MODE_WINDOW, lo, arg, 1, lk, -1,
+                          fault=hk.FAULT_STALE_RING_STAGE)}
         else:
-            m_bound = None
+            m_bound = m_ref = None
             kern = lambda: hk.block_causal_attention(q, k, v, arg, scale=inv)  # noqa: E731
+            alone = kern
+            if v1 is not None:
+                v1_route = lambda: v1_attention(  # noqa: E731
+                    hk.prescale(q, inv), k, v, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk)
+                v1_alone = lambda: v1_attention(  # noqa: E731
+                    q, k, v, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk)
             plain = lambda: hk.block_causal_attention_plain(q, k, v, arg, scale=inv)  # noqa: E731
             flop = hk.block_causal_flops(lq, arg, heads, hd)
             io_bytes = 2.0 * heads * hd * 4 * lq
@@ -216,13 +331,22 @@ def main() -> None:
             lib_mask = hk.block_causal_mask(lq, lk, arg, lk, None, dev)
             backend, backends = None, [SDPBackend.EFFICIENT_ATTENTION,
                                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
-            # planted fault: the last block stops 16 columns short of kv_len
-            faults = {"kv_len-16": lambda: hk._launch(q, k, v, None, hk._MODE_BLOCK_CAUSAL,
-                                                      0, lk, arg, lk - 16, -1)}
+            # planted faults: the last block stops 16 columns short of kv_len;
+            # the last ring stage holds the previous tile
+            faults = {"kv_len-16": lambda: hk._launch_sm90(
+                          q, k, v, inv, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk - 16, -1),
+                      "stale_ring_stage": lambda: hk._launch_sm90(
+                          q, k, v, inv, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk, -1,
+                          fault=hk.FAULT_STALE_RING_STAGE)}
         got, want = kern(), plain()
         torch.cuda.synchronize()
         res = hk.agreement(got, want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
-        ms = cuda_ms(kern, 20)
+        if v1 is not None:
+            res1 = hk.agreement(v1_alone(), want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
+            if not res1["within_tol"]:
+                fail(f"{name}: the earlier kernel disagrees with the plain version: {res1}")
+        ms, earlier_ms = ab_ms(alone, v1_alone if v1 else None, 20)
+        route_ms, earlier_route_ms = ab_ms(kern, v1_route if v1 else None, 20)
         plain_ms = cuda_ms(plain, 3)
         library_ms = None
         for b in backends:  # the first backend that takes the masked call
@@ -235,10 +359,11 @@ def main() -> None:
             except RuntimeError:
                 continue
         bound_ms, bound_by = bound(io_bytes, flop, "bf16")
-        results[name] = dict(**res, **tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             library=f"torch SDPA {backend}", bound_ms=bound_ms,
-                             bound_by=bound_by, logit_bound=m_bound,
-                             tflops_live=flop / ms / 1e9)
+        results[name] = dict(**res, **tol, ms=ms, route_ms=route_ms, earlier_ms=earlier_ms,
+                             earlier_route_ms=earlier_route_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, library=f"torch SDPA {backend}",
+                             bound_ms=bound_ms, bound_by=bound_by, logit_bound=m_bound,
+                             logit_bound_reference=m_ref, tflops_live=flop / ms / 1e9)
         phase("kernel", kernel="attention", case=name, mode=mode, lq=lq, lk=lk, lo=lo,
               heads=heads, head_dim=hd, **results[name], card=card)
         if not res["within_tol"]:
@@ -258,7 +383,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed loops
-    # (K6a, K6b, t2v-1.3B shapes) of the same kernel, each route named
+    # (K6a, K6b, t2v-1.3B shapes) of the mma.sync kernel, each route named
     # explicitly; the same bounds as K1/K2. The int8 mode's plain version
     # computes the TPU kernel's per-segment mean, quanta and s32 scores; its
     # pre-pass's quanta are compared too. No PyTorch call computes int8 QK^T
@@ -382,12 +507,16 @@ def main() -> None:
         ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exp - 8).clamp_min(2.0 ** -126)
         return ((got.float() - want.float()).abs() / ulp).max().item()
 
+    # The weights are K-major ([K, N] views of [N, K] storage, as the
+    # loaders build them); the earlier kernel (_archive/) reads the same
+    # values N-contiguous, its layout.
     mm_results = {}
     mm_cases = [("qkv", 4680, 1536, 4608, True), ("fc1", 4680, 1536, 8960, True),
-                ("fc2", 4680, 8960, 1536, True), ("o_dynamic", 4680, 1536, 1536, False)]
+                ("fc2", 4680, 8960, 1536, True), ("o_dynamic", 4680, 1536, 1536, False),
+                ("qkv_14b", 4680, 5120, 15360, True), ("fc2_14b", 4680, 13824, 5120, True)]
     for name, m, kdim, n, static in mm_cases:
         x = rnd((1, m, kdim))
-        w_q, bias = rint8((kdim, n)), rnd((n,))
+        w_q, bias = hm.k_major(rint8((kdim, n))), rnd((n,))
         w_scale = (torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-3)
         a_scale = (x.float().abs().amax() * 1.5 / 127.0).reshape(1) if static \
             else hm.dynamic_scale(x)
@@ -397,7 +526,13 @@ def main() -> None:
         torch.cuda.synchronize()
         err_ulps = ulps(got, want)
         max_abs = (got.float() - want.float()).abs().max().item()
-        ms = cuda_ms(kern, 20)
+        v1_kern = None
+        if v1 is not None:
+            w_n = w_q.contiguous()
+            v1_kern = lambda: v1_int8_linear(x, w_n, w_scale, a_scale, bias)  # noqa: E731
+            if ulps(v1_kern(), want) > 1.0:
+                fail(f"int8 linear {name}: the earlier kernel disagrees with the plain version")
+        ms, earlier_ms = ab_ms(kern, v1_kern, 20)
         plain_ms = cuda_ms(plain, 3)
         x2 = x.reshape(m, kdim)
 
@@ -414,7 +549,8 @@ def main() -> None:
         bound_ms, bound_by = bound(hm.int8_linear_bytes(m, kdim, n),
                                    hm.int8_linear_ops(m, kdim, n), "int8")
         mm_results[name] = dict(max_abs_err=max_abs, max_err_bf16_ulps=err_ulps, ms=ms,
-                                plain_ms=plain_ms, library_ms=library_ms, library=lib_note,
+                                earlier_ms=earlier_ms, plain_ms=plain_ms,
+                                library_ms=library_ms, library=lib_note,
                                 bf16_matmul_ms=bf16_matmul_ms, bound_ms=bound_ms,
                                 bound_by=bound_by,
                                 tops=hm.int8_linear_ops(m, kdim, n) / ms / 1e9)
@@ -424,14 +560,15 @@ def main() -> None:
             fail(f"int8 linear {name}: {err_ulps} bf16 ulps from the plain version")
         if name == "qkv":
             for fault, code in (("last_k_tile_dropped", hm.FAULT_DROP_LAST_K_TILE),
-                                ("w_scale_one_column_off", hm.FAULT_W_SCALE_SHIFT)):
+                                ("w_scale_one_column_off", hm.FAULT_W_SCALE_SHIFT),
+                                ("stale_ring_stage", hm.FAULT_STALE_RING_STAGE)):
                 bad = ulps(hm._launch(x, w_q, w_scale, a_scale, bias, fault=code), want)
                 phase("planted_fault", case=f"int8_linear_{name}", fault=fault,
                       caught=bad > 1.0, max_err_bf16_ulps=bad)
                 if bad <= 1.0:
                     fail(f"the int8 linear check passes the planted fault {fault}")
-        del x, w_q, bias, got, want, bf16_w, x2
-    torch.cuda.empty_cache()
+        del x, w_q, bias, got, want, bf16_w, x2, v1_kern
+        torch.cuda.empty_cache()
 
     # -- the kt x 3 x 3 conv (K4/K5) --
     pad1, down = ((1, 1), (1, 1)), ((0, 1), (0, 1))
@@ -616,6 +753,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         sessions = asyncio.run(drive(config, models, sids))
         launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+        launches.update(hk.PREPASS_LAUNCHES)
         plain_on_cuda = {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         for sid, t_send, stamps, sizes, final, frames in sessions:
@@ -642,8 +780,8 @@ def main() -> None:
 
     int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
     tiers, skew_launches, head_w = {}, {}, None
-    kernel_paths = {"bf16": ("window", "block_causal"),
-                    "int8": ("window", "block_causal", "int8_linear", "conv3x3")}
+    kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
+                    "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3")}
     for tier, flags in (("bf16", {}), ("int8", int8_flags)):
         config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
                                     timestep_shift=5.0, **flags)
@@ -733,19 +871,30 @@ def main() -> None:
 
     bf16_l, int8_l = tiers["bf16"]["launches"], tiers["int8"]["launches"]
     attn_src = "realtime_video_tpu_torch/csrc/attention.cu"
+    sm90_src = "realtime_video_tpu_torch/csrc/attention_sm90.cu"
     int8qk_cases = ("int8qk_self_14b", "int8qk_cross_14b", "int8qk_block_causal_14b",
                     "int8qk_shared_offset_14b")
     kernels = [
-        entry("window_attention (K1 static-max; in-kernel running-max fallback)", attn_src,
+        entry("window_attention (K1 static-max; in-kernel running-max fallback)", sm90_src,
               "realtime_video_tpu/ops/pallas_attention.py:220", bf16_l["window"],
               results["self_attn"], max(results["self_attn"]["max_abs_err"],
                                         results["cross_attn"]["max_abs_err"]),
-              {"case": "1.3B self-attn", "fallback_max_abs_err":
-               results["large_norm"]["max_abs_err"], "launches_int8_path": int8_l["window"]}),
-        entry("block_causal_attention (K2 running-max flash, block-causal mode)", attn_src,
+              {"case": "1.3B self-attn; ms the kernel alone", "route_ms":
+               results["self_attn"]["route_ms"],
+               "earlier_ms": results["self_attn"]["earlier_ms"],
+               "earlier_route_ms": results["self_attn"]["earlier_route_ms"],
+               "cross_ms": results["cross_attn"]["ms"],
+               "cross_route_ms": results["cross_attn"]["route_ms"],
+               "cross_earlier_ms": results["cross_attn"]["earlier_ms"],
+               "cross_library_ms": results["cross_attn"]["library_ms"],
+               "fallback_max_abs_err": results["large_norm"]["max_abs_err"],
+               "launches_logit_bound": bf16_l["logit_bound"],
+               "launches_int8_path": int8_l["window"]}),
+        entry("block_causal_attention (K2 running-max flash, block-causal mode)", sm90_src,
               "realtime_video_tpu/ops/pallas_attention.py:97", bf16_l["block_causal"],
               results["block_causal"], results["block_causal"]["max_abs_err"],
               {"case": "1.3B block-causal 9360 / 4680",
+               "earlier_ms": results["block_causal"]["earlier_ms"],
                "launches_int8_path": int8_l["block_causal"]}),
         entry("int8qk_attention (K2's int8_qk mode: s8 pre-pass + s8 QK^T / bf16 PV flash)",
               attn_src, "realtime_video_tpu/ops/pallas_attention.py:155",
@@ -763,12 +912,18 @@ def main() -> None:
               "realtime_video_tpu/ops/pallas_int8_mm.py:42",
               int8_l["int8_linear"] - int8_l["int8_linear_k_tiled"], mm_results["qkv"],
               max(mm_results[c]["max_abs_err"] for c in ("qkv", "fc1", "o_dynamic")),
-              {"case": "qkv 4680x1536x4608"}),
+              {"case": "qkv 4680x1536x4608", "earlier_ms": mm_results["qkv"]["earlier_ms"],
+               "fc1_ms": mm_results["fc1"]["ms"], "o_ms": mm_results["o_dynamic"]["ms"]}),
         entry("int8_linear, K-tiled form (K3b: K > 2048; every 14B block linear)",
               "realtime_video_tpu_torch/csrc/int8_mm.cu",
               "realtime_video_tpu/ops/pallas_int8_mm.py:62", int8_l["int8_linear_k_tiled"],
-              mm_results["fc2"], mm_results["fc2"]["max_abs_err"],
-              {"case": "fc2 4680x8960x1536",
+              mm_results["fc2"],
+              max(mm_results[c]["max_abs_err"] for c in ("fc2", "qkv_14b", "fc2_14b")),
+              {"case": "fc2 4680x8960x1536", "earlier_ms": mm_results["fc2"]["earlier_ms"],
+               "qkv_14b_ms": mm_results["qkv_14b"]["ms"],
+               "qkv_14b_earlier_ms": mm_results["qkv_14b"]["earlier_ms"],
+               "fc2_14b_ms": mm_results["fc2_14b"]["ms"],
+               "fc2_14b_earlier_ms": mm_results["fc2_14b"]["earlier_ms"],
                "launches_14b": launches14["int8_linear_k_tiled"]}),
         entry("conv3x3, 3x3 form (K4: kt 1)", "realtime_video_tpu_torch/csrc/conv3x3.cu",
               "realtime_video_tpu/ops/pallas_conv2.py:67",

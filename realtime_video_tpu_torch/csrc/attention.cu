@@ -1,5 +1,7 @@
-// Decode-window and block-causal attention for Hopper (sm_90a): bf16 in, f32
-// accumulate, bf16 out, with an int8 QK^T mode and a skewed KV pipeline.
+// Decode-window and block-causal attention for Hopper (sm_90a) with mma.sync:
+// the int8 QK^T mode and the skewed KV pipeline. (The plain bf16 window and
+// block-causal routes, K1 and K2, run in csrc/attention_sm90.cu, with wgmma
+// and TMA; this template still holds their math for the skewed loop.)
 //
 // Replaces the Pallas TPU kernels of realtime_video_tpu/ops/pallas_attention.py:
 //   * _staticmax_kernel (K1): softmax over KV columns in [lo, hi) with a static
@@ -12,7 +14,8 @@
 //     by sq * sk; the softmax and PV as K2;
 //   * _skew_kernel (K6a, RTV_ATTN_SKEW) and _staticmax_skew_kernel (K6b,
 //     RTV_ATTN_SKEW2): K2's and K1's window math with V lagging K by one step.
-// One kernel template serves them all. In window mode the kernel reads M from
+// One kernel template serves them all; the launches it takes are the int8
+// mode and the skewed loop. In window mode the kernel reads M from
 // device memory and every thread block chooses static-max (M < 64) or
 // running-max itself, so the host never waits on the device to pick a path.
 //
@@ -638,23 +641,22 @@ extern "C" int rtv_int8_qk_quantize(const void* q, const void* k, void* q8, void
 // static-max / running-max choice read from m_bound (null: running max
 // always); mode 1 = block-causal (running max; m_bound unused). int8 = 1: q
 // and k are the pre-pass's s8 quanta with their scales (running max only);
-// skew = 1: the skewed loop (bf16 only). seg is the int8 mean's segment width;
-// fault plants a fault for the checks (0 in every real call).
+// skew = 1: the skewed loop (bf16 only). One of the two must be set: the
+// plain bf16 routes run in csrc/attention_sm90.cu. seg is the int8 mean's
+// segment width; fault plants a fault for the checks (0 in every real call).
 extern "C" int rtv_attention(const void* q, const void* k, const void* v, void* o,
                              const void* q_scale, const void* k_scale, int B, int Lq, int Lk,
                              int N, int D, const float* m_bound, int mode, int lo, int hi,
                              int block_tokens, int kv_len, int local_window, int int8,
                              int skew, int seg, int fault, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D != 128 || (int8 && (skew || seg <= 0))) return (int)cudaErrorInvalidValue;
+  if (D != 128 || (int8 && (skew || seg <= 0)) || !(int8 || skew))
+    return (int)cudaErrorInvalidValue;
   const float* qs = reinterpret_cast<const float*>(q_scale);
   const float* ks = reinterpret_cast<const float*>(k_scale);
   if (int8)
     return launch<128, true, false>(q, k, v, o, qs, ks, B, Lq, Lk, N, nullptr, mode, lo, hi,
                                     block_tokens, kv_len, local_window, seg, fault, s);
-  if (skew)
-    return launch<128, false, true>(q, k, v, o, qs, ks, B, Lq, Lk, N, m_bound, mode, lo, hi,
-                                    block_tokens, kv_len, local_window, seg, fault, s);
-  return launch<128, false, false>(q, k, v, o, qs, ks, B, Lq, Lk, N, m_bound, mode, lo, hi,
-                                   block_tokens, kv_len, local_window, seg, fault, s);
+  return launch<128, false, true>(q, k, v, o, qs, ks, B, Lq, Lk, N, m_bound, mode, lo, hi,
+                                  block_tokens, kv_len, local_window, seg, fault, s);
 }

@@ -1,4 +1,5 @@
-// Fused int8 linear for Hopper (sm_90a):
+// Fused int8 linear for Hopper (sm_90a), with wgmma, TMA and a
+// warp-specialised pipeline:
 //   y[m, n] = bf16( float(sum_k q(x[m, k]) * w_q[k, n]) * (a * w_scale[n]) + b[n] )
 //   q(x) = clip(rint(x / a), -127, 127) as s8, a = the per-tensor activation scale.
 //
@@ -7,91 +8,83 @@
 // scratch) and `_mm_kernel` (K3b: K tiled with an s32 VMEM accumulator). The
 // K-resident split exists only because of the size of the TPU's VMEM; here a
 // K loop with the s32 accumulator in registers is both forms, so one kernel
-// serves every DiT block linear (qkv, o, cross q/o, fc1, and fc2 with K 8960).
+// serves every DiT block linear (qkv, o, cross q/o, fc1, and fc2).
 //
-// What it keeps out of device memory: the s8 copy of x. Each bf16 x tile is
-// read from global memory into registers, quantised there, and stored as s8
-// in shared memory; the dequantising epilogue (a * w_scale[n], + b[n], bf16
-// rounding) runs on the s32 accumulators before the only store.
+// Two launches a call:
+//   1. int8_linear_kernel_quantize_x writes the s8 quanta of x [M, K] once
+//      (2 bytes read and 1 written per element: ~6 us at the 1.3B qkv shape
+//      against the product's 33 us bound), so every quantum is computed once
+//      instead of once per output tile; the s8 copy of x is the one thing this
+//      design keeps in device memory that the TPU kernel kept in VMEM.
+//   2. int8_linear_kernel_sm90, a pure s8 GEMM with the dequantising
+//      epilogue. A thread block owns a 128 x 256 output tile and three
+//      warpgroups: warpgroup 2, the producer, whose one thread keeps a
+//      four-stage ring of TMA loads of the A (x quanta, 128 x 128 bytes) and B
+//      (w_q, 256 x 128 bytes) tiles filled, with full and empty mbarriers;
+//      warpgroups 0 and 1, the consumers, 64 rows each, run wgmma m64n256k32
+//      s8 -> s32 on each stage (4 K steps), keep one wgmma group in flight and
+//      release a stage when its group has completed, then run the epilogue on
+//      the s32 accumulators before the only store. The producer hands its
+//      registers to the consumers (setmaxnreg: 128 s32 accumulators each).
+//      Past two waves of tiles the grid is persistent: one block per SM walks
+//      the output tiles (m fastest, so the blocks in flight share w tiles in
+//      L2), and the ring runs on across tiles, so the producer loads the
+//      next tile's first stages while the consumers run this tile's
+//      epilogue, which the long-K shapes gain from; with two waves or fewer,
+//      one block per tile, since there a block that walks two tiles leaves
+//      others idle (the 1536 x 1536 linears ran slower persistent). The epilogue swaps half of its pairs between
+//      neighbouring lanes so that each store writes 8 bytes and each lane
+//      quad a whole 32-byte sector of a row.
+//
+// Weight layout: s8 wgmma reads only K-major A and B from shared memory, and
+// TMA cannot transpose bytes, so w_q is stored [N, K] (K contiguous) and the
+// port hands it out as its [K, N] view (strides (1, K)): the JAX layout and
+// values for every public function, one copy of each weight in memory. The
+// wrapper refuses any other stride.
 //
 // Numerics, chosen so that the kernel and its plain PyTorch version give the
 // same quanta and the same s32 sums: the quotient x / a is the correctly
 // rounded one that an IEEE division gives (the build uses no fast-math), and
 // it is rounded half to even (F2I.RN) as jnp.round and torch.round do
-// (roundf would round halves away from zero). A divide per element would cost
-// more issue slots than the mma, so the kernel takes r = 1/a once and
-// corrects x * r twice with the exact FMA remainder x - q * a; the second
-// correction starts within an ulp of x / a, where Markstein's theorem makes
-// RN(q + (x - q a) r) the correctly rounded quotient. (The TPU kernel
+// (roundf would round halves away from zero). The quantiser takes r = 1/a
+// once and corrects x * r twice with the exact FMA remainder x - q * a; the
+// second correction starts within an ulp of x / a, where Markstein's theorem
+// makes RN(q + (x - q a) r) the correctly rounded quotient. (The TPU kernel
 // multiplies by a reciprocal without correction and can differ by 1 LSB at
 // exact halves.) The epilogue takes a * w_scale[n] first, as wan_dit.linear
 // does, and uses __fmul_rn / __fadd_rn so that no FMA contraction changes the
-// f32 rounding.
+// f32 rounding. a is read through its pointer: no host sync.
 //
-// Operand layout: the s8 mma (m16n8k32 .row.col) wants both operands
-// K-contiguous; x is [M, K] and is, but w_q is [K, N] (the JAX layout, which
-// the port keeps). Rather than keep a K-major copy of every weight, each
-// thread loads 4 k-rows x 4 bytes of w, transposes the 4x4 byte block in
-// registers (__byte_perm) and stores it into a [n][k] shared tile, so both
-// fragments then come from ldmatrix.
+// What bounds it on an H100: at the 1.3B qkv shape (M 4680, K 1536, N 4608)
+// one call is 2*M*K*N = 66 GOP against ~29 MB of traffic, bound by the int8
+// tensor cores (1979 TOP/s dense, 0.034 ms).
 //
-// What bounds it on an H100: at the serving shapes (M 4680, K 1536, N 4608)
-// one call is 2*M*K*N = 66 GOP against ~29 MB of traffic (x bf16, w s8, y
-// bf16), about 2300 operations per byte, so it is bound by the int8 tensor
-// cores (1979 TOP/s dense). This version uses mma.sync with a register-staged
-// double buffer and 64 x 256 block tiles (each x element is quantised N / 256
-// times). What held the first version back was the w tile's traffic from L2:
-// 4-byte loads spread over 16 rows used a quarter of every sector, so w is
-// now loaded as 16-byte row segments. wgmma and TMA are the later steps.
-//
-// Ragged M (4680 = 73.1 x 64) and any ragged K or N tile are zero-filled in
-// shared memory and never stored; no padded copy is made.
+// Ragged M (4680 = 36.6 x 128) and ragged N or K tiles arrive zero-filled
+// from TMA and are never stored; no padded copy is made. K and N must be
+// multiples of 16 (TMA's 16-byte row pitch; every DiT linear's are multiples
+// of 128).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // rows of x per thread block
+constexpr int BM = 128;  // rows of x per thread block: two consumer warpgroups of 64
 constexpr int BN = 256;  // output columns per thread block
-constexpr int BK = 64;   // k bytes per stage (two m16n8k32 steps)
-constexpr int NTHREADS = 256;  // 8 warps: 2 (m) x 4 (n), each 32 x 64
-constexpr int ROW = BK + 16;   // bytes per smem row: conflict-free ldmatrix
-constexpr int MI = 2, NT = 8;  // m16 and n8 tiles per warp
-constexpr int X_CHUNKS = BM * BK / 8 / NTHREADS;   // 8-element x chunks per thread
-static_assert((BK / 4) * (BN / 16) == NTHREADS, "one 4 x 16 w block per thread");
-constexpr int SMEM_BYTES = 2 * (BM + BN) * ROW;    // double-buffered A and B^T tiles
+constexpr int BK = 128;  // k bytes per stage: one 128-byte swizzled row
+constexpr int NSTAGES = 4;
+constexpr int NTHREADS = 384;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int A_BYTES = BM * BK;  // 16 KB
+constexpr int B_BYTES = BN * BK;  // 32 KB
+constexpr int OFF_B = NSTAGES * A_BYTES;
+constexpr int OFF_BAR = OFF_B + NSTAGES * B_BYTES;
+constexpr int SMEM_BYTES = OFF_BAR + 128 + 1024;  // barriers, and room to align to 1 KB
 
 constexpr int FAULT_DROP_LAST_K_TILE = 1;  // planted faults for the checks
 constexpr int FAULT_W_SCALE_SHIFT = 2;
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// 4x4 byte transpose: byte c of in[j] -> byte j of out[c].
-__device__ __forceinline__ void transpose4x4(const uint32_t* in, uint32_t* out) {
-  uint32_t lo01 = __byte_perm(in[0], in[1], 0x5140);
-  uint32_t hi01 = __byte_perm(in[0], in[1], 0x7362);
-  uint32_t lo23 = __byte_perm(in[2], in[3], 0x5140);
-  uint32_t hi23 = __byte_perm(in[2], in[3], 0x7362);
-  out[0] = __byte_perm(lo01, lo23, 0x5410);
-  out[1] = __byte_perm(lo01, lo23, 0x7632);
-  out[2] = __byte_perm(hi01, hi23, 0x5410);
-  out[3] = __byte_perm(hi01, hi23, 0x7632);
-}
+constexpr int FAULT_STALE_RING_STAGE = 3;  // the last ring stage holds the previous K tile
 
 // clip(rint(RN(x / a)), -127, 127), with r = RN(1 / a): see "Numerics" above.
 __device__ __forceinline__ int quant1(float x, float a, float r) {
@@ -128,154 +121,191 @@ __device__ __forceinline__ float load_bias(const void* bias, int kind, int n) {
   return 0.0f;
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-int8_linear_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ w_scale, const float* __restrict__ a_scale,
-                   const void* __restrict__ bias, int bias_kind,
-                   __nv_bfloat16* __restrict__ out, int M, int K, int N, int fault) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* As[2] = {smem, smem + BM * ROW};                  // quantised x tile, [m][k]
-  int8_t* Bs[2] = {smem + 2 * BM * ROW, smem + 2 * BM * ROW + BN * ROW};  // w^T, [n][k]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+// xq[i] = q(x[i]) over n16 chunks of 16 elements.
+__global__ void __launch_bounds__(256)
+int8_linear_kernel_quantize_x(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
+                              const float* __restrict__ a_scale, long long n16) {
   const float a = __ldg(a_scale);
   const float r = __fdiv_rn(1.0f, a);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n16;
+       i += (long long)gridDim.x * blockDim.x) {
+    const uint4* src = reinterpret_cast<const uint4*>(x) + 2 * i;
+    const uint2 lo = quant8(__ldg(src), a, r);
+    const uint2 hi = quant8(__ldg(src + 1), a, r);
+    reinterpret_cast<uint4*>(xq)[i] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+int8_linear_kernel_sm90(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_w,
+                        const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                        const void* __restrict__ bias, int bias_kind,
+                        __nv_bfloat16* __restrict__ out, int M, int K, int N, int m_tiles,
+                        int n_tiles, int fault) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + NSTAGES;
+
+  const int tiles = m_tiles * n_tiles;
   int nk = (K + BK - 1) / BK;
   if (fault == FAULT_DROP_LAST_K_TILE) nk -= 1;
 
-  int acc[MI][NT][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  // x: chunks of 8 bf16; chunk c -> row c / 8, column (c % 8) * 8
-  uint4 xr[X_CHUNKS];
-  // w: one block of 4 k-rows x 16 columns, loaded as 16-byte row segments:
-  // k rows kb * 4 + j, columns nb * 16 + [0, 16). Neighbouring lanes take
-  // neighbouring segments of a row, so each request reads whole sectors.
-  const int kb = tid % 16, nb = tid / 16;
-  uint4 wr[4];
-
-  auto load_tiles = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < X_CHUNKS; ++i) {
-      int c = tid + NTHREADS * i;
-      int row = m0 + c / 8, col = k0 + (c % 8) * 8;
-      xr[i] = (row < M && col < K)
-                  ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * K + col))
-                  : make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    const int kr = k0 + kb * 4, nc = n0 + nb * 16;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wr[j] = (kr + j < K && nc < N)
-                  ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(kr + j) * N + nc))
-                  : make_uint4(0u, 0u, 0u, 0u);
-  };
-  auto store_tiles = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < X_CHUNKS; ++i) {
-      int c = tid + NTHREADS * i;
-      *reinterpret_cast<uint2*>(&As[buf][(c / 8) * ROW + (c % 8) * 8]) = quant8(xr[i], a, r);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // the 4 x 4 block of columns nb * 16 + q * 4 + [0, 4)
-      const uint32_t rows[4] = {reinterpret_cast<const uint32_t*>(&wr[0])[q],
-                                reinterpret_cast<const uint32_t*>(&wr[1])[q],
-                                reinterpret_cast<const uint32_t*>(&wr[2])[q],
-                                reinterpret_cast<const uint32_t*>(&wr[3])[q]};
-      uint32_t t[4];
-      transpose4x4(rows, t);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        *reinterpret_cast<uint32_t*>(&Bs[buf][(nb * 16 + q * 4 + c) * ROW + kb * 4]) = t[c];
-    }
-  };
-
-  if (nk > 0) {
-    load_tiles(0);
-    store_tiles(0);
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) load_tiles(kt + 1);  // in flight while this tile's mma run
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        int m = wm * (16 * MI) + mi * 16 + (lane & 15);
-        ldmatrix_x4(af[mi], &As[buf][m * ROW + kk * 32 + (lane >> 4) * 16]);
-      }
-#pragma unroll
-      for (int nj = 0; nj < NT / 2; ++nj) {  // two n8 tiles per ldmatrix
-        uint32_t bq[4];
-        int n = wn * (8 * NT) + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(bq, &Bs[buf][n * ROW + kk * 32 + ((lane >> 3) & 1) * 16]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_s8(acc[mi][2 * nj], af[mi], bq[0], bq[1]);
-          mma_s8(acc[mi][2 * nj + 1], af[mi], bq[2], bq[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ======== producer ========
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_tensormap(&tm_x);
+      sm90::prefetch_tensormap(&tm_w);
+      int it = 0;  // ring position, running on across tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % NSTAGES;
+          const uint32_t ph = (it / NSTAGES) & 1;
+          const int kc =
+              (fault == FAULT_STALE_RING_STAGE && s == NSTAGES - 1 && kt > 0) ? kt - 1 : kt;
+          sm90::mbar_wait(&empty[s], ph ^ 1);
+          sm90::mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+          sm90::tma_load_2d(smem + s * A_BYTES, &tm_x, &full[s], kc * BK, m0);
+          sm90::tma_load_2d(smem + OFF_B + s * B_BYTES, &tm_w, &full[s], kc * BK, n0);
         }
       }
     }
+  } else {
+    // ======== consumers: 64 rows x 256 columns each ========
+    sm90::reg_alloc<232>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, tig = lane % 4;
 
-    if (more) store_tiles(buf ^ 1);
-    __syncthreads();
-  }
+    const float a = __ldg(a_scale);
+    int acc[128];
+    int it = 0;  // ring position, in step with the producer's
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * BN;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0;
 
-  // ---- epilogue: dequantise, add the bias, round to bf16, store ----
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % NSTAGES;
+        sm90::mbar_wait(&full[s], (it / NSTAGES) & 1);
+        const uint8_t* as = smem + s * A_BYTES + wg * (A_BYTES / 2);
+        const uint8_t* bs = smem + OFF_B + s * B_BYTES;
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int col = n0 + wn * (8 * NT) + t * 8 + tig * 2;
-    if (col >= N) continue;
-    const int sc = (fault == FAULT_W_SCALE_SHIFT) ? min(col + 1, N - 2) : col;
-    const float s0 = __fmul_rn(a, __ldg(w_scale + sc));
-    const float s1 = __fmul_rn(a, __ldg(w_scale + sc + 1));
-    const float b0 = load_bias(bias, bias_kind, col);
-    const float b1 = load_bias(bias, bias_kind, col + 1);
+        for (int kk = 0; kk < BK / 32; ++kk)
+          sm90::wgmma_m64n256k32_s8(acc, sm90::desc_b128(as + kk * 32, 16, 1024),
+                                    sm90::desc_b128(bs + kk * 32, 16, 1024), 1);
+        sm90::wgmma_commit();
+        // keep this stage's group in flight; the previous one has completed
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(acc);
+        if (kt > 0 && lane == 0) sm90::mbar_arrive(&empty[(it - 1) % NSTAGES]);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (nk > 0 && lane == 0) sm90::mbar_arrive(&empty[(it - 1) % NSTAGES]);
+
+      // ---- epilogue: dequantise, add the bias, round to bf16, store ----
+      // Lanes tig and tig ^ 1 swap one bf16 pair of each chunk pair (j, j+1):
+      // an even lane then holds 4 columns of chunk j, an odd one 4 of chunk
+      // j+1, and a lane quad writes the 32 bytes of a row's 16 columns.
+      const int row0 = m0 + wg * 64 + warp * 16 + g;
+      const bool odd = tig & 1;
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
+      for (int j = 0; j < BN / 8; j += 2) {
+        const int col = n0 + j * 8 + tig * 2;  // this lane's pair in chunk j (+8: chunk j+1)
+        if (n0 + j * 8 >= N) continue;         // N % 16 == 0: a chunk pair is whole or past N
+        float sc[4], bi[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * (16 * MI) + mi * 16 + g + h * 8;
-        if (row >= M) continue;
-        float y0 = __fadd_rn(__fmul_rn((float)acc[mi][t][2 * h], s0), b0);
-        float y1 = __fadd_rn(__fmul_rn((float)acc[mi][t][2 * h + 1], s1), b1);
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) = pack_bf16(y0, y1);
+        for (int c = 0; c < 4; ++c) {
+          const int cc = col + (c >> 1) * 8 + (c & 1);
+          const int sidx = (fault == FAULT_W_SCALE_SHIFT) ? min(cc + 1, N - 1) : cc;
+          sc[c] = __fmul_rn(a, __ldg(w_scale + sidx));
+          bi[c] = load_bias(bias, bias_kind, cc);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t p0 = pack_bf16(
+              __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * hh], sc[0]), bi[0]),
+              __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * hh + 1], sc[1]), bi[1]));
+          const uint32_t p1 = pack_bf16(
+              __fadd_rn(__fmul_rn((float)acc[4 * j + 4 + 2 * hh], sc[2]), bi[2]),
+              __fadd_rn(__fmul_rn((float)acc[4 * j + 4 + 2 * hh + 1], sc[3]), bi[3]));
+          const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? p0 : p1, 1);
+          const int row = row0 + hh * 8;
+          if (row >= M) continue;
+          const int c0 = odd ? n0 + (j + 1) * 8 + (tig - 1) * 2 : col;
+          *reinterpret_cast<uint2*>(out + (size_t)row * N + c0) =
+              odd ? make_uint2(got, p1) : make_uint2(p0, got);
+        }
       }
     }
   }
 }
 
+// [rows, K] s8 with K contiguous as a 2-D tensor map, box 128 bytes x box_rows.
+int s8_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  return sm90::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims, strides, box);
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes; returns a cudaError_t (0 = launched).
-// x bf16 [M, K], w_q s8 [K, N], w_scale f32 [N], a_scale f32 [1] in device
-// memory, bias [N] (bias_kind 0 none, 1 bf16, 2 f32), out bf16 [M, N]; all
-// contiguous. K % 8 == 0 and N % 16 == 0 (the wrapper checks). fault != 0
-// plants a fault for the checks that must catch it.
+// x bf16 [M, K], w_q s8 stored [N, K] (the [K, N] view's storage), w_scale
+// f32 [N], a_scale f32 [1] in device memory, bias [N] (bias_kind 0 none, 1
+// bf16, 2 f32), out bf16 [M, N], xq s8 [M, K] scratch for the quanta of x;
+// all contiguous and 16-byte aligned. K % 16 == 0 and N % 16 == 0 (the
+// wrapper checks). fault != 0 plants a fault for the checks that must catch it.
 extern "C" int rtv_int8_linear(const void* x, const void* w_q, const void* w_scale,
                                const void* a_scale, const void* bias, int bias_kind, void* out,
-                               int M, int K, int N, int fault, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 16) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  int8_linear_kernel<<<grid, NTHREADS, SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const int8_t*>(w_q),
-      reinterpret_cast<const float*>(w_scale), reinterpret_cast<const float*>(a_scale), bias,
-      bias_kind, reinterpret_cast<__nv_bfloat16*>(out), M, K, N, fault);
+                               void* xq, int M, int K, int N, int fault, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 16 || N % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const long long n16 = (long long)M * K / 16;
+  const int qblocks = (int)((n16 + 255) / 256 < 132 * 16 ? (n16 + 255) / 256 : 132 * 16);
+  int8_linear_kernel_quantize_x<<<qblocks, 256, 0, st>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<int8_t*>(xq),
+      reinterpret_cast<const float*>(a_scale), n16);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tm_x, tm_w;
+  int err = s8_map(&tm_x, xq, M, K, BM);
+  if (err == 0) err = s8_map(&tm_w, w_q, N, K, BN);
+  if (err != 0) return err;
+  e = cudaFuncSetAttribute(int8_linear_kernel_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles;
+  const int blocks = tiles <= 2 * sms ? tiles : sms;
+  int8_linear_kernel_sm90<<<blocks, NTHREADS, SMEM_BYTES, st>>>(
+      tm_x, tm_w, reinterpret_cast<const float*>(w_scale),
+      reinterpret_cast<const float*>(a_scale), bias, bias_kind,
+      reinterpret_cast<__nv_bfloat16*>(out), M, K, N, m_tiles, n_tiles, fault);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,10 @@ the time MLP in f32. Attention goes through `ops/attention.py`.
 
 Two tiers of block linears, chosen by the parameters:
   * bf16 (`w`): plain `torch.matmul`, as the JAX package leaves them to `jnp.dot`;
-  * int8 (`w_q` [in, out] s8, `scale` [out] f32 per output channel, `a_scale`
-    a static per-tensor activation scale, or none for a per-call amax):
+  * int8 (`w_q` [in, out] s8, stored [out, in] so that the kernel reads it
+    K-major (`hopper_int8_mm.k_major`), `scale` [out] f32 per output
+    channel, `a_scale` a static per-tensor activation scale, or none for a
+    per-call amax):
     `quantize_wan_linears` makes them, `calibrate_wan_act_scales` folds the
     calibration records that `dit_forward(act_calib=...)` collects, and
     `linear` runs them through the fused int8 kernel
@@ -105,11 +107,14 @@ def quantize_wan_linears(params: Params, act_scales: Optional[dict] = None,
 
     Each stacked weight is quantised a layer at a time: the f32 temporaries of
     a whole [L, in, out] stack (11 GB for the 14B's fc1) would not fit beside
-    the model on an 80 GB card. The quanta are those of the whole-stack form."""
+    the model on an 80 GB card. The quanta are those of the whole-stack form.
+    Each `w_q` is the [L, in, out] view of [L, out, in] storage, the fused
+    int8 kernel's K-major layout (`hopper_int8_mm.k_major`)."""
 
     def quant(p, a_amax=None):
         w = p["w"]  # [L, in, out]
-        wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        wq = torch.empty((w.shape[0], w.shape[2], w.shape[1]), dtype=torch.int8,
+                         device=w.device).transpose(1, 2)
         scale = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
         for i in range(w.shape[0]):
             wl = w[i].float()

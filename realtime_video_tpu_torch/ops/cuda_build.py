@@ -2,8 +2,9 @@
 
 Each `csrc/*.cu` is compiled on its own by nvcc for sm_90a (no fast-math: the
 int8 kernels divide and round as IEEE does) into `_build/` next to the
-package, which git ignores. The library's name carries a hash of the source
-and the flags, so a stale build is never loaded; a present one is reused.
+package, which git ignores. The library's name carries a hash of the source,
+of every header it includes with `#include "..."` (`csrc/sm90.cuh`), and of
+the flags, so a stale build is never loaded; a present one is reused.
 `build_all` starts one nvcc per missing library at once and waits for all of
 them, so the kernels of a run build in parallel. The wrappers load the
 result with ctypes.
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -34,10 +36,32 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> List[Path]:
+    """The headers `source` includes with quotes, found beside the file that
+    names them, and theirs in turn (each once)."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        current = todo.pop()
+        for name in _LOCAL_INCLUDE.findall(current.read_bytes()):
+            header = (current.parent / name.decode()).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    """The content-keyed library that `source` builds into."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    """The content-keyed library that `source` builds into: the hash covers
+    the source, its local headers and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:

@@ -1,17 +1,28 @@
 """Hand-written Hopper attention: switches, dispatch, build, bind, launch, count.
 
-`csrc/attention.cu` holds one CUDA kernel template that replaces the Pallas
-TPU kernels of `realtime_video_tpu/ops/pallas_attention.py`:
+Two CUDA sources replace the Pallas TPU kernels of
+`realtime_video_tpu/ops/pallas_attention.py`:
+
+`csrc/attention_sm90.cu` (wgmma, TMA, a warp-specialised pipeline) carries
+the bf16 routes `window` and `block_causal`:
 
   * K1 `_staticmax_kernel`: softmax over KV columns in [lo, hi) with a static
     logit bound M; when M >= 64 the same launch keeps a running max instead
     (the `_flash_kernel` fallback the JAX package takes with `lax.cond`). M
-    lives in device memory and the kernel reads it, so the choice costs no
-    host sync.
+    comes from a pre-pass kernel (`logit_bound_maxima`) that leaves two
+    maxima in device memory; the main kernel forms M from them, so the choice
+    costs no host sync.
   * K2 `_flash_kernel` in window mode (K1's fallback, or every window call
     with STATIC_MAX off) and in block-causal mode: kv < min(ends[q], kv_len)
     with ends[q] = (q // block_tokens + 1) * block_tokens, an optional local
     window, and the diagonal.
+
+  It takes raw q and folds the prescale (`prescale`, bf16(q * bf16(scale *
+  log2 e))) into its Q tile, with the same rounding.
+
+`csrc/attention.cu` (mma.sync, cp.async) keeps the other routes, which run on
+a q that `prescale` has written:
+
   * K2-int8, `_flash_kernel`'s `int8_qk` branch (the SageAttention analog): a
     pre-pass kernel quantises q, and k minus the mean of its `bk`-row segment
     (`segment_rows`), to s8 with per-row f32 scales; the main kernel takes the
@@ -32,23 +43,25 @@ K6a; else STATIC_MAX and not INT8_QK -> K1 with its fallback; else the
 running-max window, int8 under INT8_QK. Block-causal calls take K2, int8
 under INT8_QK. BK changes a result: under INT8_QK it sets the width of the
 mean segments. RTV_ATTN_BQ, _BKM, _SKEW2_BK and _NOPAD do not apply: they
-size or pad the TPU's VMEM tiles and change no result there, and this kernel
-tiles 64 x 64 and never pads.
+size or pad the TPU's VMEM tiles and change no result there, and these
+kernels never pad.
 
 Every entry takes q [B, Lq, N, D], k/v [B, Lk, N, D]. A tensor on the CPU
 goes to the plain PyTorch version beside the kernel; a CUDA tensor goes to
-the kernel or the call raises. The kernel is compiled with nvcc for sm_90a
+the kernel or the call raises. Each source is compiled with nvcc for sm_90a
 into a shared library with a plain C interface at first use
 (`ops/cuda_build.py`), and bound with ctypes.
 
 `LAUNCHES` counts kernel launches per route (one int8 call = its pre-pass
-and its main kernel); nothing else touches it. `PLAIN_ON_CUDA` counts calls
+and its main kernel), `PREPASS_LAUNCHES["logit_bound"]` those of the
+logit-bound pre-pass; nothing else touches them. `PLAIN_ON_CUDA` counts calls
 of a plain version on a CUDA tensor, which the serving path never makes
 (only a comparison against the kernel does).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os as _os
 import threading
 from pathlib import Path
@@ -77,21 +90,27 @@ _MODE_BLOCK_CAUSAL = 1
 #: planted faults for the checks that must catch them (kernel argument)
 FAULT_SKIP_DRAIN = 1  # skewed loop: the last tile's softmax and PV step dropped
 FAULT_K_SCALE_SHIFT = 2  # int8: the last segment's columns take the next row's k scale
+FAULT_STALE_RING_STAGE = 3  # sm90 kernel: the last ring stage holds the previous tile
 
 SOURCE = cuda_build.CSRC / "attention.cu"
+SM90_SOURCE = cuda_build.CSRC / "attention_sm90.cu"
+SOURCES = (SOURCE, SM90_SOURCE)
 
 WINDOW_ROUTES = ("window", "window_int8qk", "window_skew", "window_skew_staticmax")
 BLOCK_CAUSAL_ROUTES = ("block_causal", "block_causal_int8qk")
 #: kernel launches per route (plain-version calls are not counted)
 LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES}
+#: launches of the logit-bound pre-pass kernel (part of the `window` route)
+PREPASS_LAUNCHES: Dict[str, int] = {"logit_bound": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0}
 
 _lib = None
+_lib_sm90 = None
 _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
+    for d in (LAUNCHES, PREPASS_LAUNCHES, PLAIN_ON_CUDA):
         for key in d:
             d[key] = 0
 
@@ -127,17 +146,18 @@ def block_causal_route() -> str:
     return "block_causal_int8qk" if INT8_QK else "block_causal"
 
 
-def build() -> Path:
-    """Compile csrc/attention.cu if its content-keyed library is missing and
-    return the library path."""
-    return cuda_build.build(SOURCE)
+def build() -> Dict[Path, Path]:
+    """Compile both sources whose content-keyed libraries are missing, in
+    parallel; return {source: library path}."""
+    return cuda_build.build_all(SOURCES)
 
 
 def _load():
+    """The mma.sync library (int8 QK^T and skew routes)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(build()[SOURCE]))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rtv_attention.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 10 + [p]
             lib.rtv_attention.restype = i
@@ -145,6 +165,21 @@ def _load():
             lib.rtv_int8_qk_quantize.restype = i
             _lib = lib
     return _lib
+
+
+def _load_sm90():
+    """The wgmma library (bf16 window and block-causal routes, logit bound)."""
+    global _lib_sm90
+    with _lib_lock:
+        if _lib_sm90 is None:
+            lib = ctypes.CDLL(str(build()[SM90_SOURCE]))
+            p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+            lib.rtv_attention_sm90.argtypes = [p] * 4 + [i] * 5 + [f, p] + [i] * 7 + [p]
+            lib.rtv_attention_sm90.restype = i
+            lib.rtv_logit_bound.argtypes = [p] * 3 + [ll, ll, i, f, p]
+            lib.rtv_logit_bound.restype = i
+            _lib_sm90 = lib
+    return _lib_sm90
 
 
 # ---------------------------------------------------------------------------
@@ -206,13 +241,41 @@ def prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
+@functools.lru_cache(maxsize=64)
+def qscale(scale: float) -> float:
+    """c = bf16(scale * log2(e)), the factor `prescale` multiplies q by, as
+    the float the wgmma kernel and its bound pre-pass take."""
+    return float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+
+
 def logit_bound(q_scaled: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """[1] f32 upper bound on q.k over all row pairs: max row norm of the
     pre-scaled q times max row norm of k, + 1e-3 (pallas_attention.py:437-442).
-    Stays on the device."""
+    Stays on the device. (The K6b route's bound; the wgmma kernel's comes from
+    `logit_bound_maxima`.)"""
     qn = q_scaled.float().square().sum(-1).amax().sqrt()
     kn = k.float().square().sum(-1).amax().sqrt()
     return (qn * kn + 1e-3).reshape(1)
+
+
+def logit_bound_maxima_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """[2] f32: max over rows of |prescale(q, scale)|^2, and of |k|^2 (all of
+    k's rows, not only a window's). The plain version of the bound pre-pass."""
+    qn2 = prescale(q, scale).float().square().sum(-1).amax()
+    kn2 = k.float().square().sum(-1).amax()
+    return torch.stack([qn2, kn2])
+
+
+def logit_bound_from_maxima(maxima: torch.Tensor) -> torch.Tensor:
+    """[1] f32: M = sqrt(maxima[0]) * sqrt(maxima[1]) + 1e-3, as the wgmma
+    kernel forms it from the pre-pass's maxima."""
+    return (maxima[0].sqrt() * maxima[1].sqrt() + 1e-3).reshape(1)
+
+
+def logit_bound_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The static logit bound of raw q: `logit_bound(prescale(q, scale), k)`
+    by way of the pre-pass's two maxima."""
+    return logit_bound_from_maxima(logit_bound_maxima_plain(q, k, scale))
 
 
 def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -315,8 +378,9 @@ def _check(q, k, v) -> None:
 def _launch(q, k, v, m_bound, mode, lo, hi, block_tokens, kv_len, local_window, *,
             q_scale=None, k_scale=None, skew: bool = False, seg: int = 0,
             fault: int = 0) -> torch.Tensor:
-    """One launch of the attention kernel. With q_scale/k_scale, q and k are
-    the int8 pre-pass's quanta (`_quantize_launch`)."""
+    """One launch of the mma.sync kernel on a pre-scaled q: the skewed loop
+    (`skew`), or with q_scale/k_scale the int8 mode on the int8 pre-pass's
+    quanta (`_quantize_launch`)."""
     lib = _load()
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
@@ -331,6 +395,45 @@ def _launch(q, k, v, m_bound, mode, lo, hi, block_tokens, kv_len, local_window, 
     if err != 0:
         raise RuntimeError(f"rtv_attention launch failed: cudaError {err}")
     return out
+
+
+def _launch_sm90(q, k, v, scale: float, maxima, mode, lo, hi, block_tokens, kv_len,
+                 local_window, fault: int = 0) -> torch.Tensor:
+    """One launch of the wgmma kernel on raw q. With `maxima` (the bound
+    pre-pass's [2] f32) a window call takes the static max while M < 64."""
+    lib = _load_sm90()
+    b, lq, n, d = q.shape
+    out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    err = lib.rtv_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1], n, d,
+        qscale(scale), None if maxima is None else maxima.data_ptr(), mode, lo, hi,
+        block_tokens, kv_len, local_window, fault,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rtv_attention_sm90 launch failed: cudaError {err}")
+    return out
+
+
+def logit_bound_maxima(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """[2] f32 on q's device: the bound pre-pass's maxima (see
+    `logit_bound_maxima_plain`), by the kernel for CUDA tensors."""
+    if not q.is_cuda:
+        return logit_bound_maxima_plain(q, k, scale)
+    _check(q, k, k)
+    return _maxima_launch(q, k, scale)
+
+
+def _maxima_launch(q, k, scale: float) -> torch.Tensor:
+    """The bound pre-pass on checked CUDA tensors (it zeroes its output)."""
+    lib = _load_sm90()
+    maxima = torch.empty(2, dtype=torch.float32, device=q.device)
+    err = lib.rtv_logit_bound(q.data_ptr(), k.data_ptr(), maxima.data_ptr(),
+                              q.numel() // q.shape[-1], k.numel() // k.shape[-1], q.shape[-1],
+                              qscale(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rtv_logit_bound launch failed: cudaError {err}")
+    PREPASS_LAUNCHES["logit_bound"] += 1
+    return maxima
 
 
 def _quantize_launch(q_scaled, k, seg: int):
@@ -378,14 +481,16 @@ def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
             return window_attention_int8qk_plain(q, k, v, lo, hi, scale)
         return window_attention_plain(q, k, v, lo, hi, scale)
     _check(q, k, v)
-    qs = prescale(q, scale)
-    if int8:
-        out = _launch_int8(qs, k, v, _MODE_WINDOW, lo, hi, 1, lk, -1,
+    if route == "window":
+        maxima = _maxima_launch(q, k, scale) if static_max(route) else None
+        out = _launch_sm90(q, k, v, scale, maxima, _MODE_WINDOW, lo, hi, 1, lk, -1)
+    elif int8:
+        out = _launch_int8(prescale(q, scale), k, v, _MODE_WINDOW, lo, hi, 1, lk, -1,
                            seg=segment_rows(lk))
     else:
+        qs = prescale(q, scale)
         m_bound = logit_bound(qs, k) if static_max(route) else None
-        out = _launch(qs, k, v, m_bound, _MODE_WINDOW, lo, hi, 1, lk, -1,
-                      skew=route.startswith("window_skew"))
+        out = _launch(qs, k, v, m_bound, _MODE_WINDOW, lo, hi, 1, lk, -1, skew=True)
     LAUNCHES[route] += 1
     return out
 
@@ -414,14 +519,13 @@ def block_causal_attention(q, k, v, block_tokens: int,
         raise ValueError("block-causal attention needs Lq == Lk")
     if local_window is not None and local_window <= 0:
         raise ValueError(f"local_window must be positive, got {local_window}")
-    qs = prescale(q, scale)
     lk = k.shape[1]
     args = (_MODE_BLOCK_CAUSAL, 0, lk, int(block_tokens), lk,
             -1 if local_window is None else int(local_window))
     if int8:
-        out = _launch_int8(qs, k, v, *args, seg=segment_rows(lk))
+        out = _launch_int8(prescale(q, scale), k, v, *args, seg=segment_rows(lk))
     else:
-        out = _launch(qs, k, v, None, *args)
+        out = _launch_sm90(q, k, v, scale, None, *args)
     LAUNCHES[route] += 1
     return out
 

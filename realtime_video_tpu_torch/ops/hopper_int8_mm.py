@@ -1,10 +1,12 @@
 """Hand-written Hopper fused int8 linear (K3): build, bind, launch, count.
 
-`csrc/int8_mm.cu` holds one CUDA kernel that replaces both Pallas TPU kernels
-of `realtime_video_tpu/ops/pallas_int8_mm.py`: `_mm_kernel_kres` (K3a, K <=
-2048, x quantised once per m tile into VMEM) and `_mm_kernel` (K3b, K tiled
-with an s32 VMEM accumulator). The K-resident split exists only because of
-the TPU's VMEM size; a K loop with an s32 register accumulator is both forms.
+`csrc/int8_mm.cu` holds one CUDA kernel (wgmma s8, TMA, a warp-specialised
+pipeline, after a pre-pass that writes the s8 quanta of x) that replaces both
+Pallas TPU kernels of `realtime_video_tpu/ops/pallas_int8_mm.py`:
+`_mm_kernel_kres` (K3a, K <= 2048, x quantised once per m tile into VMEM) and
+`_mm_kernel` (K3b, K tiled with an s32 VMEM accumulator). The K-resident
+split exists only because of the TPU's VMEM size; a K loop with an s32
+register accumulator is both forms.
 
     y = bf16( float(q(x) @ w_q) * (a_scale * w_scale[n]) + b[n] ),
     q(x) = clip(round_half_even(x / a_scale), -127, 127) as s8
@@ -14,9 +16,13 @@ element f32 tensor: a static per-layer scale (a slice of the [L] tensor the
 quantiser stores) or the amax of x computed on the device (`dynamic_scale`);
 the kernel reads it through its pointer, so no call waits for the device.
 
-Weight layout: the JAX package's w_q [K, N] (N contiguous). The s8 mma wants
-both operands K-contiguous, so the kernel transposes each w tile in
-registers on its way into shared memory; no K-major copy of a weight exists.
+Weight layout: s8 wgmma reads both operands K-contiguous from shared memory
+and TMA cannot transpose bytes, so w_q is stored [N, K] (K contiguous) and
+handed out as its [K, N] view (`k_major`; strides (1, K)): every public
+function, the plain version and `utils/convert.py` see the JAX layout and
+values, and no weight is stored twice. `quantize_wan_linears` and
+`wan_params_from_jax` build that storage. The kernel wrapper accepts exactly
+strides (1, K) (`check_weight_layout`) and copies nothing.
 
 A CPU tensor goes to `int8_linear_plain`, the same arithmetic in plain
 PyTorch (an int64 product); a CUDA tensor goes to the kernel or the call
@@ -48,6 +54,7 @@ K_RESIDENT_MAX = 2048
 #: planted faults for the checks that must catch them (kernel argument)
 FAULT_DROP_LAST_K_TILE = 1
 FAULT_W_SCALE_SHIFT = 2
+FAULT_STALE_RING_STAGE = 3  # the last ring stage holds the previous K tile
 
 _BIAS_KIND = {torch.bfloat16: 1, torch.float32: 2}
 
@@ -71,11 +78,28 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.rtv_int8_linear
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """w [..., K, N] with the same values, stored [..., N, K] (K contiguous)
+    and returned as the [..., K, N] view: the kernel's weight layout."""
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def check_weight_layout(w_q: torch.Tensor) -> None:
+    """Raise unless w_q [K, N] is the view of [N, K] contiguous storage
+    (strides (1, K)), the only layout the kernel reads."""
+    if w_q.dim() != 2:
+        raise ValueError(f"w_q must be [K, N], got {tuple(w_q.shape)}")
+    k, _ = w_q.shape
+    if w_q.stride() != (1, k):
+        raise ValueError(f"w_q must be the [K, N] view of [N, K] storage, strides (1, {k}); "
+                         f"got strides {w_q.stride()} (build it with k_major)")
 
 
 # ---------------------------------------------------------------------------
@@ -139,15 +163,16 @@ def _check(x, w_q, w_scale, a_scale, bias) -> None:
         raise ValueError(f"w_scale {tuple(w_scale.shape)} / a_scale {tuple(a_scale.shape)}")
     if bias is not None and (bias.shape != (n,) or bias.dtype not in _BIAS_KIND):
         raise ValueError(f"bias must be [{n}] bf16 or f32, got {tuple(bias.shape)} {bias.dtype}")
-    if k % 8 or n % 16:
-        raise ValueError(f"K {k} must be a multiple of 8 and N {n} of 16")
+    if k % 16 or n % 16:
+        raise ValueError(f"K {k} and N {n} must be multiples of 16")
+    check_weight_layout(w_q)
     for name, t in (("x", x), ("w_q", w_q), ("w_scale", w_scale), ("a_scale", a_scale),
                     ("bias", bias)):
         if t is None:
             continue
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} is not on x's CUDA device")
-        if not t.is_contiguous():
+        if name != "w_q" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16 and name in ("x", "w_q"):
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -158,11 +183,13 @@ def _launch(x, w_q, w_scale, a_scale, bias=None, fault: int = 0) -> torch.Tensor
     k, n = w_q.shape
     m = x.numel() // k
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)  # the quanta of x
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rtv_int8_linear(
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a_scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
-        0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), m, k, n, fault, stream)
+        0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), xq.data_ptr(),
+        m, k, n, fault, stream)
     if err != 0:
         raise RuntimeError(f"rtv_int8_linear launch failed: cudaError {err}")
     return out
@@ -171,7 +198,8 @@ def _launch(x, w_q, w_scale, a_scale, bias=None, fault: int = 0) -> torch.Tensor
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 a_scale: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., K] @ int8 w_q [K, N] with the fused quantise and dequantise;
-    returns [..., N] in x's dtype. a_scale: one-element f32 tensor."""
+    returns [..., N] in x's dtype. a_scale: one-element f32 tensor. On a card
+    w_q must be the K-major view (`k_major`)."""
     if not x.is_cuda:
         return int8_linear_plain(x, w_q, w_scale, a_scale, bias)
     _check(x, w_q, w_scale, a_scale, bias)

@@ -37,7 +37,8 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 
 BLOCKS = 5
-CATEGORIES = ("attention_kernel", "attention_int8_prepass", "int8_linear_kernel",
+CATEGORIES = ("attention_kernel", "attention_bound_prepass", "attention_int8_prepass",
+              "int8_linear_kernel",
               "conv3x3_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
 TIER_FLAGS = {"bf16": {},
               "int8": {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}}
@@ -45,9 +46,12 @@ TIER_FLAGS = {"bf16": {},
 
 def category(kernel_name: str) -> str:
     """Bucket a device kernel by its name: the port's hand-written kernels
-    (the attention kernel, its int8 QK^T pre-pass, the int8 linear, the
-    conv), then library GEMMs and convolutions, copies, and the rest."""
+    (the attention kernels, the logit-bound pre-pass, the int8 QK^T
+    pre-pass, the int8 linear with its quantise pre-pass, the conv), then
+    library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
+    if "attn_logit_bound" in n:
+        return "attention_bound_prepass"
     if "attention_kernel" in n:
         return "attention_kernel"
     if "attn_int8_" in n:

@@ -9,6 +9,9 @@ exact. This module imports no JAX.
 int8 trees (`quantize_wan_linears`, `quantize_vae_params`) carry across as they
 are: `w_q` stays int8, and the `scale` and `a_scale` beside it stay float32
 whatever `dtype` asks, since they are dequantisation factors, not weights.
+A DiT linear's `w_q` [.., in, out] is stored [.., out, in] and handed out as
+that view, the fused int8 kernel's K-major layout (`hopper_int8_mm.k_major`),
+as `quantize_wan_linears` builds it.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from realtime_video_tpu_torch.ops.hopper_int8_mm import k_major
 
 #: leaves of an int8 node that keep float32
 _INT8_SCALES = ("scale", "a_scale")
@@ -46,18 +51,23 @@ def tree_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = None)
 
 
 def wan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
-    """A JAX `init_wan_params` tree (numpy leaves) as the port's DiT params.
-    dtype applies to the bf16 leaves only; the time MLP stays f32 as in JAX."""
-    out = tree_from_numpy(tree, device)
-    if dtype is None:
-        return out
+    """A JAX `init_wan_params` or `quantize_wan_linears` tree (numpy leaves)
+    as the port's DiT params. dtype applies to the bf16 leaves only; the time
+    MLP stays f32 as in JAX. Int8 `w_q` leaves come K-major (`k_major`)."""
 
-    def cast(node):
+    def convert(node):
         if isinstance(node, dict):
-            return {k: cast(v) for k, v in node.items()}
-        return node.to(dtype) if node.dtype == torch.bfloat16 else node
+            if "w_q" in node:
+                return {k: (k_major(torch.from_numpy(np.array(v))).to(device) if k == "w_q"
+                            else _leaf(v, device, None) if k in _INT8_SCALES
+                            else convert(v)) for k, v in node.items()}
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v) for v in node)
+        t = _leaf(node, device, None)
+        return t.to(dtype) if dtype is not None and t.dtype == torch.bfloat16 else t
 
-    return cast(out)
+    return convert(tree)
 
 
 def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:

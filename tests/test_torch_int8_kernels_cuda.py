@@ -11,8 +11,10 @@ conv's int32 sums must be equal element for element. The bf16 conv is held
 by hopper_attention.agreement (elementwise atol 2e-3 + rtol 1.6e-2, relative
 Frobenius error 1e-2: both sides sum bf16 products in f32, in different
 orders, and round to bf16). Planted faults (the last K tile dropped, w_scale
-one column off; a halo row zeroed, the last input-channel chunk dropped)
-must fail the same checks.
+one column off, the last ring stage holding the previous K tile; a halo row
+zeroed, the last input-channel chunk dropped) must fail the same checks. The
+int8 linear's w_q is the K-major view (`hm.k_major`); an N-contiguous one
+is refused.
 """
 import numpy as np
 import pytest
@@ -27,7 +29,7 @@ MM_CASES = [
     ("ragged_m", 300, 256, 192, torch.bfloat16, False),
     ("k_tiled", 200, 2304, 128, torch.float32, False),
     ("dynamic", 130, 512, 272, torch.bfloat16, True),
-    ("no_bias", 77, 136, 64, None, False),
+    ("no_bias", 77, 144, 64, None, False),
 ]
 # (name, dtype, T, H, W, C, Co, kt, stride, padding)
 CONV_CASES = [
@@ -59,7 +61,8 @@ def within_bf16_ulps(got: torch.Tensor, want: torch.Tensor, ulps: int = 1) -> bo
 def mm_inputs(dev, m, k, n, bias_dtype, seed=0):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, torch.bfloat16)
-    w_q = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8)).to(dev)
+    w_q = hm.k_major(torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
+                     ).to(dev)
     w_scale = torch.from_numpy(rng.uniform(1e-3, 2e-3, size=n).astype(np.float32)).to(dev)
     a_scale = torch.tensor([3.0 / 127.0], device=dev)
     bias = None if bias_dtype is None else torch.from_numpy(
@@ -95,10 +98,19 @@ def test_int8_linear_matches_plain_on_gpu(name, m, k, n, bias_dtype, dynamic):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", [hm.FAULT_DROP_LAST_K_TILE, hm.FAULT_W_SCALE_SHIFT])
-def test_int8_linear_check_catches_planted_fault_on_gpu(fault):
+def test_int8_linear_refuses_n_contiguous_weight_on_gpu():
     dev = _device_or_skip()
     x, w_q, w_scale, a_scale, bias = mm_inputs(dev, 300, 256, 192, torch.bfloat16)
+    with pytest.raises(ValueError, match="strides"):
+        hm.int8_linear(x, w_q.contiguous(), w_scale, a_scale, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [hm.FAULT_DROP_LAST_K_TILE, hm.FAULT_W_SCALE_SHIFT,
+                                   hm.FAULT_STALE_RING_STAGE])
+def test_int8_linear_check_catches_planted_fault_on_gpu(fault):
+    dev = _device_or_skip()
+    x, w_q, w_scale, a_scale, bias = mm_inputs(dev, 300, 1024, 192, torch.bfloat16)
     want = hm.int8_linear_plain(x, w_q, w_scale, a_scale, bias)
     assert within_bf16_ulps(hm._launch(x, w_q, w_scale, a_scale, bias), want)
     assert not within_bf16_ulps(hm._launch(x, w_q, w_scale, a_scale, bias, fault=fault), want)

@@ -1,12 +1,14 @@
-"""The hand-written CUDA attention kernel against its plain PyTorch versions,
-on a card (marked `cuda`; skips on a host without one). This file imports no
+"""The hand-written CUDA attention kernel of the bf16 routes (csrc/attention_sm90.cu)
+and its logit-bound pre-pass against their plain PyTorch versions, on a card
+(marked `cuda`; skips on a host without one). This file imports no
 JAX, so it runs on the GPU machine:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 Cases: the window with lo > 0, cross-attention, unpadded lengths, the
 large-norm input that trips the running-max path, and block-causal with a
-partial block and a local window. Planted faults in the window's edges must
+partial block and a local window. Planted faults in the window's edges, the
+end of the last block, and a ring stage filled with the previous tile must
 fail the same check.
 """
 import numpy as np
@@ -66,10 +68,23 @@ def test_kernel_matches_plain_on_gpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["lo+8", "hi-16", "kv_len-16"])
+def test_logit_bound_prepass_matches_plain_on_gpu():
+    """The bound pre-pass's M against `logit_bound` on the pre-scaled q
+    (relative 1e-5: only the order of the row sums differs)."""
+    dev = _device_or_skip()
+    for seed, (lq, lk, n, scale) in enumerate([(200, 1024, 2, 1.0), (160, 640, 2, 4.0)]):
+        q, k = _t(dev, seed, (1, lq, n, 128), scale), _t(dev, seed + 7, (1, lk, n, 128), scale)
+        got = hk.logit_bound_from_maxima(hk.logit_bound_maxima(q, k, 128 ** -0.5))
+        want = hk.logit_bound(hk.prescale(q, 128 ** -0.5), k)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["lo+8", "hi-16", "kv_len-16", "stale_ring_stage"])
 def test_check_catches_planted_fault_on_gpu(fault):
     """The same check fails a kernel that misses the tile straddling lo, the
-    ragged tail past the last full tile, or the end of the last block."""
+    ragged tail past the last full tile, or the end of the last block, or
+    whose last ring stage holds the previous tile."""
     dev = _device_or_skip()
     inv = 1.0 / hk.LOG2E
     if fault == "kv_len-16":
@@ -77,7 +92,14 @@ def test_check_catches_planted_fault_on_gpu(fault):
         q = hk.prescale(_t(dev, 4, (1, L, 2, 128)), 128 ** -0.5)
         k, v = _t(dev, 5, (1, L, 2, 128)), _t(dev, 6, (1, L, 2, 128))
         want = hk.block_causal_attention_plain(q, k, v, bt, scale=inv)
-        got = hk._launch(q, k, v, None, hk._MODE_BLOCK_CAUSAL, 0, L, bt, L - 16, -1)
+        got = hk._launch_sm90(q, k, v, inv, None, hk._MODE_BLOCK_CAUSAL, 0, L, bt, L - 16, -1)
+    elif fault == "stale_ring_stage":
+        lq, lk, lo, hi = 200, 1040, 100, 1040
+        q = hk.prescale(_t(dev, 1, (1, lq, 2, 128)), 128 ** -0.5)
+        k, v = _t(dev, 2, (1, lk, 2, 128)), _t(dev, 3, (1, lk, 2, 128))
+        want = hk.window_attention_plain(q, k, v, lo, hi, scale=inv)
+        got = hk._launch_sm90(q, k, v, inv, hk.logit_bound_maxima(q, k, inv), hk._MODE_WINDOW,
+                              lo, hi, 1, lk, -1, fault=hk.FAULT_STALE_RING_STAGE)
     else:
         lq, lk, lo, hi = 200, 1040, 100, 1040
         q = hk.prescale(_t(dev, 1, (1, lq, 2, 128)), 128 ** -0.5)
