@@ -4,46 +4,56 @@
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), the build of the
-     four hand-written kernel libraries from realtime_video_tpu_torch/csrc/
+     three hand-written kernel libraries from realtime_video_tpu_torch/csrc/
      (one nvcc per source, all started together; with the earlier kernels'
      sources under _archive/, those too, for the A/B times below), and, per
      library, its counts of HGMMA / IGMMA (wgmma) and UTMALDG (TMA load)
-     instructions in `cuobjdump -sass`: the wgmma libraries must show them;
+     instructions in `cuobjdump -sass`: every library must show them;
   2. kernels against their plain PyTorch versions at serving shapes, with each
      error against its bound, the kernel's, the plain version's and a library
      call's CUDA-event time, and the least time the card could take
-     (bound_ms), and planted faults that the same checks must catch:
+     (bound_ms), and planted faults that the same checks must catch; with
+     _archive/ present, each redesigned kernel is timed beside the version
+     it replaced in the same turns (earlier, new, new, earlier:
+     `earlier_ms`):
        - attention in bf16 (csrc/attention_sm90.cu: wgmma, TMA, warp
          specialisation), t2v-1.3B shapes (K1/K2): self-attention Lq 4680 /
          Lk 9360 with lo > 0, cross-attention Lk 512, a large-norm input whose
          logit bound trips the running-max path, block-causal 9360 tokens in
          4680-token blocks; each timed as the route (the bound pre-pass, then
-         the kernel) and as the kernel alone, and, with _archive/ present,
-         beside the earlier mma.sync kernel in the same turns (earlier,
-         new, new, earlier); the bound pre-pass's M against `logit_bound`'s
-         (relative 1e-5); planted faults: the window's edges, the last
-         block's end, and a ring stage filled with the previous tile;
-       - the mma.sync kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
+         the kernel) and as the kernel alone; the bound pre-pass's M against
+         `logit_bound`'s (relative 1e-5); planted faults: the window's edges,
+         the last block's end, and ring stages filled with the previous tile;
+       - the same kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
          heads): self-attention Lq 4680 / Lk 9360 over [1560, 9360),
          cross-attention Lk 512, block-causal 4680 in one block, and keys that
-         share an offset, on which one mean over the whole sequence and the
-         last segment's k scales one row off must be caught; its pre-pass's
-         s8 quanta must equal the plain version's but for a share <= 1e-3,
-         off by 1 at most;
-       - its skewed loops (K6a running max, K6b static max with the M >= 64
-         fallback, also on a large-norm input) at the 1.3B self-attention
-         shape, where skipping the drain step must be caught;
+         share an offset, on which one mean over the whole sequence, the last
+         segment's k scales one row off and a ring stage out of step must be
+         caught; its pre-pass (raw q, the prescale folded in) must give the
+         plain version's s8 quanta but for a share <= 1e-3, off by 1 at most;
+         the bf16 route at the same 14B shape is timed beside it;
+       - the skewed routes (K6a running max, K6b static max with the M >= 64
+         fallback, also on a large-norm input), now launches of the same
+         kernel, at the 1.3B self-attention shape, where a ring stage out of
+         step must be caught;
        - the fused int8 linear (csrc/int8_mm.cu, K3: s8 wgmma, TMA) at the
          DiT block linears of t2v-1.3B (qkv, fc1, fc2 with K 8960, and o with
          a scale computed on the device) and of t2v-14B (qkv 4680 x 5120 x
          15360, fc2 4680 x 13824 x 5120), on K-major weights, within 1 bf16
-         ulp of the plain version, beside the earlier kernel (_archive/) in
-         the same turns; planted faults: the last K tile, w_scale a column
-         off, a ring stage holding the previous K tile;
-       - the kt x 3 x 3 conv (csrc/conv3x3.cu, K4/K5) at VAE shapes: s8 with
-         kt 3 at C 384 (60x104) and C 96 (480x832), kt 1 with C 96 and C 3,
-         stride 2, whose int32 sums must equal the plain version's; and bf16
-         kt 3 with bias under the attention kernel's agreement bound;
+         ulp of the plain version; planted faults: the last K tile, w_scale a
+         column off, a ring stage holding the previous K tile;
+       - the kt x 3 x 3 conv (csrc/conv_sm90.cu, K4/K5: s8 wgmma, TMA, halos
+         by TMA's zero fill) at VAE shapes: s8 with kt 3 at C 384 (60x104) and
+         C 96 (480x832), the decoder's head (C 96 -> 3) and first conv (C 16
+         -> 384), kt 1 with C 96 and C 3, stride 2; the int32 sums must equal
+         the plain version's and the fused dequantise epilogue must equal the
+         torch dequantise of those sums bit for bit; each also as the int8
+         VAE's route (the quantise pre-pass, then the fused conv, from bf16),
+         beside cuDNN's bf16 F.conv3d at the same shape (a different function,
+         labelled so); bf16 kt 3 with bias under the attention kernel's
+         agreement bound against cuDNN; planted faults: a halo row, the last
+         32 bytes of channels, a ring stage out of step, tap dx = 2 reading
+         tap dx = 1's rows of the shared A stage;
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
@@ -67,10 +77,10 @@ Phases, each reported on its own lines:
          int8 QK^T attention on against off, on the same model (> 0.99).
 
 Before its last line it prints the kernels' JSON summary, one row per TPU
-kernel of the repo (K1, K2, K3a and K3b with `earlier_ms`, the earlier
-kernel's time in this run, or null without _archive/); the last line is
-{"ok": true, "device": {...}}. Any
-failure exits non-zero without it, and so does a host without a CUDA device.
+kernel of the repo (nine rows, each with `earlier_ms`: the replaced
+version's time in this run where _archive/ holds it, else null); the
+last line is {"ok": true, "device": {...}}. Any failure exits non-zero
+without it, and so does a host without a CUDA device.
 Every phase line carries t_s, the seconds since the start; a run that
 outlasts WATCHDOG_S dumps every thread's Python stack to stderr and exits 1.
 Kernel, plain and library times are CUDA-event means; serving times are
@@ -99,9 +109,12 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 #: a stalled run ends here, inside the 1200 s a run may take, with a stack dump
 WATCHDOG_S = 1100
 _T0 = time.perf_counter()
-#: the earlier (mma.sync) K1/K2 and K3 sources, kept out of git for A/B runs
+#: the replaced versions' sources, kept out of git for A/B runs: the
+#: previous bf16 wgmma attention, the mma.sync int8 QK^T / skew attention,
+#: the mma.sync conv (with the sm90.cuh they were built with beside them)
 ARCHIVE = Path(__file__).resolve().parent / "_archive"
-V1_SOURCES = (ARCHIVE / "attention_v1.cu", ARCHIVE / "int8_mm_v1.cu")
+EARLIER_SOURCES = (ARCHIVE / "attention_sm90_earlier.cu", ARCHIVE / "attention_mma_earlier.cu",
+                   ARCHIVE / "conv3x3_earlier.cu")
 
 
 def fail(msg: str) -> None:
@@ -130,19 +143,26 @@ def sass_counts(lib: Path, nvcc: str) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA", "UTMALDG")}
 
 
-def load_v1(libs: dict):
-    """The earlier kernels' libraries, bound as their sources declare them,
-    or None without _archive/."""
-    if not all(src in libs for src in V1_SOURCES):
+def load_earlier(libs: dict):
+    """The replaced versions' libraries, bound as their sources declare them, or None
+    without _archive/: (bf16 wgmma attention, mma.sync attention, conv)."""
+    if not all(src in libs for src in EARLIER_SOURCES):
         return None
-    p, i = ctypes.c_void_p, ctypes.c_int
-    att = ctypes.CDLL(str(libs[V1_SOURCES[0]]))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    sm90 = ctypes.CDLL(str(libs[EARLIER_SOURCES[0]]))
+    sm90.rtv_attention_sm90.argtypes = [p] * 4 + [i] * 5 + [f, p] + [i] * 7 + [p]
+    sm90.rtv_attention_sm90.restype = i
+    sm90.rtv_logit_bound.argtypes = [p] * 3 + [ll, ll, i, f, p]
+    sm90.rtv_logit_bound.restype = i
+    att = ctypes.CDLL(str(libs[EARLIER_SOURCES[1]]))
     att.rtv_attention.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 10 + [p]
     att.rtv_attention.restype = i
-    mm = ctypes.CDLL(str(libs[V1_SOURCES[1]]))
-    mm.rtv_int8_linear.argtypes = [p] * 5 + [i, p] + [i] * 4 + [p]
-    mm.rtv_int8_linear.restype = i
-    return att, mm
+    att.rtv_int8_qk_quantize.argtypes = [p] * 7 + [i] * 6 + [p]
+    att.rtv_int8_qk_quantize.restype = i
+    conv = ctypes.CDLL(str(libs[EARLIER_SOURCES[2]]))
+    conv.rtv_conv3x3.argtypes = [p] * 3 + [i, p] + [i] * 14 + [p]
+    conv.rtv_conv3x3.restype = i
+    return sm90, att, conv
 
 
 def cosine(a, b) -> float:
@@ -189,11 +209,11 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
     sources = [*hk.SOURCES, hm.SOURCE, hc.SOURCE]
-    archived = [src for src in V1_SOURCES if src.exists()]
+    archived = [src for src in EARLIER_SOURCES if src.exists()]
     t0 = time.perf_counter()
     libs = cuda_build.build_all(sources + archived)
     build_s = time.perf_counter() - t0
-    v1 = load_v1(libs)
+    earlier = load_earlier(libs)
     sass = {libs[src].name: sass_counts(libs[src], cuda_build.nvcc()) for src in sources}
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
@@ -202,7 +222,9 @@ def main() -> None:
           archived_earlier_kernels=[src.name for src in archived], sass=sass,
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
           tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "UTMALDG")), (hm.SOURCE, ("IGMMA", "UTMALDG"))):
+    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "IGMMA", "UTMALDG")),
+                     (hm.SOURCE, ("IGMMA", "UTMALDG")),
+                     (hc.SOURCE, ("HGMMA", "IGMMA", "UTMALDG"))):
         counts = sass[libs[src].name]
         if not all(counts[op] > 0 for op in ops):
             fail(f"{src.name}: no {ops} in its SASS: {counts}")
@@ -237,27 +259,70 @@ def main() -> None:
 
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def v1_attention(q, k, v, m_bound, mode, lo, hi, bt, kv_len):
-        """The earlier mma.sync kernel's bf16 launch on a pre-scaled q."""
+    def check_err(err, what):
+        if err:
+            fail(f"{what} launch failed: cudaError {err}")
+
+    def earlier_sm90(q, k, v, scale, maxima, mode, lo, hi, bt, kv_len):
+        """The previous bf16 wgmma attention kernel on raw q."""
         out = torch.empty_like(q)
         b, lq, n, d = q.shape
-        err = v1[0].rtv_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  None, None, b, lq, k.shape[1], n, d,
-                                  None if m_bound is None else m_bound.data_ptr(), mode, lo, hi,
-                                  bt, kv_len, -1, 0, 0, 0, 0, stream())
-        if err:
-            fail(f"earlier attention kernel launch failed: cudaError {err}")
+        check_err(earlier[0].rtv_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1], n, d,
+            hk.qscale(scale), None if maxima is None else maxima.data_ptr(), mode, lo, hi, bt,
+            kv_len, -1, 0, stream()), "the earlier attention kernel")
         return out
 
-    def v1_int8_linear(x, w_nk, w_scale, a_scale, bias):
-        """The earlier K3 launch, on w_q [K, N] N-contiguous (its layout)."""
-        k, n = w_nk.shape
-        out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-        err = v1[1].rtv_int8_linear(x.data_ptr(), w_nk.data_ptr(), w_scale.data_ptr(),
-                                    a_scale.data_ptr(), bias.data_ptr(), 1, out.data_ptr(),
-                                    x.numel() // k, k, n, 0, stream())
-        if err:
-            fail(f"earlier int8 linear launch failed: cudaError {err}")
+    def earlier_maxima(q, k, scale):
+        maxima = torch.empty(2, dtype=torch.float32, device=dev)
+        check_err(earlier[0].rtv_logit_bound(q.data_ptr(), k.data_ptr(), maxima.data_ptr(),
+                                             q.numel() // 128, k.numel() // 128, 128,
+                                             hk.qscale(scale), stream()),
+                  "the earlier bound pre-pass")
+        return maxima
+
+    def earlier_mma(q, k, v, scale, mode, lo, hi, bt, kv_len, int8, static):
+        """The mma.sync kernel as its routes ran it: a torch prescale, then
+        the int8 pre-pass and the int8 mode, or the skewed loop (with the
+        torch logit bound for the static max)."""
+        qs = hk.prescale(q, scale)
+        b, lq, n, d = q.shape
+        lk = k.shape[1]
+        out = torch.empty_like(q)
+        if int8:
+            seg = hk.segment_rows(lk)
+            q8, k8 = torch.empty_like(q, dtype=torch.int8), torch.empty_like(k, dtype=torch.int8)
+            sq = torch.empty((b, n, lq), dtype=torch.float32, device=dev)
+            sk = torch.empty((b, n, lk), dtype=torch.float32, device=dev)
+            km = torch.empty((b, -(-lk // seg), n, d), dtype=torch.float32, device=dev)
+            check_err(earlier[1].rtv_int8_qk_quantize(
+                qs.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+                sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg, stream()),
+                "the earlier int8 pre-pass")
+            args = (q8, k8, v, out, sq.data_ptr(), sk.data_ptr(), None, 1, 0, seg)
+        else:
+            m_bound = hk.logit_bound(qs, k) if static else None
+            args = (qs, k, v, out, None, None, None if m_bound is None else m_bound.data_ptr(),
+                    0, 1, 0)
+        a, kk, vv, oo, sqp, skp, mb, i8, skew, seg = args
+        check_err(earlier[1].rtv_attention(
+            a.data_ptr(), kk.data_ptr(), vv.data_ptr(), oo.data_ptr(), sqp, skp, b, lq, lk, n, d,
+            mb, mode, lo, hi, bt, kv_len, -1, i8, skew, seg, 0, stream()),
+            "the earlier mma.sync attention")
+        return out
+
+    def earlier_conv(x, w, stride, padding, bias=None):
+        """The mma.sync conv on a contiguous x and the Co-contiguous w."""
+        int8 = x.dtype == torch.int8
+        out = torch.empty(hc.out_shape(x.shape, w.shape, stride, padding),
+                          dtype=torch.int32 if int8 else x.dtype, device=dev)
+        t, h, w_, c = x.shape
+        (ph0, ph1), (pw0, pw1) = padding
+        check_err(earlier[2].rtv_conv3x3(
+            x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+            0 if bias is None else 1, out.data_ptr(), int(int8), t, h, w_, c, w.shape[-1],
+            w.shape[0], stride[0], stride[1], ph0, ph1, pw0, pw1, 0, stream()),
+            "the earlier conv")
         return out
 
     # -- attention (K1, K2) --
@@ -293,13 +358,11 @@ def main() -> None:
             kern = lambda: hk.window_attention(q, k, v, lo, arg, scale=inv)  # noqa: E731
             alone = lambda: hk._launch_sm90(q, k, v, inv, maxima, hk._MODE_WINDOW,  # noqa: E731
                                             lo, arg, 1, lk, -1)
-            if v1 is not None:
-                mb1 = hk.logit_bound(q, k)
-                v1_route = lambda: v1_attention(  # noqa: E731
-                    hk.prescale(q, inv), k, v, hk.logit_bound(hk.prescale(q, inv), k),
-                    hk._MODE_WINDOW, lo, arg, 1, lk)
-                v1_alone = lambda: v1_attention(q, k, v, mb1, hk._MODE_WINDOW,  # noqa: E731
-                                                lo, arg, 1, lk)
+            if earlier is not None:
+                e_route = lambda: earlier_sm90(  # noqa: E731
+                    q, k, v, inv, earlier_maxima(q, k, inv), hk._MODE_WINDOW, lo, arg, 1, lk)
+                e_alone = lambda: earlier_sm90(q, k, v, inv, maxima, hk._MODE_WINDOW,  # noqa: E731
+                                               lo, arg, 1, lk)
             plain = lambda: hk.window_attention_plain(q, k, v, lo, arg, scale=inv)  # noqa: E731
             flop = hk.window_flops(lq, lo, arg, heads, hd)
             io_bytes = 2.0 * heads * hd * (2 * lq + 2 * (arg - lo))
@@ -309,7 +372,7 @@ def main() -> None:
             # planted faults, which the check must catch: the window starting
             # 8 columns late (inside the tile that straddles lo), ending 16
             # columns early (the ragged tail past the last full tile), and the
-            # last ring stage filled with the previous tile's rows
+            # last ring stages filled with the previous tile's rows
             faults = {"lo+8": lambda: hk.window_attention(q, k, v, lo + 8, arg, scale=inv),
                       "hi-16": lambda: hk.window_attention(q, k, v, lo, arg - 16, scale=inv),
                       "stale_ring_stage": lambda: hk._launch_sm90(
@@ -319,11 +382,9 @@ def main() -> None:
             m_bound = m_ref = None
             kern = lambda: hk.block_causal_attention(q, k, v, arg, scale=inv)  # noqa: E731
             alone = kern
-            if v1 is not None:
-                v1_route = lambda: v1_attention(  # noqa: E731
-                    hk.prescale(q, inv), k, v, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk)
-                v1_alone = lambda: v1_attention(  # noqa: E731
-                    q, k, v, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk)
+            if earlier is not None:
+                e_route = e_alone = lambda: earlier_sm90(  # noqa: E731
+                    q, k, v, inv, None, hk._MODE_BLOCK_CAUSAL, 0, lk, arg, lk)
             plain = lambda: hk.block_causal_attention_plain(q, k, v, arg, scale=inv)  # noqa: E731
             flop = hk.block_causal_flops(lq, arg, heads, hd)
             io_bytes = 2.0 * heads * hd * 4 * lq
@@ -341,12 +402,12 @@ def main() -> None:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         res = hk.agreement(got, want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
-        if v1 is not None:
-            res1 = hk.agreement(v1_alone(), want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
+        if earlier is not None:
+            res1 = hk.agreement(e_alone(), want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
             if not res1["within_tol"]:
                 fail(f"{name}: the earlier kernel disagrees with the plain version: {res1}")
-        ms, earlier_ms = ab_ms(alone, v1_alone if v1 else None, 20)
-        route_ms, earlier_route_ms = ab_ms(kern, v1_route if v1 else None, 20)
+        ms, earlier_ms = ab_ms(alone, e_alone if earlier else None, 20)
+        route_ms, earlier_route_ms = ab_ms(kern, e_route if earlier else None, 20)
         plain_ms = cuda_ms(plain, 3)
         library_ms = None
         for b in backends:  # the first backend that takes the masked call
@@ -382,12 +443,16 @@ def main() -> None:
         fail("the self-attention case does not take the static-max path")
     torch.cuda.empty_cache()
 
-    # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed loops
-    # (K6a, K6b, t2v-1.3B shapes) of the mma.sync kernel, each route named
+    # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed routes
+    # (K6a, K6b, t2v-1.3B shapes) of the wgmma kernel, each route named
     # explicitly; the same bounds as K1/K2. The int8 mode's plain version
     # computes the TPU kernel's per-segment mean, quanta and s32 scores; its
-    # pre-pass's quanta are compared too. No PyTorch call computes int8 QK^T
-    # attention: library_ms is bf16 SDPA flash on the live window slice.
+    # pre-pass's quanta are compared too. "ms" is the route as the main path
+    # runs it (the int8 pre-pass, or the bound pre-pass for K6b, then the
+    # kernel), "earlier_ms" the mma.sync route in the same turns, and
+    # "bf16_route_ms" the bf16 `window` / `block_causal` route at the same
+    # shape. No PyTorch call computes int8 QK^T attention: library_ms is bf16
+    # SDPA on the same shape.
     mode_results = {}
     mode_cases = [  # (name, route, lq, lk, lo, hi or block, heads, scale, key offset)
         ("int8qk_self_14b", "window_int8qk", 4680, 9360, 1560, 9360, 40, 1.0, 0.0),
@@ -432,13 +497,28 @@ def main() -> None:
         res = hk.agreement(got, want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
         extra = {}
         if int8:
-            extra = hk.quanta_agreement(hk._quantize_launch(q, k, seg),
-                                        hk.int8_qk_quantize_plain(q, k, seg))
+            extra = hk.quanta_agreement(hk.int8_qk_prepass(q, k, seg, inv),
+                                        hk.int8_qk_prepass_plain(q, k, seg, inv))
             extra["quanta_within_tol"] = extra.pop("within_tol")
             extra["segment_rows"] = seg
+            extra["prepass_ms"] = cuda_ms(lambda: hk.int8_qk_prepass(q, k, seg, inv), 10)
+            bf16_route = "block_causal" if route == "block_causal_int8qk" else "window"
+            extra["bf16_route_ms"] = cuda_ms(lambda: (
+                hk.block_causal_attention(q, k, v, arg, scale=inv, route=bf16_route)
+                if bf16_route == "block_causal" else
+                hk.window_attention(q, k, v, lo, arg, scale=inv, route=bf16_route)), 10)
         else:
             extra["logit_bound"] = float(hk.logit_bound(q, k)[0])
-        ms = cuda_ms(kern, 10)
+        e_kern = None
+        if earlier is not None:
+            mode = hk._MODE_BLOCK_CAUSAL if route == "block_causal_int8qk" else hk._MODE_WINDOW
+            e_args = (0, lk, arg, lk) if mode == hk._MODE_BLOCK_CAUSAL else (lo, arg, 1, lk)
+            e_kern = lambda: earlier_mma(q, k, v, inv, mode, *e_args, int8,  # noqa: E731
+                                         hk.static_max(route))
+            res1 = hk.agreement(e_kern(), want, hk.sharp_atol(v) if scale > 1 else hk.ATOL)
+            if not res1["within_tol"]:
+                fail(f"{name}: the earlier kernel disagrees with the plain version: {res1}")
+        ms, earlier_ms = ab_ms(kern, e_kern, 10)
         plain_ms = cuda_ms(plain, 2)
         qt = q.transpose(1, 2)
         backends = [SDPBackend.FLASH_ATTENTION] if lib_mask is None else [
@@ -462,7 +542,8 @@ def main() -> None:
             bound_ms, bound_by = bound(io_bytes, half, "int8", [(half, "bf16")])
         else:
             bound_ms, bound_by = bound(io_bytes, 2 * half, "bf16")
-        mode_results[name] = dict(**res, **tol, **extra, ms=ms, plain_ms=plain_ms,
+        mode_results[name] = dict(**res, **tol, **extra, ms=ms, earlier_ms=earlier_ms,
+                                  plain_ms=plain_ms,
                                   library_ms=library_ms, library=lib_note, bound_ms=bound_ms,
                                   bound_by=bound_by)
         phase("kernel", kernel="attention", case=name, route=route, lq=lq, lk=lk, lo=lo,
@@ -476,15 +557,18 @@ def main() -> None:
         if name == "int8qk_shared_offset_14b":
             faults = {
                 "one_mean_over_the_sequence": lambda: hk._launch_int8(
-                    q, k, v, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=lk),
+                    q, k, v, inv, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=lk),
                 "last_segment_k_scale_one_row_off": lambda: hk._launch_int8(
-                    q, k, v, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=seg,
-                    fault=hk.FAULT_K_SCALE_SHIFT)}
+                    q, k, v, inv, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=seg,
+                    fault=hk.FAULT_K_SCALE_SHIFT),
+                "stale_ring_stage": lambda: hk._launch_int8(
+                    q, k, v, inv, hk._MODE_WINDOW, lo, arg, 1, lk, -1, seg=seg,
+                    fault=hk.FAULT_STALE_RING_STAGE)}
         elif name in ("skew_self", "skew_staticmax_self"):
-            m_bound = hk.logit_bound(q, k) if route == "window_skew_staticmax" else None
-            faults = {"drain_step_skipped": lambda: hk._launch(
-                q, k, v, m_bound, hk._MODE_WINDOW, lo, arg, 1, lk, -1, skew=True,
-                fault=hk.FAULT_SKIP_DRAIN)}
+            maxima = hk.logit_bound_maxima(q, k, inv) if hk.static_max(route) else None
+            faults = {"stale_ring_stage": lambda: hk._launch_sm90(
+                q, k, v, inv, maxima, hk._MODE_WINDOW, lo, arg, 1, lk, -1,
+                fault=hk.FAULT_STALE_RING_STAGE)}
         for fault, fn in faults.items():
             bad = hk.agreement(fn(), want)
             phase("planted_fault", case=name, fault=fault, caught=not bad["within_tol"],
@@ -508,8 +592,7 @@ def main() -> None:
         return ((got.float() - want.float()).abs() / ulp).max().item()
 
     # The weights are K-major ([K, N] views of [N, K] storage, as the
-    # loaders build them); the earlier kernel (_archive/) reads the same
-    # values N-contiguous, its layout.
+    # loaders build them).
     mm_results = {}
     mm_cases = [("qkv", 4680, 1536, 4608, True), ("fc1", 4680, 1536, 8960, True),
                 ("fc2", 4680, 8960, 1536, True), ("o_dynamic", 4680, 1536, 1536, False),
@@ -526,13 +609,7 @@ def main() -> None:
         torch.cuda.synchronize()
         err_ulps = ulps(got, want)
         max_abs = (got.float() - want.float()).abs().max().item()
-        v1_kern = None
-        if v1 is not None:
-            w_n = w_q.contiguous()
-            v1_kern = lambda: v1_int8_linear(x, w_n, w_scale, a_scale, bias)  # noqa: E731
-            if ulps(v1_kern(), want) > 1.0:
-                fail(f"int8 linear {name}: the earlier kernel disagrees with the plain version")
-        ms, earlier_ms = ab_ms(kern, v1_kern, 20)
+        ms, earlier_ms = cuda_ms(kern, 20), None  # K3 has no replaced version here
         plain_ms = cuda_ms(plain, 3)
         x2 = x.reshape(m, kdim)
 
@@ -567,15 +644,26 @@ def main() -> None:
                       caught=bad > 1.0, max_err_bf16_ulps=bad)
                 if bad <= 1.0:
                     fail(f"the int8 linear check passes the planted fault {fault}")
-        del x, w_q, bias, got, want, bf16_w, x2, v1_kern
+        del x, w_q, bias, got, want, bf16_w, x2
         torch.cuda.empty_cache()
 
     # -- the kt x 3 x 3 conv (K4/K5) --
+    # Weights are the K-major views the int8 VAE stores (hc.k_major), inputs
+    # with their pixels padded to 32 bytes (hc.pad_channels, as the quantise
+    # pre-pass writes them). s8: the int32 sums must equal the plain
+    # version's and the fused dequantise (the main path's form, "ms") the
+    # torch dequantise of those sums, bit for bit; "route_ms" is the int8 VAE
+    # conv as models/vae.py runs it (pre-pass + fused conv, from bf16), and
+    # its earlier counterpart (torch quantise, the mma.sync conv on the
+    # Co-contiguous w, torch dequantise). bf16: hk.agreement's bounds, with
+    # cuDNN's F.conv3d as the same-function library call.
     pad1, down = ((1, 1), (1, 1)), ((0, 1), (0, 1))
     conv_results = {}
     conv_cases = [  # (name, dtype, T_in, H, W, C, Co, kt, stride, padding)
         ("s8_kt3_c384_60x104", torch.int8, 3, 60, 104, 384, 384, 3, (1, 1), pad1),
         ("s8_kt3_c96_480x832", torch.int8, 6, 480, 832, 96, 96, 3, (1, 1), pad1),
+        ("s8_head_kt3_c96_co3_480x832", torch.int8, 6, 480, 832, 96, 3, 3, (1, 1), pad1),
+        ("s8_first_kt3_c16_co384_60x104", torch.int8, 3, 60, 104, 16, 384, 3, (1, 1), pad1),
         ("s8_kt1_c96_480x832", torch.int8, 1, 480, 832, 96, 96, 1, (1, 1), pad1),
         ("s8_kt1_c3_480x832", torch.int8, 1, 480, 832, 3, 96, 1, (1, 1), pad1),
         ("s8_stride2_c96_480x832", torch.int8, 1, 480, 832, 96, 96, 1, (2, 2), down),
@@ -583,51 +671,97 @@ def main() -> None:
     ]
     for name, dtype, t, h, w, c, co, kt, stride, padding in conv_cases:
         s8 = dtype == torch.int8
+        (ph0, ph1), (pw0, pw1) = padding
+        extra = {}
         if s8:
-            x, wt, b = rint8((t, h, w, c)), rint8((kt, 3, 3, c, co)), None
+            xf = rnd((t, h, w, c), 2.0)  # the bf16 activation the route quantises
+            a_scale = hm.dynamic_scale(xf)
+            x_plain = hm.quantize(xf, a_scale.reshape(()))
+            w_plain, b = rint8((kt, 3, 3, c, co)), None
+            scale, bq = torch.rand((co,), generator=gen, device=dev) * 2e-3 + 1e-3, rnd((co,))
         else:
-            x, wt = rnd((t, h, w, c)), rnd((kt, 3, 3, c, co), (kt * 9 * c) ** -0.5)
+            x_plain, w_plain = rnd((t, h, w, c)), rnd((kt, 3, 3, c, co), (kt * 9 * c) ** -0.5)
             b = rnd((co,))
-        kern = lambda: hc.conv3x3(x, wt, stride, padding, bias=b)  # noqa: E731
+        x, wt = hc.pad_channels(x_plain), hc.k_major(w_plain)
         plain = lambda: hc.conv3x3_plain(x, wt, stride, padding, bias=b)  # noqa: E731
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
+        want = plain()
         if s8:
-            ok, res = torch.equal(got, want), {"equal_int32": torch.equal(got, want)}
+            kern = lambda: hc.conv3x3_dequant(x, wt, a_scale, scale, bq, stride,  # noqa: E731
+                                              padding)
+            got32 = hc.conv3x3(x, wt, stride, padding)
+            got = kern()
+            torch.cuda.synchronize()
+            want_dq = hc.dequantize_plain(want, a_scale, scale, bq, torch.bfloat16)
+            res = {"equal_int32": torch.equal(got32, want),
+                   "dequant_bit_equal": torch.equal(got.view(torch.int16),
+                                                    want_dq.view(torch.int16))}
+            ok = res["equal_int32"] and res["dequant_bit_equal"]
+            max_abs = (got32.double() - want.double()).abs().max().item()
+            route = lambda: hc.int8_conv(xf, wt, a_scale, scale, bq, stride,  # noqa: E731
+                                         padding)
+            extra["s32_ms"] = cuda_ms(lambda: hc.conv3x3(x, wt, stride, padding), 10)
+            e_kern = e_route = None
+            if earlier is not None:
+                x_c, w_c = x_plain.contiguous(), w_plain.contiguous()
+                if not torch.equal(earlier_conv(x_c, w_c, stride, padding), want):
+                    fail(f"conv {name}: the earlier kernel disagrees with the plain version")
+                e_kern = lambda: hc.dequantize_plain(  # noqa: E731
+                    earlier_conv(x_c, w_c, stride, padding), a_scale, scale, bq, torch.bfloat16)
+                e_route = lambda: hc.dequantize_plain(earlier_conv(  # noqa: E731
+                    hm.quantize(xf, a_scale.reshape(())).contiguous(), w_c, stride, padding),
+                    a_scale, scale, bq, torch.bfloat16)
+            extra["route_ms"], extra["earlier_route_ms"] = ab_ms(route, e_route, 10)
+            ms, earlier_ms = ab_ms(kern, e_kern, 10)
+            lib_dtype = torch.bfloat16  # cuDNN has no s8 conv: a bf16 one, another function
         else:
+            kern = lambda: hc.conv3x3(x, wt, stride, padding, bias=b)  # noqa: E731
+            got = kern()
+            torch.cuda.synchronize()
             res = hk.agreement(got, want)
             ok = res["within_tol"]
-        max_abs = (got.float() - want.float()).abs().max().item()
-        ms = cuda_ms(kern, 10)
+            max_abs = (got.float() - want.float()).abs().max().item()
+            e_kern = None
+            if earlier is not None:
+                w_c = w_plain.contiguous()
+                e_kern = lambda: earlier_conv(x_plain, w_c, stride, padding, b)  # noqa: E731
+            ms, earlier_ms = ab_ms(kern, e_kern, 10)
+            lib_dtype = dtype
         plain_ms = cuda_ms(plain, 1)
-        library_ms, lib_note = None, "no PyTorch call computes an s8 convolution on CUDA"
-        if not s8:  # cuDNN on channels-last views of the same tensors
-            (ph0, ph1), (pw0, pw1) = padding
-            xl = F.pad(x.permute(3, 0, 1, 2)[None], (pw0, pw1, ph0, ph1))
-            wl = wt.permute(4, 3, 0, 1, 2)
-            library_ms = cuda_ms(lambda: F.conv3d(xl, wl, b, stride=(1, *stride)), 10)
-            lib_note = "cuDNN F.conv3d (bf16, TF32 off)"
-            del xl, wl
+        xl = F.pad(rnd((t, h, w, c)).permute(3, 0, 1, 2)[None], (pw0, pw1, ph0, ph1))
+        wl = rnd((co, c, kt, 3, 3), (kt * 9 * c) ** -0.5).to(lib_dtype)
+        bl = rnd((co,))
+        cudnn_ms = cuda_ms(lambda: F.conv3d(xl, wl, bl, stride=(1, *stride)), 10)
+        del xl, wl, bl
+        if s8:
+            library_ms, lib_note = None, "no PyTorch call computes an s8 convolution on CUDA"
+            extra["bf16_cudnn_ms"] = cudnn_ms
+            extra["bf16_cudnn"] = "cuDNN F.conv3d in bf16 + bias, TF32 off (another function)"
+        else:
+            library_ms, lib_note = cudnn_ms, "cuDNN F.conv3d (bf16 + bias, TF32 off)"
         ops = hc.conv3x3_ops(x.shape, wt.shape, stride, padding)
         bound_ms, bound_by = bound(
             hc.conv3x3_bytes(x.shape, wt.shape, stride, padding, in_bytes=1 if s8 else 2,
-                             out_bytes=4 if s8 else 2, bias=not s8),
+                             out_bytes=2, bias=True),
             ops, "int8" if s8 else "bf16")
-        conv_results[name] = dict(res, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                  library_ms=library_ms, library=lib_note,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  tops=ops / ms / 1e9)
+        conv_results[name] = dict(res, **extra, max_abs_err=max_abs, ms=ms,
+                                  earlier_ms=earlier_ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, library=lib_note, bound_ms=bound_ms,
+                                  bound_by=bound_by, tops=ops / ms / 1e9)
         phase("kernel", kernel="conv3x3", case=name, shape=[t, h, w, c], co=co, kt=kt,
               stride=list(stride), padding=[list(p) for p in padding],
-              check="int32 equal" if s8 else f"agreement atol {hk.ATOL} rtol {hk.RTOL} "
-              f"rel_fro {hk.REL_FRO}", **conv_results[name], card=card)
+              check="int32 equal, fused dequantise bit-equal" if s8 else
+              f"agreement atol {hk.ATOL} rtol {hk.RTOL} rel_fro {hk.REL_FRO}",
+              **conv_results[name], card=card)
         if not ok:
             fail(f"conv {name}: kernel disagrees with its plain version: {res}")
-        if name == "s8_kt3_c384_60x104":
+        if name in ("s8_kt3_c384_60x104", "bf16_kt3_bias_c384_60x104"):
             for fault, code in (("halo_row_zeroed", hc.FAULT_ZERO_HALO_ROW),
-                                ("last_ci_chunk_dropped", hc.FAULT_DROP_LAST_CI_CHUNK)):
-                bad = hc._launch(x, wt, stride, padding, fault=code)
-                caught = not torch.equal(bad, want)
+                                ("last_32_bytes_of_channels_dropped", hc.FAULT_DROP_LAST_C32),
+                                ("stale_ring_stage", hc.FAULT_STALE_RING_STAGE),
+                                ("tap_dx2_reads_tap_dx1_rows", hc.FAULT_TAP_ROWS)):
+                bad = hc._launch(x, wt, stride, padding, b, fault=code)
+                caught = not torch.equal(bad, want) if s8 else \
+                    not hk.agreement(bad, want)["within_tol"]
                 phase("planted_fault", case=f"conv3x3_{name}", fault=fault, caught=caught,
                       elements_differing=int((bad != want).sum()))
                 if not caught:
@@ -754,6 +888,7 @@ def main() -> None:
         sessions = asyncio.run(drive(config, models, sids))
         launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
         launches.update(hk.PREPASS_LAUNCHES)
+        launches.update(hc.PREPASS_LAUNCHES)
         plain_on_cuda = {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         for sid, t_send, stamps, sizes, final, frames in sessions:
@@ -781,7 +916,8 @@ def main() -> None:
     int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
     tiers, skew_launches, head_w = {}, {}, None
     kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
-                    "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3")}
+                    "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
+                             "conv_quantize")}
     for tier, flags in (("bf16", {}), ("int8", int8_flags)):
         config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
                                     timestep_shift=5.0, **flags)
@@ -840,7 +976,8 @@ def main() -> None:
         load_peak_gb = torch.cuda.max_memory_allocated() / 2**30
         launches14, plain14, peak14 = serve(
             config, models, ("14b-int8qk-0",), "t2v-14B int8 + int8 QK^T",
-            ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3"))
+            ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3",
+             "conv_quantize"))
         phase("server", model="t2v-14B", tier="int8 + int8 QK^T attention",
               load_and_calibrate_s=load_s, load_peak_mem_gib=load_peak_gb,
               peak_mem_gib=peak14, plan_total_gib=plan.total / 2**30,
@@ -870,10 +1007,18 @@ def main() -> None:
                 **(extra or {})}
 
     bf16_l, int8_l = tiers["bf16"]["launches"], tiers["int8"]["launches"]
-    attn_src = "realtime_video_tpu_torch/csrc/attention.cu"
     sm90_src = "realtime_video_tpu_torch/csrc/attention_sm90.cu"
+    conv_src = "realtime_video_tpu_torch/csrc/conv_sm90.cu"
     int8qk_cases = ("int8qk_self_14b", "int8qk_cross_14b", "int8qk_block_causal_14b",
                     "int8qk_shared_offset_14b")
+    k4_cases = ("s8_kt1_c96_480x832", "s8_kt1_c3_480x832", "s8_stride2_c96_480x832")
+    k5_cases = ("s8_kt3_c96_480x832", "s8_kt3_c384_60x104", "s8_head_kt3_c96_co3_480x832",
+                "s8_first_kt3_c16_co384_60x104", "bf16_kt3_bias_c384_60x104")
+
+    def times(results, case, keys=("ms", "earlier_ms")):
+        """{case_key: value} of a case's times, for the kernels line."""
+        return {f"{case}_{k}": results[case].get(k) for k in keys}
+
     kernels = [
         entry("window_attention (K1 static-max; in-kernel running-max fallback)", sm90_src,
               "realtime_video_tpu/ops/pallas_attention.py:220", bf16_l["window"],
@@ -896,12 +1041,17 @@ def main() -> None:
               {"case": "1.3B block-causal 9360 / 4680",
                "earlier_ms": results["block_causal"]["earlier_ms"],
                "launches_int8_path": int8_l["block_causal"]}),
-        entry("int8qk_attention (K2's int8_qk mode: s8 pre-pass + s8 QK^T / bf16 PV flash)",
-              attn_src, "realtime_video_tpu/ops/pallas_attention.py:155",
+        entry("int8qk_attention (K2's int8_qk mode: s8 pre-pass + s8 wgmma QK^T / bf16 PV)",
+              sm90_src, "realtime_video_tpu/ops/pallas_attention.py:155",
               launches14["window_int8qk"] + launches14["block_causal_int8qk"],
               mode_results["int8qk_self_14b"],
               max(mode_results[c]["max_abs_err"] for c in int8qk_cases),
-              {"case": "14B self-attn 4680 / 9360, 40 heads",
+              {"case": "14B self-attn 4680 / 9360, 40 heads; ms the route (pre-pass + kernel)",
+               "earlier_ms": mode_results["int8qk_self_14b"]["earlier_ms"],
+               "bf16_route_ms": mode_results["int8qk_self_14b"]["bf16_route_ms"],
+               **times(mode_results, "int8qk_cross_14b", ("ms", "earlier_ms", "bf16_route_ms")),
+               **times(mode_results, "int8qk_block_causal_14b",
+                       ("ms", "earlier_ms", "bf16_route_ms")),
                "launches_window": launches14["window_int8qk"],
                "launches_block_causal": launches14["block_causal_int8qk"],
                "quanta_differing_share": max(mode_results[c]["quanta_differing_share"]
@@ -921,33 +1071,47 @@ def main() -> None:
               max(mm_results[c]["max_abs_err"] for c in ("fc2", "qkv_14b", "fc2_14b")),
               {"case": "fc2 4680x8960x1536", "earlier_ms": mm_results["fc2"]["earlier_ms"],
                "qkv_14b_ms": mm_results["qkv_14b"]["ms"],
-               "qkv_14b_earlier_ms": mm_results["qkv_14b"]["earlier_ms"],
                "fc2_14b_ms": mm_results["fc2_14b"]["ms"],
-               "fc2_14b_earlier_ms": mm_results["fc2_14b"]["earlier_ms"],
                "launches_14b": launches14["int8_linear_k_tiled"]}),
-        entry("conv3x3, 3x3 form (K4: kt 1)", "realtime_video_tpu_torch/csrc/conv3x3.cu",
+        entry("conv3x3, 3x3 form (K4: kt 1; s8 with the fused dequantise)", conv_src,
               "realtime_video_tpu/ops/pallas_conv2.py:67",
               int8_l["conv3x3"] - int8_l["conv3x3_temporal"],
               conv_results["s8_kt1_c96_480x832"],
-              max(conv_results[c]["max_abs_err"] for c in (
-                  "s8_kt1_c96_480x832", "s8_kt1_c3_480x832", "s8_stride2_c96_480x832")),
-              {"case": "s8 kt1 C96 480x832"}),
-        entry("conv3x3, kt x 3 x 3 form (K5: kt 3, the temporal taps inside)",
-              "realtime_video_tpu_torch/csrc/conv3x3.cu",
+              max(conv_results[c]["max_abs_err"] for c in k4_cases),
+              {"case": "s8 kt1 C96 480x832",
+               "earlier_ms": conv_results["s8_kt1_c96_480x832"]["earlier_ms"],
+               "route_ms": conv_results["s8_kt1_c96_480x832"]["route_ms"],
+               "earlier_route_ms": conv_results["s8_kt1_c96_480x832"]["earlier_route_ms"],
+               "bf16_cudnn_ms": conv_results["s8_kt1_c96_480x832"]["bf16_cudnn_ms"],
+               **times(conv_results, "s8_kt1_c3_480x832"),
+               **times(conv_results, "s8_stride2_c96_480x832"),
+               "launches_quantize_prepass": int8_l["conv_quantize"]}),
+        entry("conv3x3, kt x 3 x 3 form (K5: kt 3, the temporal taps inside)", conv_src,
               "realtime_video_tpu/ops/pallas_conv.py:53", int8_l["conv3x3_temporal"],
               conv_results["s8_kt3_c96_480x832"],
-              max(conv_results[c]["max_abs_err"] for c in (
-                  "s8_kt3_c96_480x832", "s8_kt3_c384_60x104", "bf16_kt3_bias_c384_60x104")),
-              {"case": "s8 kt3 C96 480x832"}),
-        entry("skew_attention (K6a: skewed loop, running max)", attn_src,
-              "realtime_video_tpu/ops/pallas_attention.py:445",
+              max(conv_results[c]["max_abs_err"] for c in k5_cases),
+              {"case": "s8 kt3 C96 480x832 with the fused dequantise",
+               "earlier_ms": conv_results["s8_kt3_c96_480x832"]["earlier_ms"],
+               "route_ms": conv_results["s8_kt3_c96_480x832"]["route_ms"],
+               "earlier_route_ms": conv_results["s8_kt3_c96_480x832"]["earlier_route_ms"],
+               "bf16_cudnn_ms": conv_results["s8_kt3_c96_480x832"]["bf16_cudnn_ms"],
+               **times(conv_results, "s8_kt3_c384_60x104"),
+               **times(conv_results, "s8_head_kt3_c96_co3_480x832"),
+               **times(conv_results, "s8_first_kt3_c16_co384_60x104"),
+               **times(conv_results, "bf16_kt3_bias_c384_60x104",
+                       ("ms", "earlier_ms", "library_ms"))}),
+        entry("skew_attention (K6a: the sm90 kernel's running max, QK^T(j) with PV(j-1))",
+              sm90_src, "realtime_video_tpu/ops/pallas_attention.py:445",
               skew_launches["window_skew"], mode_results["skew_self"],
-              mode_results["skew_self"]["max_abs_err"], {"case": "1.3B self-attn"}),
-        entry("skew_staticmax_attention (K6b: skewed loop, static max; running-max fallback)",
-              attn_src, "realtime_video_tpu/ops/pallas_attention.py:323",
+              mode_results["skew_self"]["max_abs_err"],
+              {"case": "1.3B self-attn", "earlier_ms": mode_results["skew_self"]["earlier_ms"]}),
+        entry("skew_staticmax_attention (K6b: the sm90 kernel's static max; running-max "
+              "fallback)", sm90_src, "realtime_video_tpu/ops/pallas_attention.py:323",
               skew_launches["window_skew_staticmax"], mode_results["skew_staticmax_self"],
               mode_results["skew_staticmax_self"]["max_abs_err"],
-              {"case": "1.3B self-attn", "fallback_max_abs_err":
+              {"case": "1.3B self-attn; ms the route (bound pre-pass + kernel)",
+               "earlier_ms": mode_results["skew_staticmax_self"]["earlier_ms"],
+               "fallback_max_abs_err":
                mode_results["skew_staticmax_large_norm"]["max_abs_err"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,17 +43,12 @@
 // wrapper refuses any other stride.
 //
 // Numerics, chosen so that the kernel and its plain PyTorch version give the
-// same quanta and the same s32 sums: the quotient x / a is the correctly
-// rounded one that an IEEE division gives (the build uses no fast-math), and
-// it is rounded half to even (F2I.RN) as jnp.round and torch.round do
-// (roundf would round halves away from zero). The quantiser takes r = 1/a
-// once and corrects x * r twice with the exact FMA remainder x - q * a; the
-// second correction starts within an ulp of x / a, where Markstein's theorem
-// makes RN(q + (x - q a) r) the correctly rounded quotient. (The TPU kernel
-// multiplies by a reciprocal without correction and can differ by 1 LSB at
-// exact halves.) The epilogue takes a * w_scale[n] first, as wan_dit.linear
-// does, and uses __fmul_rn / __fadd_rn so that no FMA contraction changes the
-// f32 rounding. a is read through its pointer: no host sync.
+// same quanta and the same s32 sums: the quantiser (csrc/quantize.cuh, shared
+// with the VAE convs' pre-pass) gives the correctly rounded quotient x / a,
+// rounded half to even as jnp.round and torch.round do. The epilogue takes
+// a * w_scale[n] first, as wan_dit.linear does, and uses __fmul_rn /
+// __fadd_rn so that no FMA contraction changes the f32 rounding. a is read
+// through its pointer: no host sync.
 //
 // What bounds it on an H100: at the 1.3B qkv shape (M 4680, K 1536, N 4608)
 // one call is 2*M*K*N = 66 GOP against ~29 MB of traffic, bound by the int8
@@ -66,6 +61,7 @@
 
 #include <cuda_bf16.h>
 
+#include "quantize.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -86,29 +82,7 @@ constexpr int FAULT_DROP_LAST_K_TILE = 1;  // planted faults for the checks
 constexpr int FAULT_W_SCALE_SHIFT = 2;
 constexpr int FAULT_STALE_RING_STAGE = 3;  // the last ring stage holds the previous K tile
 
-// clip(rint(RN(x / a)), -127, 127), with r = RN(1 / a): see "Numerics" above.
-__device__ __forceinline__ int quant1(float x, float a, float r) {
-  const float q0 = __fmul_rn(x, r);
-  const float q1 = __fmaf_rn(__fmaf_rn(-q0, a, x), r, q0);
-  float q = __fmaf_rn(__fmaf_rn(-q1, a, x), r, q1);  // the correctly rounded x / a
-  q = fabsf(q0) < 1e6f ? q : q0;  // past 1e6 only the sign matters (and x * r may be inf)
-  return __float2int_rn(fminf(fmaxf(q, -127.0f), 127.0f));
-}
-
-// 8 bf16 -> 8 s8 quanta (the low bytes of the clipped integers)
-__device__ __forceinline__ uint2 quant8(uint4 v, float a, float r) {
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-  uint32_t w[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint32_t lo = __byte_perm(quant1(__bfloat162float(h[4 * i]), a, r),
-                              quant1(__bfloat162float(h[4 * i + 1]), a, r), 0x0040);
-    uint32_t hi = __byte_perm(quant1(__bfloat162float(h[4 * i + 2]), a, r),
-                              quant1(__bfloat162float(h[4 * i + 3]), a, r), 0x0040);
-    w[i] = __byte_perm(lo, hi, 0x5410);
-  }
-  return make_uint2(w[0], w[1]);
-}
+using rtv_quant::quant8;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

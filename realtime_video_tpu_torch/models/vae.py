@@ -16,12 +16,13 @@ view of the THWC tensor (no copy), as the JAX package leaves them to
 [kh, kw, ci, co].
 
 The int8 tier (`quantize_vae_params`: the 3x3 convs carry `w_q` [kt, 3, 3,
-ci, co] s8, per-output-channel `scale`, and a static `a_scale` from
-`calibrate_vae_act_scales` or none for a per-call amax) quantises each conv's
-input per tensor and runs the kt x 3 x 3 s8 conv in one kernel
-(`ops/hopper_conv.py`) with the temporal taps, the zero halos and the stride
-inside it, so neither the tap concat nor a padded copy is written; the int32
-sums are then dequantised. Calibration passes a record dict down the graph
+ci, co] s8, stored K-major, per-output-channel `scale`, and a static
+`a_scale` from `calibrate_vae_act_scales` or none for a per-call amax)
+quantises each conv's input per tensor (a pre-pass kernel) and runs the kt x
+3 x 3 s8 conv in one kernel (`ops/hopper_conv.py`) with the temporal taps,
+the zero halos and the stride inside it, and the dequantise in its
+epilogue, so neither the tap concat, a padded copy nor the int32 sums are
+written. Calibration passes a record dict down the graph
 (`calib`), keyed by the id of each float conv's param dict.
 """
 from __future__ import annotations
@@ -92,14 +93,19 @@ def _record_calib(calib: Optional[Calib], p: Params, x: torch.Tensor) -> None:
         calib[id(p)] = amax if prev is None else torch.maximum(prev, amax)
 
 
-def _quantize_act(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor int8 activation quantisation with the static `a_scale`, or
-    a per-call amax when there is none. Returns (xq int8, a_scale f32 0-d)."""
+def _act_scale(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The conv's per-tensor activation scale, f32 0-d: the static `a_scale`,
+    or the per-call amax when there is none (computed on x's device)."""
     if "a_scale" in p:
-        a_scale = p["a_scale"].float()
-    else:
-        a_scale = hopper_int8_mm.dynamic_scale(x).reshape(())
-    return hopper_int8_mm.quantize(x, a_scale), a_scale
+        return p["a_scale"].float()
+    return hopper_int8_mm.dynamic_scale(x).reshape(())
+
+
+def _quantize_act(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor int8 activation quantisation (the pre-pass on a card).
+    Returns (xq int8, a_scale f32 0-d)."""
+    a_scale = _act_scale(p, x)
+    return hopper_conv.quantize(x, a_scale), a_scale
 
 
 def _int8_conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
@@ -107,12 +113,13 @@ def _int8_conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
     """int8 conv: quantise x [T, H, W, C] per tensor, run the s8 conv of
     w_q [kt, 3, 3, ci, co] with its temporal taps inside the kernel, and
     dequantise the int32 sums with a_scale * scale[co] + b in f32
-    (vae.py:325-341 of the JAX package, whose w_q arrives tap-merged)."""
-    xq, a_scale = _quantize_act(p, x)
-    # the bf16 convs hand back channels-last views; the kernel reads [T, H, W, C]
-    yq = hopper_conv.conv3x3(xq.contiguous(), p["w_q"], stride, padding)
-    y = yq.float() * (a_scale * p["scale"].float())
-    return (y + p["b"].float()).to(x.dtype)
+    (vae.py:325-341 of the JAX package, whose w_q arrives tap-merged). On a
+    card: the quantise pre-pass, then one conv launch whose epilogue
+    dequantises; no torch op between them or after."""
+    # the bf16 convs hand back channels-last views; the pre-pass reads [T, H, W, C]
+    x = x.contiguous()
+    return hopper_conv.int8_conv(x, p["w_q"], _act_scale(p, x), p["scale"], p["b"], stride,
+                                 padding)
 
 
 def conv3d(p: Params, x: torch.Tensor, stride=(1, 1, 1),
@@ -554,7 +561,9 @@ def quantize_vae_params(params: Params, act_scales: Optional[Dict[str, float]] =
     """int8-quantise the 3x3 spatial convs of a VAE param tree in torch on the
     parameters' device (vae.py:805-874 of the JAX package): w_q [kt, 3, 3, ci,
     co] (conv2d weights gain a leading kt = 1) with per-output-channel scales,
-    encoder and decoder both. 1x1 convs, time convs, attention and norms stay
+    encoder and decoder both. w_q is the view of [co, kt, 3, 3, cp] storage
+    (`hopper_conv.k_major`: ci padded with zero rows to the kernel's channel
+    alignment), the conv kernel's K-major layout. 1x1 convs, time convs, attention and norms stay
     as they are. Convs found in `act_scales` get a static activation scale
     amax * margin / 127."""
     attached = [0]
@@ -573,8 +582,8 @@ def quantize_vae_params(params: Params, act_scales: Optional[Dict[str, float]] =
             return p
         co = wq5.shape[-1]
         scale = torch.clamp(wq5.abs().reshape(-1, co).amax(dim=0), min=1e-8) / 127.0
-        out = {"w_q": torch.clamp(torch.round(wq5 / scale), -127, 127).to(torch.int8),
-               "scale": scale, "b": p["b"]}
+        wq = torch.clamp(torch.round(wq5 / scale), -127, 127).to(torch.int8)
+        out = {"w_q": hopper_conv.k_major(wq), "scale": scale, "b": p["b"]}
         if act_scales and path in act_scales:
             out["a_scale"] = torch.tensor(max(act_scales[path], 1e-6) * margin / 127.0,
                                           dtype=torch.float32, device=w.device)

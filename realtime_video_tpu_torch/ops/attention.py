@@ -1,7 +1,7 @@
 """Attention dispatcher and attention masks (port of realtime_video_tpu/ops/attention.py).
 
 q [B, Lq, N, D], k/v [B, Lk, N, D]. Every entry point sends a CUDA tensor to
-the hand-written Hopper kernel (`ops/hopper_attention.py`, `csrc/attention.cu`)
+the hand-written Hopper kernel (`ops/hopper_attention.py`, `csrc/attention_sm90.cu`)
 and a CPU tensor to the plain PyTorch version beside that kernel. There is no
 library attention on either side and no fallback from the kernel: a call the
 kernel cannot take raises.

@@ -1,10 +1,7 @@
 """Hand-written Hopper attention: switches, dispatch, build, bind, launch, count.
 
-Two CUDA sources replace the Pallas TPU kernels of
-`realtime_video_tpu/ops/pallas_attention.py`:
-
-`csrc/attention_sm90.cu` (wgmma, TMA, a warp-specialised pipeline) carries
-the bf16 routes `window` and `block_causal`:
+`csrc/attention_sm90.cu` (wgmma, TMA, a warp-specialised pipeline) replaces
+the Pallas TPU kernels of `realtime_video_tpu/ops/pallas_attention.py`:
 
   * K1 `_staticmax_kernel`: softmax over KV columns in [lo, hi) with a static
     logit bound M; when M >= 64 the same launch keeps a running max instead
@@ -16,19 +13,21 @@ the bf16 routes `window` and `block_causal`:
     with STATIC_MAX off) and in block-causal mode: kv < min(ends[q], kv_len)
     with ends[q] = (q // block_tokens + 1) * block_tokens, an optional local
     window, and the diagonal.
-
-  It takes raw q and folds the prescale (`prescale`, bf16(q * bf16(scale *
-  log2 e))) into its Q tile, with the same rounding.
-
-`csrc/attention.cu` (mma.sync, cp.async) keeps the other routes, which run on
-a q that `prescale` has written:
-
-  * K2-int8, `_flash_kernel`'s `int8_qk` branch (the SageAttention analog): a
-    pre-pass kernel quantises q, and k minus the mean of its `bk`-row segment
-    (`segment_rows`), to s8 with per-row f32 scales; the main kernel takes the
-    s8 QK^T to f32 by sq * sk and runs K2's softmax and bf16 PV.
+  * K2-int8, `_flash_kernel`'s `int8_qk` branch (the SageAttention analog):
+    a pre-pass (`int8_qk_prepass`) prescales raw q and quantises it, and k
+    minus the mean of its `bk`-row segment (`segment_rows`), to s8 with
+    per-row f32 scales; the same kernel, with an s8 QK^T (wgmma m64n128k32),
+    takes the sums to f32 by sq * sk and runs K2's softmax and bf16 PV.
   * K6a `_skew_kernel` and K6b `_staticmax_skew_kernel`: K2's and K1's window
-    math with the QK^T of tile j+1 issued before the softmax and PV of tile j.
+    math with V lagging K by one step. The kernel issues the QK^T of tile j
+    with the PV of tile j-1 and runs tile j's softmax while that PV is in
+    flight, the Hopper form of the skew, so `window_skew` launches it with
+    the running max and `window_skew_staticmax` with the bound pre-pass's
+    static max (and its in-launch fallback at M >= 64).
+
+The bf16 launches take raw q and fold the prescale (`prescale`, bf16(q *
+bf16(scale * log2 e))) into their Q tile, and the int8 pre-pass into its
+quantiser, with the same rounding: no route runs a torch op before a launch.
 
 The switches are module attributes of the JAX module's names, read from the
 same environment variables at import and read again by every call, so a test
@@ -48,7 +47,7 @@ kernels never pad.
 
 Every entry takes q [B, Lq, N, D], k/v [B, Lk, N, D]. A tensor on the CPU
 goes to the plain PyTorch version beside the kernel; a CUDA tensor goes to
-the kernel or the call raises. Each source is compiled with nvcc for sm_90a
+the kernel or the call raises. The source is compiled with nvcc for sm_90a
 into a shared library with a plain C interface at first use
 (`ops/cuda_build.py`), and bound with ctypes.
 
@@ -88,13 +87,11 @@ _MODE_WINDOW = 0
 _MODE_BLOCK_CAUSAL = 1
 
 #: planted faults for the checks that must catch them (kernel argument)
-FAULT_SKIP_DRAIN = 1  # skewed loop: the last tile's softmax and PV step dropped
 FAULT_K_SCALE_SHIFT = 2  # int8: the last segment's columns take the next row's k scale
-FAULT_STALE_RING_STAGE = 3  # sm90 kernel: the last ring stage holds the previous tile
+FAULT_STALE_RING_STAGE = 3  # the last K and V ring stages hold the previous tile
 
-SOURCE = cuda_build.CSRC / "attention.cu"
 SM90_SOURCE = cuda_build.CSRC / "attention_sm90.cu"
-SOURCES = (SOURCE, SM90_SOURCE)
+SOURCES = (SM90_SOURCE,)
 
 WINDOW_ROUTES = ("window", "window_int8qk", "window_skew", "window_skew_staticmax")
 BLOCK_CAUSAL_ROUTES = ("block_causal", "block_causal_int8qk")
@@ -105,7 +102,6 @@ PREPASS_LAUNCHES: Dict[str, int] = {"logit_bound": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0}
 
 _lib = None
-_lib_sm90 = None
 _lib_lock = threading.Lock()
 
 
@@ -147,39 +143,29 @@ def block_causal_route() -> str:
 
 
 def build() -> Dict[Path, Path]:
-    """Compile both sources whose content-keyed libraries are missing, in
-    parallel; return {source: library path}."""
+    """Compile the source if its content-keyed library is missing; return
+    {source: library path}."""
     return cuda_build.build_all(SOURCES)
 
 
 def _load():
-    """The mma.sync library (int8 QK^T and skew routes)."""
+    """The wgmma library: the attention kernel (bf16 and int8 QK^T) and its
+    two pre-passes."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()[SOURCE]))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rtv_attention.argtypes = [p] * 6 + [i] * 5 + [p] + [i] * 10 + [p]
-            lib.rtv_attention.restype = i
-            lib.rtv_int8_qk_quantize.argtypes = [p] * 7 + [i] * 6 + [p]
-            lib.rtv_int8_qk_quantize.restype = i
-            _lib = lib
-    return _lib
-
-
-def _load_sm90():
-    """The wgmma library (bf16 window and block-causal routes, logit bound)."""
-    global _lib_sm90
-    with _lib_lock:
-        if _lib_sm90 is None:
             lib = ctypes.CDLL(str(build()[SM90_SOURCE]))
             p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
             lib.rtv_attention_sm90.argtypes = [p] * 4 + [i] * 5 + [f, p] + [i] * 7 + [p]
             lib.rtv_attention_sm90.restype = i
+            lib.rtv_attention_sm90_int8.argtypes = [p] * 6 + [i] * 14 + [p]
+            lib.rtv_attention_sm90_int8.restype = i
             lib.rtv_logit_bound.argtypes = [p] * 3 + [ll, ll, i, f, p]
             lib.rtv_logit_bound.restype = i
-            _lib_sm90 = lib
-    return _lib_sm90
+            lib.rtv_int8_qk_quantize.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
+            lib.rtv_int8_qk_quantize.restype = i
+            _lib = lib
+    return _lib
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +237,7 @@ def qscale(scale: float) -> float:
 def logit_bound(q_scaled: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """[1] f32 upper bound on q.k over all row pairs: max row norm of the
     pre-scaled q times max row norm of k, + 1e-3 (pallas_attention.py:437-442).
-    Stays on the device. (The K6b route's bound; the wgmma kernel's comes from
+    Stays on the device. (A reference: the kernel's comes from
     `logit_bound_maxima`.)"""
     qn = q_scaled.float().square().sum(-1).amax().sqrt()
     kn = k.float().square().sum(-1).amax().sqrt()
@@ -282,7 +268,10 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 [B, L, N, D] -> (rint(x / s) s8, s [B, N, L] f32) with
     s = max|row| / 127 + 1e-8, f32 division and round half to even, as the
     TPU kernel's int8_qk branch (pallas_attention.py:160-166)."""
-    s = x.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    amax = x.abs().amax(-1, keepdim=True)
+    # a tensor divisor: PyTorch divides by a Python scalar on a card as a
+    # multiply by its reciprocal, which is not the IEEE quotient
+    s = amax / torch.full_like(amax, 127.0) + 1e-8
     return torch.round(x / s).to(torch.int8), s[..., 0].transpose(1, 2).contiguous()
 
 
@@ -300,6 +289,13 @@ def int8_qk_quantize_plain(q_scaled, k, seg: int):
     q8, sq = _quantize_rows(q_scaled.float())
     k8, sk = _quantize_rows(kc)
     return q8, sq, k8, sk
+
+
+def int8_qk_prepass_plain(q, k, seg: int, scale: float):
+    """The int8 pre-pass on raw q: `int8_qk_quantize_plain(prescale(q, scale),
+    k, seg)`, the quanta and scales the kernel's pre-pass forms (it prescales
+    each q row to bf16(q * qscale(scale)) before its row max)."""
+    return int8_qk_quantize_plain(prescale(q, scale), k, seg)
 
 
 def int8_qk_attention_plain(q8, sq, k8, sk, v, valid, out_dtype,
@@ -329,7 +325,7 @@ def window_attention_int8qk_plain(q, k, v, lo: int, hi: int, scale: Optional[flo
     if q.is_cuda:
         PLAIN_ON_CUDA["window"] += 1
     seg = seg or segment_rows(k.shape[1])
-    quanta = int8_qk_quantize_plain(prescale(q, scale), k, seg)
+    quanta = int8_qk_prepass_plain(q, k, seg, scale)
     return int8_qk_attention_plain(*quanta, v, _window_mask(k.shape[1], lo, hi, q.device),
                                    q.dtype)
 
@@ -344,7 +340,7 @@ def block_causal_attention_int8qk_plain(q, k, v, block_tokens: int,
     if q.is_cuda:
         PLAIN_ON_CUDA["block_causal"] += 1
     seg = seg or segment_rows(k.shape[1])
-    quanta = int8_qk_quantize_plain(prescale(q, scale), k, seg)
+    quanta = int8_qk_prepass_plain(q, k, seg, scale)
     valid = block_causal_mask(q.shape[1], k.shape[1], block_tokens, k.shape[1],
                               local_window, q.device)
     return int8_qk_attention_plain(*quanta, v, valid, q.dtype)
@@ -375,33 +371,11 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on different devices")
 
 
-def _launch(q, k, v, m_bound, mode, lo, hi, block_tokens, kv_len, local_window, *,
-            q_scale=None, k_scale=None, skew: bool = False, seg: int = 0,
-            fault: int = 0) -> torch.Tensor:
-    """One launch of the mma.sync kernel on a pre-scaled q: the skewed loop
-    (`skew`), or with q_scale/k_scale the int8 mode on the int8 pre-pass's
-    quanta (`_quantize_launch`)."""
-    lib = _load()
-    b, lq, n, d = q.shape
-    out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    int8 = q_scale is not None
-    err = lib.rtv_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_scale.data_ptr() if int8 else None, k_scale.data_ptr() if int8 else None,
-        b, lq, k.shape[1], n, d, None if m_bound is None else m_bound.data_ptr(), mode,
-        lo, hi, block_tokens, kv_len, local_window, int(int8), int(skew), seg, fault,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"rtv_attention launch failed: cudaError {err}")
-    return out
-
-
 def _launch_sm90(q, k, v, scale: float, maxima, mode, lo, hi, block_tokens, kv_len,
                  local_window, fault: int = 0) -> torch.Tensor:
-    """One launch of the wgmma kernel on raw q. With `maxima` (the bound
+    """One launch of the bf16 wgmma kernel on raw q. With `maxima` (the bound
     pre-pass's [2] f32) a window call takes the static max while M < 64."""
-    lib = _load_sm90()
+    lib = _load()
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     err = lib.rtv_attention_sm90(
@@ -425,7 +399,7 @@ def logit_bound_maxima(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.
 
 def _maxima_launch(q, k, scale: float) -> torch.Tensor:
     """The bound pre-pass on checked CUDA tensors (it zeroes its output)."""
-    lib = _load_sm90()
+    lib = _load()
     maxima = torch.empty(2, dtype=torch.float32, device=q.device)
     err = lib.rtv_logit_bound(q.data_ptr(), k.data_ptr(), maxima.data_ptr(),
                               q.numel() // q.shape[-1], k.numel() // k.shape[-1], q.shape[-1],
@@ -436,32 +410,52 @@ def _maxima_launch(q, k, scale: float) -> torch.Tensor:
     return maxima
 
 
-def _quantize_launch(q_scaled, k, seg: int):
-    """The int8 pre-pass on the card: (q8, sq, k8, sk) as int8_qk_quantize_plain."""
+def _quantize_launch(q, k, seg: int, scale: float):
+    """The int8 pre-pass on the card, on raw q: (q8, sq, k8, sk) as
+    int8_qk_prepass_plain. sk is the [B, N, Lk] view of rows padded to a
+    multiple of 4 (TMA's 16-byte row pitch)."""
     lib = _load()
-    b, lq, n, d = q_scaled.shape
+    b, lq, n, d = q.shape
     lk = k.shape[1]
-    dev = q_scaled.device
+    dev = q.device
     q8 = torch.empty((b, lq, n, d), dtype=torch.int8, device=dev)
     k8 = torch.empty((b, lk, n, d), dtype=torch.int8, device=dev)
     sq = torch.empty((b, n, lq), dtype=torch.float32, device=dev)
-    sk = torch.empty((b, n, lk), dtype=torch.float32, device=dev)
+    sk = torch.empty((b, n, _round_up(lk, 4)), dtype=torch.float32, device=dev)
     km = torch.empty((b, -(-lk // seg), n, d), dtype=torch.float32, device=dev)
     err = lib.rtv_int8_qk_quantize(
-        q_scaled.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
-        sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg,
+        q.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+        sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg, qscale(scale), sk.shape[-1],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_int8_qk_quantize launch failed: cudaError {err}")
-    return q8, sq, k8, sk
+    return q8, sq, k8, sk[..., :lk]
 
 
-def _launch_int8(q_scaled, k, v, mode, lo, hi, block_tokens, kv_len, local_window,
+def int8_qk_prepass(q, k, seg: int, scale: float):
+    """(q8, sq, k8, sk) of raw q and k: the pre-pass kernel for CUDA tensors
+    (`int8_qk_prepass_plain` on the CPU)."""
+    if not q.is_cuda:
+        return int8_qk_prepass_plain(q, k, seg, scale)
+    _check(q, k, k)
+    return _quantize_launch(q, k, seg, scale)
+
+
+def _launch_int8(q, k, v, scale: float, mode, lo, hi, block_tokens, kv_len, local_window,
                  seg: int, fault: int = 0) -> torch.Tensor:
-    """The int8 mode: pre-pass, then the main kernel on its quanta."""
-    q8, sq, k8, sk = _quantize_launch(q_scaled, k, seg)
-    return _launch(q8, k8, v, None, mode, lo, hi, block_tokens, kv_len, local_window,
-                   q_scale=sq, k_scale=sk, seg=seg, fault=fault)
+    """The int8 mode on raw q: the pre-pass, then the wgmma kernel on its
+    quanta."""
+    q8, sq, k8, sk = _quantize_launch(q, k, seg, scale)
+    lib = _load()
+    b, lq, n, d = q.shape
+    out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    err = lib.rtv_attention_sm90_int8(
+        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), sq.data_ptr(),
+        sk.data_ptr(), sk.stride(1), b, lq, k.shape[1], n, d, mode, lo, hi, block_tokens,
+        kv_len, local_window, seg, fault, torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rtv_attention_sm90_int8 launch failed: cudaError {err}")
+    return out
 
 
 def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
@@ -481,16 +475,12 @@ def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
             return window_attention_int8qk_plain(q, k, v, lo, hi, scale)
         return window_attention_plain(q, k, v, lo, hi, scale)
     _check(q, k, v)
-    if route == "window":
+    if int8:
+        out = _launch_int8(q, k, v, scale, _MODE_WINDOW, lo, hi, 1, lk, -1,
+                           seg=segment_rows(lk))
+    else:  # window (K1/K2), window_skew (K6a), window_skew_staticmax (K6b)
         maxima = _maxima_launch(q, k, scale) if static_max(route) else None
         out = _launch_sm90(q, k, v, scale, maxima, _MODE_WINDOW, lo, hi, 1, lk, -1)
-    elif int8:
-        out = _launch_int8(prescale(q, scale), k, v, _MODE_WINDOW, lo, hi, 1, lk, -1,
-                           seg=segment_rows(lk))
-    else:
-        qs = prescale(q, scale)
-        m_bound = logit_bound(qs, k) if static_max(route) else None
-        out = _launch(qs, k, v, m_bound, _MODE_WINDOW, lo, hi, 1, lk, -1, skew=True)
     LAUNCHES[route] += 1
     return out
 
@@ -523,7 +513,7 @@ def block_causal_attention(q, k, v, block_tokens: int,
     args = (_MODE_BLOCK_CAUSAL, 0, lk, int(block_tokens), lk,
             -1 if local_window is None else int(local_window))
     if int8:
-        out = _launch_int8(prescale(q, scale), k, v, *args, seg=segment_rows(lk))
+        out = _launch_int8(q, k, v, scale, *args, seg=segment_rows(lk))
     else:
         out = _launch_sm90(q, k, v, scale, None, *args)
     LAUNCHES[route] += 1

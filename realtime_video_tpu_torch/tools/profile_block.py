@@ -19,7 +19,12 @@ re-encode). Then:
   * block 4 runs under torch.profiler inside the range `warm_block`, which
     ends with a device sync: device time by kernel and by category, and the
     device's busy time against that range's own span. The span carries the
-    profiler's host overhead, so its idle share is an upper bound.
+    profiler's host overhead, so its idle share is an upper bound. In the
+    int8 tier the same block records the shape of every launch of the conv
+    kernel (K4/K5) and of its quantise pre-pass, and sums their bounds: the
+    larger of the bytes a launch must move over 3.35 TB/s and its s8
+    operations over 1979 TOP/s (the H100 SXM data sheet at 700 W, as
+    chip_smoke.py counts them).
 
 Writes profile_block_<model>_<tier>[_int8qk].json and the op table (.txt)
 under --out and prints the JSON summary.
@@ -40,6 +45,9 @@ BLOCKS = 5
 CATEGORIES = ("attention_kernel", "attention_bound_prepass", "attention_int8_prepass",
               "int8_linear_kernel",
               "conv3x3_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
+#: the H100 SXM data-sheet rates the bounds use (chip_smoke.py's)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 TIER_FLAGS = {"bf16": {},
               "int8": {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}}
 
@@ -47,7 +55,8 @@ TIER_FLAGS = {"bf16": {},
 def category(kernel_name: str) -> str:
     """Bucket a device kernel by its name: the port's hand-written kernels
     (the attention kernels, the logit-bound pre-pass, the int8 QK^T
-    pre-pass, the int8 linear with its quantise pre-pass, the conv), then
+    pre-pass, the int8 linear with its quantise pre-pass, the conv with
+    its quantise pre-pass), then
     library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
     if "attn_logit_bound" in n:
@@ -58,8 +67,8 @@ def category(kernel_name: str) -> str:
         return "attention_int8_prepass"
     if "int8_linear_kernel" in n:
         return "int8_linear_kernel"
-    if "conv_kernel<" in n:
-        return "conv3x3_kernel"
+    if "conv_kernel<" in n or "conv_kernel_sm90" in n or "conv_quantize_kernel" in n:
+        return "conv3x3_kernel"  # the int8 VAE convs with their quantise pre-pass
     if n.startswith("memcpy") or n.startswith("memset"):
         return "copy/memset"
     if "fprop" in n or "conv" in n or "cudnn" in n:
@@ -82,6 +91,46 @@ def union_length(intervals: Iterable[Tuple[float, float]]) -> float:
     if cur_end is not None:
         total += cur_end - cur_start
     return total
+
+
+class ConvBounds:
+    """Records, while enabled, the shapes of the int8 VAE conv's launches
+    (the conv kernel and its quantise pre-pass) and sums their bounds."""
+
+    def __init__(self, hc):
+        self.hc = hc
+        self.enabled = False
+        self.shapes: Dict[str, int] = defaultdict(int)
+        self.conv_ms = self.quantize_ms = 0.0
+        self.launches = {"conv": 0, "quantize": 0}
+        launch, quantize = hc._launch, hc._quantize_launch
+
+        def conv(x, w, stride=(1, 1), padding=((1, 1), (1, 1)), bias=None, fault=0,
+                 dequant=None):
+            if self.enabled:
+                out_bytes = 4 if x.dtype == torch.int8 and dequant is None else 2
+                moved = hc.conv3x3_bytes(x.shape, w.shape, stride, padding, in_bytes=1,
+                                         out_bytes=out_bytes, bias=bias is not None)
+                ops = hc.conv3x3_ops(x.shape, w.shape, stride, padding)
+                self.conv_ms += max(moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+                self.launches["conv"] += 1
+                self.shapes[f"x{list(x.shape)} w{list(w.shape)} s{list(stride)}"] += 1
+            return launch(x, w, stride, padding, bias, fault, dequant)
+
+        def quant(x, a_scale):
+            if self.enabled:
+                # bf16 in, s8 out with its channels padded
+                moved = x.numel() * 2 + x.numel() // x.shape[-1] * hc.channel_pad(
+                    x.shape[-1], torch.int8)
+                self.quantize_ms += moved / HBM_BYTES_PER_S * 1e3
+                self.launches["quantize"] += 1
+            return quantize(x, a_scale)
+
+        hc._launch, hc._quantize_launch = conv, quant
+
+    def summary(self) -> dict:
+        return {"launches": self.launches, "conv_bound_ms": self.conv_ms,
+                "quantize_bound_ms": self.quantize_ms, "shapes": dict(self.shapes)}
 
 
 class PhaseTimer:
@@ -131,7 +180,7 @@ def main() -> None:
 
     from realtime_video_tpu_torch.config import load_server_config
     from realtime_video_tpu_torch.models import wan_dit
-    from realtime_video_tpu_torch.ops import hopper_attention
+    from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv
     from realtime_video_tpu_torch.serving.models import load_all
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
@@ -148,6 +197,7 @@ def main() -> None:
     load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     timer = PhaseTimer()
+    conv_bounds = ConvBounds(hopper_conv)
     vae, gen = models.vae_decoder, models.transformer
     vae.encode_stream = timer.wrap("vae_reencode", vae.encode_stream)
     vae.decode_block = timer.wrap("vae_decode", vae.decode_block)
@@ -173,10 +223,12 @@ def main() -> None:
     timer.enabled = False
     phases = timer.totals_ms()
 
+    conv_bounds.enabled = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("warm_block"):
             session.generate_block(models)
             torch.cuda.synchronize()
+    conv_bounds.enabled = False
 
     events = prof.events()
     block = next(e for e in events if e.name == "warm_block")
@@ -207,7 +259,8 @@ def main() -> None:
         "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
         "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
         "idle_share_of_profiled_span": 1.0 - busy_ms / span_ms,
-        "device_ms_by_category": by_cat, "top_kernels": top[:25],
+        "device_ms_by_category": by_cat, "int8_vae_conv_bounds": conv_bounds.summary(),
+        "top_kernels": top[:25],
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -11,7 +11,9 @@ are: `w_q` stays int8, and the `scale` and `a_scale` beside it stay float32
 whatever `dtype` asks, since they are dequantisation factors, not weights.
 A DiT linear's `w_q` [.., in, out] is stored [.., out, in] and handed out as
 that view, the fused int8 kernel's K-major layout (`hopper_int8_mm.k_major`),
-as `quantize_wan_linears` builds it.
+as `quantize_wan_linears` builds it; a VAE conv's `w_q` [kt, 3, 3, ci, co] is
+stored [co, kt, 3, 3, cp] (`hopper_conv.k_major`), as `quantize_vae_params`
+builds it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from realtime_video_tpu_torch.ops import hopper_conv
 from realtime_video_tpu_torch.ops.hopper_int8_mm import k_major
 
 #: leaves of an int8 node that keep float32
@@ -72,5 +75,15 @@ def wan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = N
 
 def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """A JAX `init_vae_params` or `quantize_vae_params` tree (numpy leaves) as
-    the port's VAE params."""
-    return tree_from_numpy(tree, device, dtype)
+    the port's VAE params. Int8 conv `w_q` leaves come K-major
+    (`hopper_conv.k_major`)."""
+    if isinstance(tree, dict):
+        out = {k: vae_params_from_jax(v, device, dtype) for k, v in tree.items()
+               if not ("w_q" in tree and k in _INT8_SCALES + ("w_q",))}
+        if "w_q" in tree:
+            out.update({k: _leaf(tree[k], device, None) for k in _INT8_SCALES if k in tree})
+            out["w_q"] = hopper_conv.k_major(torch.from_numpy(np.array(tree["w_q"]))).to(device)
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(vae_params_from_jax(v, device, dtype) for v in tree)
+    return _leaf(tree, device, dtype)

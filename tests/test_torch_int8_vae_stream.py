@@ -25,14 +25,16 @@ CFG = VAE_CONFIGS["vae-tiny"]
 
 @pytest.fixture(autouse=True)
 def kernel_contract(monkeypatch):
-    """Every conv the int8 VAE makes hands the kernel's wrapper contiguous
-    s8 operands, as the card's kernel requires (the CPU's plain version
-    would take any layout)."""
+    """Every conv the int8 VAE makes hands the kernel's wrapper s8 operands
+    in the layouts the card's kernel requires (pixels 16 bytes apart, the
+    K-major weight view), which the CPU's plain version would not need."""
     conv = hc.conv3x3
     calls = []
 
     def checked(x, w, *args, **kwargs):
-        assert x.dtype == w.dtype == torch.int8 and x.is_contiguous() and w.is_contiguous()
+        assert x.dtype == w.dtype == torch.int8
+        hc.check_input_layout(x)
+        hc.check_weight_layout(w)
         calls.append(1)
         return conv(x, w, *args, **kwargs)
 

@@ -9,8 +9,10 @@ only on a card: tests/test_torch_kernels_cuda.py, test_torch_int8_kernels_cuda.p
     (1, K), K * N bytes a layer) with the JAX quanta, the plain version gives
     the same output on either layout, and the wrapper's layout check refuses
     an N-contiguous w_q;
-  * the build keys a library on the headers its source includes;
-  * the block profiler's buckets for the new kernels' names.
+  * the build keys a library on the headers its source includes, and the
+    port's sources are the three wgmma libraries (the mma.sync ones are gone);
+  * the block profiler's buckets for the new kernels' names (the conv with
+    its quantise pre-pass in one bucket, the VAE convs).
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from realtime_video_tpu.ops import pallas_attention as pat
 from realtime_video_tpu_torch.models import wan_dit as tdit
 from realtime_video_tpu_torch.ops import cuda_build
 from realtime_video_tpu_torch.ops import hopper_attention as hk
+from realtime_video_tpu_torch.ops import hopper_conv as hc
 from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
 from realtime_video_tpu_torch.tools import profile_block as pb
 from realtime_video_tpu_torch.utils.convert import wan_params_from_jax
@@ -144,9 +147,13 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_port_sources_hash_the_shared_header():
-    for src in (hk.SM90_SOURCE, hm.SOURCE):
+    for src in (hk.SM90_SOURCE, hm.SOURCE, hc.SOURCE):
         assert cuda_build.CSRC / "sm90.cuh" in cuda_build.local_headers(src)
-    assert cuda_build.local_headers(hk.SOURCE) == []
+    for src in (hm.SOURCE, hc.SOURCE):  # the int8 pre-passes share one quantiser
+        assert cuda_build.CSRC / "quantize.cuh" in cuda_build.local_headers(src)
+    assert cuda_build.local_headers(cuda_build.CSRC / "quantize.cuh") == []
+    assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == [
+        "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
 
 
 @pytest.mark.parametrize("name, want", [
@@ -159,6 +166,14 @@ def test_port_sources_hash_the_shared_header():
      "float const*)", "int8_linear_kernel"),
     ("(anonymous namespace)::int8_linear_kernel_quantize_x(__nv_bfloat16 const*, "
      "signed char*, float const*, long long)", "int8_linear_kernel"),
+    ("void (anonymous namespace)::attention_kernel_sm90<true>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int)", "attention_kernel"),
+    ("(anonymous namespace)::attn_int8_quantize_rows(__nv_bfloat16 const*, float const*, "
+     "signed char*, float*, int, int, int, int, int, float, int)", "attention_int8_prepass"),
+    ("void (anonymous namespace)::conv_kernel_sm90<true, 96>(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Geo, float const*)", "conv3x3_kernel"),
+    ("(anonymous namespace)::conv_quantize_kernel(__nv_bfloat16 const*, signed char*, "
+     "float const*, long long, int, int)", "conv3x3_kernel"),
 ])
 def test_profile_buckets_the_new_kernels(name, want):
     assert pb.category(name) == want
