@@ -54,14 +54,31 @@ Phases, each reported on its own lines:
          agreement bound against cuDNN; planted faults: a halo row, the last
          32 bytes of channels, a ring stage out of step, tap dx = 2 reading
          tap dx = 1's rows of the shared A stage;
+       - the convolutions the int8 VAE encoder launches for a webcam block at
+         480x832 (9 frames fresh, then 12 streamed through its cache), each
+         distinct form (kt, C, Co, stride, padding, T, H, W) recorded from
+         the launches and held like the forms above (int32 sums equal, fused
+         dequantise bit-equal) where phase 2 does not hold it already; the
+         encode's CUDA-event time per block;
+       - the int8 quantisers on the card against the CPU: one t2v-1.3B DiT
+         layer and the whole Wan 2.1 VAE at full width, quantised from the same
+         f32 weights on both, whose `scale`, `w_q` and `a_scale` must be equal
+         bit for bit (and how many weight scales a Python-scalar divisor would
+         have changed on the card);
+       - umT5-xxl at full width (dim 4096, vocab 256384): a 2-layer slice on
+         the card in bf16 against the CPU's f32 forward of the same weights
+         (cosine > 0.999 over the prompt's tokens);
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
      Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
      every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
-     must return 30 finite JPEG frames and "completed"; the launch counters,
-     set to 0 just before a set of sessions and read just after, must show
-     every kernel of that path, and no plain version may see a CUDA tensor:
+     must return its finite JPEG frames (30 for 3 blocks; 18 when a start
+     frame, resume latents or a clip take one block of the budget) and
+     "completed"; the launch counters, set to 0 just before a set of sessions
+     and read just after, must show every kernel of that path, and no plain
+     version may see a CUDA tensor. The text encoder is the static embedding
+     (USE_STATIC_ENCODER_COND_DICT) unless a set says umT5:
        - t2v-1.3B in bf16, two sessions; then, on the same models, one
          session with RTV_ATTN_SKEW2's switch (K6b) and one with
          RTV_ATTN_SKEW's (K6a), whose block-0 x0 must match the default
@@ -71,6 +88,23 @@ Phases, each reported on its own lines:
          sessions; block 0's x0 must correlate with the bf16 tier's (> 0.99)
          on the same seed and request, with a random head so that the DiT's
          output is not zero;
+       - the same tier served by `load_all`'s default text encoder, umT5-xxl
+         (random weights from the seed, the fallback tokenizer): its forward
+         at L=512 timed with CUDA events beside its bound, the load and
+         serving memory peaks, two sessions whose TTFF stands beside the
+         static embedding's, one with a mid-stream prompt change (the encoder
+         must run again); then on the same models: a webcam session whose
+         client pushes seeded 640x480 JPEG frames at 24 fps (warm fps beside
+         the push rate, the encode's CUDA-event ms per block, 6 + 12(n-1)
+         frames; then the same three blocks driven without the server, each
+         timed alone between syncs), a start-frame session (the image uploaded through
+         /upload_start_frame and named by its path), a resume-latents session
+         and, where cv2 can write a clip, an input-video session (the clip
+         uploaded through /upload_video);
+       - the checkpoint path: the random t2v-1.3B tree written as a
+         reference-layout .pt state dict (the inverse mapping below), served in
+         the int8 tier from `checkpoint_path`; its block-0 x0 must equal the
+         random-init server's bit for bit;
        - t2v-14B in the int8 tier with the int8 QK^T attention on
          (RTV_ATTN_INT8's switch), one session, with its load peak and
          serving peak beside the memory plan's total; block 0's x0 with the
@@ -81,6 +115,8 @@ kernel of the repo (nine rows, each with `earlier_ms`: the replaced
 version's time in this run where _archive/ holds it, else null); the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it, and so does a host without a CUDA device.
+Phase 1 also names the JPEG codec the server uses (the native libjpeg codec,
+built with g++ from native/frame_codec.cpp, or PIL).
 Every phase line carries t_s, the seconds since the start; a run that
 outlasts WATCHDOG_S dumps every thread's Python stack to stderr and exits 1.
 Kernel, plain and library times are CUDA-event means; serving times are
@@ -94,13 +130,17 @@ from __future__ import annotations
 
 import asyncio
 import ctypes
+import dataclasses
 import faulthandler
 import gc
+import io
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -170,6 +210,142 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
+def reference_state_dict(params, cfg) -> dict:
+    """The port's t2v DiT tree as a reference-layout state dict on the CPU
+    (causal_model.py's names, the self-attention q/k/v split as upstream
+    checkpoints store them): the inverse of utils/checkpoint.convert_wan_dit."""
+    sd = {}
+    d = cfg.dim
+
+    def put(name, t):
+        sd[name] = t.detach().cpu().contiguous()
+
+    def lin(name, p):
+        put(f"{name}.weight", p["w"].t())
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    def layer(p, i):
+        return {k: v[i] for k, v in p.items()}
+
+    pt, ph, pw = cfg.patch_size
+    pe = params["patch_embedding"]
+    put("patch_embedding.weight", pe["w"].t().reshape(d, cfg.in_dim, pt, ph, pw))
+    put("patch_embedding.bias", pe["b"])
+    for name, group, key in (("text_embedding.0", "text_embedding", "fc1"),
+                             ("text_embedding.2", "text_embedding", "fc2"),
+                             ("time_embedding.0", "time_embedding", "fc1"),
+                             ("time_embedding.2", "time_embedding", "fc2"),
+                             ("time_projection.1", "time_projection", "fc")):
+        lin(name, params[group][key])
+    bp = params["blocks"]
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        for attn in ("self_attn", "cross_attn"):
+            a = bp[attn]
+            if "qkv" in a:
+                w, bias = a["qkv"]["w"][i], a["qkv"]["b"][i]
+                for j, n in enumerate("qkv"):
+                    lin(f"{b}.{attn}.{n}", {"w": w[:, j * d:(j + 1) * d],
+                                            "b": bias[j * d:(j + 1) * d]})
+            else:
+                for n in "qkv":
+                    lin(f"{b}.{attn}.{n}", layer(a[n], i))
+            lin(f"{b}.{attn}.o", layer(a["o"], i))
+            put(f"{b}.{attn}.norm_q.weight", a["norm_q"]["scale"][i])
+            put(f"{b}.{attn}.norm_k.weight", a["norm_k"]["scale"][i])
+        lin(f"{b}.ffn.0", layer(bp["ffn"]["fc1"], i))
+        lin(f"{b}.ffn.2", layer(bp["ffn"]["fc2"], i))
+        put(f"{b}.modulation", bp["modulation"][i])
+        if "norm3" in bp:
+            put(f"{b}.norm3.weight", bp["norm3"]["scale"][i])
+            put(f"{b}.norm3.bias", bp["norm3"]["bias"][i])
+    lin("head.head", params["head"]["head"])
+    put("head.modulation", params["head"]["modulation"])
+    return sd
+
+
+def t5_work(cfg, length: int):
+    """(bytes, operations) of one umT5 forward of `length` tokens: every
+    weight and the tokens' embedding rows read once and the output written
+    once, in bf16; the projections' and the attention's multiply-adds."""
+    per_layer = 4 * cfg.dim * cfg.dim_attn + 3 * cfg.dim * cfg.dim_ffn
+    ops = cfg.num_layers * (2.0 * length * per_layer + 4.0 * length * length * cfg.dim_attn)
+    moved = 2.0 * (cfg.num_layers * (per_layer + 2 * cfg.dim) + 2 * length * cfg.dim)
+    return moved, ops
+
+
+def tensors(tree):
+    """Every tensor of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+def int8_leaves(tree, path=""):
+    """(path, tensor) of every w_q, scale and a_scale of an int8 tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if "w_q" in tree and k in ("w_q", "scale", "a_scale"):
+                yield f"{path}/{k}", v
+            elif isinstance(v, (dict, list)):
+                yield from int8_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from int8_leaves(v, f"{path}/{i}")
+
+
+def tree_to(tree, device, dtype=None):
+    """The tree's tensors on `device`, floating ones cast to `dtype` if given."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device, dtype) for v in tree]
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(device, dtype)
+    return tree.to(device)
+
+
+def weight_amaxes(tree):
+    """The per-output-channel max|w| of every quantisable weight in a float
+    tree: the stacked DiT linears [L, in, out] per layer, the VAE's 3x3 convs
+    [kt, 3, 3, ci, co] (or [3, 3, ci, co]) over all but co."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "w" and hasattr(v, "dim"):
+                if v.dim() == 3:
+                    yield v.abs().amax(dim=1)
+                elif (v.dim() == 5 and v.shape[1] == 3) or (v.dim() == 4 and v.shape[0] == 3):
+                    yield v.abs().reshape(-1, v.shape[-1]).amax(dim=0)
+            else:
+                yield from weight_amaxes(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from weight_amaxes(v)
+
+
+def bits_differing(cpu_tree, gpu_tree) -> dict:
+    """{path: elements whose bits differ} over the int8 leaves of two trees,
+    every leaf listed; a leaf missing on one side counts as -1."""
+    import torch
+
+    cpu, gpu = dict(int8_leaves(cpu_tree)), dict(int8_leaves(gpu_tree))
+    out = {}
+    for path in sorted(set(cpu) | set(gpu)):
+        if path not in cpu or path not in gpu or cpu[path].shape != gpu[path].shape:
+            out[path] = -1
+            continue
+        a, b = cpu[path].contiguous(), gpu[path].cpu().contiguous()
+        bits = torch.int8 if a.dtype == torch.int8 else torch.int32
+        out[path] = int((a.view(bits) != b.view(bits)).sum())
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -178,13 +354,24 @@ def main() -> None:
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
     import numpy as np
     import torch.nn.functional as F
-    from aiohttp import ClientSession, WSMsgType, web
+    from aiohttp import ClientSession, FormData, WSMsgType, web
     from msgpack import packb
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from realtime_video_tpu_torch.config import WAN_CONFIGS, WanModelConfig, load_server_config
+    from realtime_video_tpu_torch import native
+    from realtime_video_tpu_torch.config import (
+        T5_CONFIGS,
+        VAE_CONFIGS,
+        WAN_CONFIGS,
+        WanModelConfig,
+        load_server_config,
+    )
+    from realtime_video_tpu_torch.models import t5 as t5_mod
+    from realtime_video_tpu_torch.models import vae as vae_mod
     from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
     from realtime_video_tpu_torch.models.rope import RopeTables
+    from realtime_video_tpu_torch.models.text_encoder import WanTextEncoder
     from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
     from realtime_video_tpu_torch.ops import hopper_conv as hc
@@ -192,9 +379,11 @@ def main() -> None:
     from realtime_video_tpu_torch.ops import kv_cache as kvc
     from realtime_video_tpu_torch.parallel.plan import serving_memory_plan
     from realtime_video_tpu_torch.serving import server as server_mod
-    from realtime_video_tpu_torch.serving.models import load_all
+    from realtime_video_tpu_torch.serving import session as session_mod
+    from realtime_video_tpu_torch.serving.models import load_all, load_vae
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
+    from realtime_video_tpu_torch.utils.tokenizer import FallbackTokenizer
 
     # comparisons below are in full f32 on the plain side: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -215,9 +404,11 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     earlier = load_earlier(libs)
     sass = {libs[src].name: sass_counts(libs[src], cuda_build.nvcc()) for src in sources}
+    jpeg_codec = "native libjpeg (native/frame_codec.cpp)" if native.available() else "PIL"
+    print(f"JPEG codec: {jpeg_codec}", flush=True)
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, kernel_build_s=build_s,
+          cuda=torch.version.cuda, kernel_build_s=build_s, jpeg_codec=jpeg_codec,
           libraries=[libs[src].name for src in sources],
           archived_earlier_kernels=[src.name for src in archived], sass=sass,
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -769,6 +960,153 @@ def main() -> None:
         del x, wt, b, got, want
         torch.cuda.empty_cache()
 
+    # -- the int8 VAE encoder's convolutions at a webcam block's shapes --
+    # Every launch of the conv kernel during the encode of block 0 (9 frames,
+    # fresh: chunks 1, 4, 4) and of a warm block (12 frames streamed through
+    # the cache: 4, 4, 4) at 480x832 is recorded by its form; each form that
+    # the cases above do not hold is held the same way (int32 sums equal,
+    # fused dequantise bit-equal) on random s8 operands of its shapes.
+    int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
+    int8_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                     timestep_shift=5.0, **int8_flags)
+    vae8 = load_vae(int8_config, dev, seed=1)
+
+    def recorded_forms(fn):
+        """(fn(), {form: launches}) with each conv launch's form recorded:
+        (x shape [T, H, W, C], w shape [kt, 3, 3, C, Co], stride, padding)."""
+        forms, launch = {}, hc._launch
+
+        def record(x, w, stride=(1, 1), padding=((1, 1), (1, 1)), bias=None, fault=0,
+                   dequant=None):
+            key = (tuple(x.shape), tuple(w.shape), tuple(stride),
+                   tuple(tuple(p) for p in padding))
+            forms[key] = forms.get(key, 0) + 1
+            return launch(x, w, stride, padding, bias, fault, dequant)
+
+        hc._launch = record
+        try:
+            return fn(), forms
+        finally:
+            hc._launch = launch
+
+    cam = torch.rand((21, 3, 480, 640), generator=gen, device=dev) * 2.0 - 1.0
+
+    def encode(frames, cache, stream):
+        return session_mod.encode_video_latent(vae8, cache, frames=frames, height=480,
+                                               width=832, stream=stream)
+
+    (z0, cache0), block0_forms = recorded_forms(lambda: encode(cam[:9], None, False))
+    (z1, _), warm_forms = recorded_forms(lambda: encode(cam[9:], cache0, True))
+    torch.cuda.synchronize()
+    encode_ms = {"block0_fresh_9_frames": cuda_ms(lambda: encode(cam[:9], None, False), 3),
+                 "warm_streamed_12_frames": cuda_ms(lambda: encode(cam[9:], cache0, True), 3)}
+    encode_launches = {
+        "block0": {"kt1": sum(n for f, n in block0_forms.items() if f[1][0] == 1),
+                   "kt3": sum(n for f, n in block0_forms.items() if f[1][0] > 1)},
+        "warm": {"kt1": sum(n for f, n in warm_forms.items() if f[1][0] == 1),
+                 "kt3": sum(n for f, n in warm_forms.items() if f[1][0] > 1)}}
+    if not (z0.shape == (3, 16, 60, 104) and z1.shape == (3, 16, 60, 104)
+            and torch.isfinite(z0).all() and torch.isfinite(z1).all()):
+        fail(f"webcam encode: latents {tuple(z0.shape)} {tuple(z1.shape)}")
+    held = {(t, h, w, c, co, kt, tuple(st), tuple(tuple(p) for p in pad))
+            for _, dt, t, h, w, c, co, kt, st, pad in conv_cases if dt == torch.int8}
+    all_forms = dict(block0_forms)
+    for f, n in warm_forms.items():
+        all_forms[f] = all_forms.get(f, 0) + n
+    encoder_forms = []
+    for (xs, ws, st, pad), n in sorted(all_forms.items()):
+        t, h, w, c = xs
+        kt, co = ws[0], ws[-1]
+        already = (t, h, w, c, co, kt, st, pad) in held
+        row = dict(x=list(xs), w=list(ws), stride=list(st), padding=[list(p) for p in pad],
+                   launches_block0=block0_forms.get((xs, ws, st, pad), 0),
+                   launches_warm_block=warm_forms.get((xs, ws, st, pad), 0),
+                   held_above=already)
+        if not already:
+            x = hc.pad_channels(rint8((t, h, w, c)))
+            wt = hc.k_major(rint8((kt, 3, 3, c, co)))
+            scale = torch.rand((co,), generator=gen, device=dev) * 2e-3 + 1e-3
+            a_scale, bq = torch.tensor(2.0 / 127.0, device=dev), rnd((co,))
+            want = hc.conv3x3_plain(x, wt, st, pad)
+            got = hc.conv3x3_dequant(x, wt, a_scale, scale, bq, st, pad)
+            row["equal_int32"] = torch.equal(hc.conv3x3(x, wt, st, pad), want)
+            want_dq = hc.dequantize_plain(want, a_scale, scale, bq, torch.bfloat16)
+            row["dequant_bit_equal"] = torch.equal(got.view(torch.int16),
+                                                   want_dq.view(torch.int16))
+            row["ms"] = cuda_ms(lambda: hc.conv3x3_dequant(x, wt, a_scale, scale, bq, st, pad),
+                                10)
+            row["bound_ms"], row["bound_by"] = bound(
+                hc.conv3x3_bytes(x.shape, wt.shape, st, pad, in_bytes=1, out_bytes=2,
+                                 bias=True), hc.conv3x3_ops(x.shape, wt.shape, st, pad), "int8")
+            del x, wt, want, got, want_dq
+        encoder_forms.append(row)
+        phase("kernel", kernel="conv3x3", case="webcam_encoder_form", **row, card=card)
+        if not already and not (row["equal_int32"] and row["dequant_bit_equal"]):
+            fail(f"conv form {row}: kernel disagrees with its plain version")
+    encoder_forms_checked = {
+        "kt1": sum(not r["held_above"] and r["w"][0] == 1 for r in encoder_forms),
+        "kt3": sum(not r["held_above"] and r["w"][0] > 1 for r in encoder_forms)}
+    phase("webcam_encode", frames_in="640x480 -> 832x480", encode_ms=encode_ms,
+          launches=encode_launches, forms=len(encoder_forms),
+          forms_checked_here=sum(not r["held_above"] for r in encoder_forms), card=card)
+    del vae8, cam, z0, z1, cache0
+    torch.cuda.empty_cache()
+
+    # -- the int8 quantisers on the card against the CPU (the repaired scale
+    # division): one t2v-1.3B DiT layer and the whole Wan 2.1 VAE at full
+    # width, from the same f32 weights; static activation scales from a seed
+    rng_np = np.random.default_rng(12)
+    one_layer = dataclasses.replace(WAN_CONFIGS["t2v-1.3B"], num_layers=1)
+    dit_f32 = wan_dit.fuse_qkv_params(wan_dit.init_wan_params(
+        one_layer, torch.Generator().manual_seed(12), "cpu", torch.float32))
+    sites = wan_dit._calib_site_order(dit_f32["blocks"])
+    dit_act = {s_: torch.from_numpy(rng_np.uniform(0.1, 40.0, size=1)) for s_ in sites}
+    vae_f32 = vae_mod.init_vae_params(VAE_CONFIGS["wan2.1"], torch.Generator().manual_seed(13),
+                                      "cpu", torch.float32)
+    vae_act = {path: float(rng_np.uniform(0.1, 40.0)) for path, _ in vae_mod._walk_paths(vae_f32)}
+    repair = {}
+    for name, tree, quantise in (
+            ("dit_layer", dit_f32, lambda t: wan_dit.quantize_wan_linears(t, act_scales=dit_act)),
+            ("vae", vae_f32, lambda t: vae_mod.quantize_vae_params(t, act_scales=vae_act))):
+        tree_gpu = tree_to(tree, dev)
+        on_gpu = quantise(tree_gpu)
+        differing = bits_differing(quantise(tree), on_gpu)
+        # the fault repaired: a Python-scalar divisor, which PyTorch turns into
+        # a multiply by its reciprocal on a card, gives other weight scales
+        scalar_off = sum(int((a / 127.0 != a / torch.full_like(a, 127.0)).sum())
+                         for a in weight_amaxes(tree_gpu))
+        del tree_gpu
+        repair[name] = dict(leaves=len(differing), elements_differing=sum(differing.values()),
+                            bad_leaves=[p_ for p_, n in differing.items() if n],
+                            scale_elements_a_scalar_divisor_would_change=scalar_off)
+        del on_gpu
+    phase("int8_scales_card_vs_cpu", **repair, card=card)
+    for name, r in repair.items():
+        if r["elements_differing"] or not r["leaves"]:
+            fail(f"{name}: the int8 tree built on the card differs from the CPU's: {r}")
+    del dit_f32, vae_f32
+    torch.cuda.empty_cache()
+
+    # -- umT5-xxl at full width: a 2-layer slice on the card (bf16) against
+    # the CPU's f32 forward of the same weights, over the prompt's tokens
+    t5_two = dataclasses.replace(T5_CONFIGS["umt5-xxl"], num_layers=2)
+    p_t5 = t5_mod.init_t5_encoder_params(t5_two, torch.Generator(device=dev).manual_seed(3),
+                                         dev, torch.bfloat16)
+    ids, mask = FallbackTokenizer(seq_len=t5_two.text_len)(["a red fox running through snow"])
+    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    t5_card = t5_mod.encode_prompts(t5_two, p_t5, ids.to(dev), mask.to(dev)).float().cpu()
+    t5_cpu = t5_mod.encode_prompts(t5_two, tree_to(p_t5, "cpu", torch.float32), ids, mask)
+    tokens = int(mask.sum())
+    cos_t5 = cosine(t5_card[0, :tokens], t5_cpu[0, :tokens])
+    padding_zero = not t5_card[0, tokens:].any()
+    phase("umt5_slice_vs_cpu", layers=2, dim=t5_two.dim, vocab=t5_two.vocab_size,
+          tokens=tokens, length=t5_two.text_len, cosine=cos_t5, bar=0.999,
+          padding_zero=padding_zero, card=card)
+    if not (cos_t5 > 0.999 and padding_zero and torch.isfinite(t5_card).all()):
+        fail(f"umT5 slice on the card disagrees with the CPU: cosine {cos_t5}")
+    del p_t5, t5_card, t5_cpu
+    torch.cuda.empty_cache()
+
     # ---- phase 3: a small DiT block step on the card against the CPU ----
     small = WanModelConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2)
     cpu_gen = torch.Generator().manual_seed(1)
@@ -807,7 +1145,9 @@ def main() -> None:
     if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all()):
         fail(f"small DiT block step on the card disagrees with the CPU: {rel}")
 
-    # ---- phase 4: the server: 1.3B bf16 (+ skew sessions), 1.3B int8, 14B int8 ----
+    # ---- phase 4: the server: 1.3B bf16 (+ skew sessions), 1.3B int8 (the
+    # static embedding, then umT5 with the video-in sessions), the checkpoint
+    # path, 14B int8 ----
     request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
                "seed": 7, "num_blocks": 3, "num_denoising_steps": 4,
                "kv_cache_num_frames": 3}
@@ -822,41 +1162,85 @@ def main() -> None:
 
     server_mod._jpeg_bytes = checked_jpeg
 
-    async def drive(config, models, sids):
-        app = server_mod.create_app(config, models)
-        runner = web.AppRunner(app)
+    def load(config, umt5=False):
+        """load_all on the card, serving the static embedding, or load_all's
+        default text encoder (umT5-xxl) when `umt5`."""
+        if umt5:
+            os.environ.pop("USE_STATIC_ENCODER_COND_DICT", None)
+        try:
+            return load_all(config, dev, seed=0)
+        finally:
+            os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
+
+    os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
+
+    async def start_app(config, models):
+        runner = web.AppRunner(server_mod.create_app(config, models))
         await runner.setup()
         site = web.TCPSite(runner, "127.0.0.1", 0)
         await site.start()
-        port = site._server.sockets[0].getsockname()[1]
+        return runner, f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+
+    async def receive_all(ws, sid, stamps, sizes, on_frame=None):
+        """Frames (their arrival times and sizes) until the final text message,
+        which it returns; on_frame(count) runs after each frame."""
+        while True:
+            msg = await ws.receive(timeout=600)
+            if msg.type == WSMsgType.BINARY:
+                stamps.append(time.perf_counter())
+                sizes.append(len(msg.data))
+                if on_frame is not None:
+                    await on_frame(len(stamps))
+            elif msg.type == WSMsgType.TEXT:
+                return msg.json()
+            else:
+                fail(f"{sid}: socket closed before completion ({msg.type})")
+
+    async def drive(config, models, specs):
+        """One WebSocket session after another, each (sid, request, a mid-stream
+        message sent after its first frame or None); returns per session
+        (sid, t_send, stamps, sizes, final, the frames the server encoded)."""
+        runner, base = await start_app(config, models)
         sessions = []
         try:
             async with ClientSession() as client:
-                for sid in sids:
-                    async with client.ws_connect(f"http://127.0.0.1:{port}/session/{sid}",
-                                                 max_msg_size=0) as ws:
+                for sid, req, midstream in specs:
+                    async with client.ws_connect(f"{base}/session/{sid}", max_msg_size=0) as ws:
                         ready = await ws.receive_json(timeout=60)
                         if ready.get("status") != "ready":
                             fail(f"{sid}: no ready message: {ready}")
                         encoded.clear()
+                        stamps, sizes = [], []
+
+                        async def after_first(n, ws=ws, midstream=midstream):
+                            if n == 1 and midstream is not None:
+                                await ws.send_bytes(packb(midstream))
+
                         t_send = time.perf_counter()
-                        await ws.send_bytes(packb(request))
-                        stamps, sizes, final = [], [], None
-                        while True:
-                            msg = await ws.receive(timeout=600)
-                            if msg.type == WSMsgType.BINARY:
-                                stamps.append(time.perf_counter())
-                                sizes.append(len(msg.data))
-                            elif msg.type == WSMsgType.TEXT:
-                                final = msg.json()
-                                break
-                            else:
-                                fail(f"{sid}: socket closed before completion ({msg.type})")
-                        sessions.append((sid, t_send, stamps, sizes, final,
-                                         list(encoded)))
+                        await ws.send_bytes(packb(req))
+                        final = await receive_all(ws, sid, stamps, sizes, after_first)
+                        sessions.append((sid, t_send, stamps, sizes, final, list(encoded)))
         finally:
             await runner.cleanup()
         return sessions
+
+    async def upload(route, data, filename):
+        """POST one file to an upload endpoint; returns the saved file's path."""
+        runner, base = await start_app({}, object())
+        try:
+            async with ClientSession() as client:
+                form = FormData()
+                form.add_field("file", data, filename=filename)
+                async with client.post(f"{base}{route}", data=form) as r:
+                    body = await r.json()
+                    if r.status != 200:
+                        fail(f"{route}: {r.status} {body}")
+                    return body["path"]
+        finally:
+            await runner.cleanup()
+
+    def t2v_specs(sids, req=None):
+        return [(sid, req or request, None) for sid in sids]
 
     head_gen = torch.Generator(device=dev).manual_seed(11)
 
@@ -878,42 +1262,52 @@ def main() -> None:
         shape = models.transformer.params["head"]["head"]["w"].shape
         return torch.randn(shape, generator=head_gen, device=dev) * 0.05
 
-    def serve(config, models, sids, label, required):
+    def read_counts():
+        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+        launches.update(hk.PREPASS_LAUNCHES)
+        launches.update(hc.PREPASS_LAUNCHES)
+        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+
+    def session_stats(label, sid, t_send, stamps, sizes, final, frames, blocks, **extra):
+        """Check one session's frames (6 + 12 (blocks - 1), finite, 832x480)
+        and report its times at the client."""
+        n_frames = 6 + 12 * (blocks - 1)
+        if final != {"session_id": sid, "status": "completed"}:
+            fail(f"{sid}: final message {final}")
+        if len(stamps) != n_frames:
+            fail(f"{sid}: {len(stamps)} frames, expected {n_frames}")
+        if len(frames) != n_frames or any(shape != (3, 480, 832) or not finite
+                                          for shape, finite, _ in frames):
+            fail(f"{sid}: encoded frames {[(s_, f_) for s_, f_, _ in frames]}")
+        ends = [stamps[5 + 12 * b] for b in range(blocks)]  # a block's last frame
+        stats = dict(ttff_ms=(stamps[0] - t_send) * 1e3,
+                     block_ms=[(b - a) * 1e3 for a, b in zip([t_send] + ends, ends)],
+                     fps_warm=12 * (blocks - 1) / (ends[-1] - ends[0]) if blocks > 1 else None,
+                     fps_session=n_frames / (ends[-1] - t_send))
+        phase("session", tier=label, session=sid, frames=len(stamps),
+              jpeg_bytes_mean=float(np.mean(sizes)), **stats, **extra,
+              pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
+        return stats
+
+    def serve(config, models, specs, label, required, blocks=3):
         """Drive the sessions with every launch count set to 0 just before and
         read just after; check each session's frames, that every kernel in
         `required` launched, and that no plain version saw a CUDA tensor."""
         for m in kernel_mods:
             m.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        sessions = asyncio.run(drive(config, models, sids))
-        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
-        launches.update(hk.PREPASS_LAUNCHES)
-        launches.update(hc.PREPASS_LAUNCHES)
-        plain_on_cuda = {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+        sessions = asyncio.run(drive(config, models, specs))
+        launches, plain_on_cuda = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        for sid, t_send, stamps, sizes, final, frames in sessions:
-            if final != {"session_id": sid, "status": "completed"}:
-                fail(f"{sid}: final message {final}")
-            if len(stamps) != 30:
-                fail(f"{sid}: {len(stamps)} frames, expected 30")
-            if len(frames) != 30 or any(shape != (3, 480, 832) or not finite
-                                        for shape, finite, _ in frames):
-                fail(f"{sid}: encoded frames {[(s, f) for s, f, _ in frames]}")
-            ends = [stamps[5], stamps[17], stamps[29]]  # blocks end at frames 6, 18, 30
-            block_s = [ends[0] - t_send, ends[1] - ends[0], ends[2] - ends[1]]
-            phase("session", tier=label, session=sid, frames=len(stamps),
-                  jpeg_bytes_mean=float(np.mean(sizes)),
-                  ttff_ms=(stamps[0] - t_send) * 1e3, block_ms=[b * 1e3 for b in block_s],
-                  fps_warm=24 / (ends[2] - ends[0]), fps_session=30 / (ends[2] - t_send),
-                  pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
+        stats = [session_stats(label, *s_, blocks=blocks) for s_ in sessions]
         missing = [k for k in required if launches.get(k, 0) <= 0]
         if missing:
             fail(f"{label}: kernels of the path not launched: {missing} ({launches})")
         if any(plain_on_cuda.values()):
             fail(f"{label}: a plain version ran on a CUDA tensor: {plain_on_cuda}")
-        return launches, plain_on_cuda, peak_gb
+        server_mod.session_frames_storage.clear()  # kept for /download_video
+        return launches, plain_on_cuda, peak_gb, stats
 
-    int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
     tiers, skew_launches, head_w = {}, {}, None
     kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
                     "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
@@ -923,24 +1317,25 @@ def main() -> None:
                                     timestep_shift=5.0, **flags)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        models = load_all(config, dev, seed=0)
+        models = load(config)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         head_w = random_head(models) if head_w is None else head_w
-        launches, plain_on_cuda, peak_gb = serve(
-            config, models, (f"{tier}-0", f"{tier}-1"), tier, kernel_paths[tier])
+        launches, plain_on_cuda, peak_gb, stats = serve(
+            config, models, t2v_specs((f"{tier}-0", f"{tier}-1")), tier, kernel_paths[tier])
         phase("server", model="t2v-1.3B", tier=tier, load_and_calibrate_s=load_s,
               peak_mem_gib=peak_gb, launches=launches, plain_on_cuda=plain_on_cuda,
               card=card)
-        tiers[tier] = dict(launches=launches, x0=block0_x0(config, models, head_w))
+        tiers[tier] = dict(launches=launches, stats=stats,
+                           x0=block0_x0(config, models, head_w))
         if tier == "bf16":
             # the skewed loops on the same models: RTV_ATTN_SKEW2's switch
             # (K6b), then RTV_ATTN_SKEW's (K6a)
             for switch, key in (("SKEW2", "window_skew_staticmax"), ("SKEW", "window_skew")):
                 setattr(hk, switch, True)
                 try:
-                    got, _, _ = serve(config, models, (f"bf16-{switch.lower()}",),
-                                      f"bf16 {switch}", (key, "block_causal"))
+                    got, _, _, _ = serve(config, models, t2v_specs((f"bf16-{switch.lower()}",)),
+                                         f"bf16 {switch}", (key, "block_causal"))
                     x0 = block0_x0(config, models, head_w)
                 finally:
                     setattr(hk, switch, False)
@@ -961,6 +1356,215 @@ def main() -> None:
     if not (corr > 0.99 and finite):
         fail(f"int8 tier's block-0 x0 does not track the bf16 tier's: corr {corr}")
 
+    # -- the int8 tier served with load_all's default text encoder: umT5-xxl --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = load(int8_config, umt5=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak_umt5 = torch.cuda.max_memory_allocated() / 2**30
+    te = models.text_encoder
+    if not (isinstance(te, WanTextEncoder) and te.cfg == T5_CONFIGS["umt5-xxl"]):
+        fail(f"load_all's default text encoder is not umT5-xxl: {type(te).__name__}")
+    ids, mask = te.tokenizer([request["prompt"]])
+    ids, mask = torch.from_numpy(ids).long().to(dev), torch.from_numpy(mask).to(dev)
+    umt5_ms = cuda_ms(lambda: t5_mod.encode_prompts(te.cfg, te.params, ids, mask), 10)
+    t5_bytes, t5_ops = t5_work(te.cfg, te.cfg.text_len)
+    umt5_bound_ms, umt5_bound_by = bound(t5_bytes, t5_ops, "bf16")
+    t5_gib = sum(t.numel() * t.element_size() for t in tensors(te.params)) / 2**30
+    phase("umt5_forward", layers=te.cfg.num_layers, dim=te.cfg.dim, vocab=te.cfg.vocab_size,
+          length=te.cfg.text_len, tokens=int(mask.sum()), ms=umt5_ms, bound_ms=umt5_bound_ms,
+          bound_by=umt5_bound_by, weight_bytes_ms=t5_bytes / HBM_BYTES_PER_S * 1e3,
+          tflops=t5_ops / umt5_ms / 1e9, params_gib=t5_gib,
+          load_and_calibrate_s=load_s, load_peak_mem_gib=load_peak_umt5,
+          library="torch.matmul / torch.softmax (cuBLAS), as the JAX package leaves it to XLA",
+          card=card)
+    encoder_calls = []
+
+    class CountingEncoder:
+        def __call__(self, text_prompts):
+            encoder_calls.append(list(text_prompts))
+            return te(text_prompts=text_prompts)
+
+    models.text_encoder = CountingEncoder()
+    change = {"prompt": "a white owl flying over a pine forest", "interp_steps": 2}
+    launches_u, plain_u, peak_u, stats_u = serve(
+        int8_config, models, [("int8-umt5-0", request, None), ("int8-umt5-1", request, change)],
+        "int8 + umT5", kernel_paths["int8"])
+    phase("server", model="t2v-1.3B", tier="int8 + umT5-xxl", peak_mem_gib=peak_u,
+          launches=launches_u, plain_on_cuda=plain_u, encoder_calls=encoder_calls,
+          ttff_ms_umt5=[s_["ttff_ms"] for s_ in stats_u],
+          ttff_ms_static_embedding=[s_["ttff_ms"] for s_ in tiers["int8"]["stats"]],
+          fps_warm_umt5=[s_["fps_warm"] for s_ in stats_u],
+          fps_warm_static_embedding=[s_["fps_warm"] for s_ in tiers["int8"]["stats"]],
+          card=card)
+    if encoder_calls != [[request["prompt"]]] * 2 + [[change["prompt"]]]:
+        fail(f"umT5 did not encode each session's prompt and the change: {encoder_calls}")
+
+    # webcam: the client pushes seeded 640x480 JPEGs at 24 fps from the request on
+    from PIL import Image
+
+    pics = np.random.default_rng(24).random((480, 640, 3))
+    jpegs = []
+    for i in range(48):
+        buf = io.BytesIO()
+        Image.fromarray((np.roll(pics, 8 * i, axis=1) * 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        jpegs.append(buf.getvalue())
+    cam_req = dict(request, webcam_mode=True, strength=0.7)
+
+    async def drive_webcam(sid, fps=24.0):
+        runner, base = await start_app(int8_config, models)
+        try:
+            async with ClientSession() as client:
+                async with client.ws_connect(f"{base}/session/{sid}", max_msg_size=0) as ws:
+                    if (await ws.receive_json(timeout=60)).get("status") != "ready":
+                        fail(f"{sid}: no ready message")
+                    encoded.clear()
+                    stamps, sizes, pushed = [], [], [0]
+                    t_send = time.perf_counter()
+                    await ws.send_bytes(packb(cam_req))
+
+                    async def pusher():
+                        while True:
+                            await ws.send_bytes(packb({
+                                "image": jpegs[pushed[0] % len(jpegs)],
+                                "strength": cam_req["strength"],
+                                "timestamp": time.time() * 1e3}))
+                            pushed[0] += 1
+                            await asyncio.sleep(max(0.0, t_send + pushed[0] / fps
+                                                    - time.perf_counter()))
+
+                    task = asyncio.create_task(pusher())
+                    try:
+                        final = await receive_all(ws, sid, stamps, sizes)
+                    finally:
+                        task.cancel()
+                    push_s = time.perf_counter() - t_send
+                    return (sid, t_send, stamps, sizes, final, list(encoded)), pushed[0], push_s
+        finally:
+            await runner.cleanup()
+
+    encode_events = []
+    real_encode = session_mod.encode_video_latent
+
+    def timed_encode(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_encode(*a, **k)
+        end.record()
+        encode_events.append((start, end))
+        return out
+
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    session_mod.encode_video_latent = timed_encode
+    try:
+        cam_session, pushed, push_s = asyncio.run(drive_webcam("webcam-0"))
+    finally:
+        session_mod.encode_video_latent = real_encode
+    torch.cuda.synchronize()
+    cam_launches, cam_plain = read_counts()
+    encode_block_ms = [a.elapsed_time(b) for a, b in encode_events]
+    cam_stats = session_stats("int8 + umT5, webcam", *cam_session, blocks=3,
+                              frames_pushed=pushed, push_fps=pushed / push_s,
+                              encode_ms_per_block=encode_block_ms)
+    phase("webcam_session", frames_in="640x480 JPEG at 24 fps", pushed=pushed,
+          push_fps=pushed / push_s, fps_warm=cam_stats["fps_warm"],
+          encode_ms_per_block=encode_block_ms, launches=cam_launches,
+          plain_on_cuda=cam_plain, card=card)
+    missing = [k for k in kernel_paths["int8"] if cam_launches.get(k, 0) <= 0]
+    if missing or any(cam_plain.values()) or len(encode_block_ms) != 3:
+        fail(f"webcam session: kernels not launched {missing}, plain on CUDA {cam_plain}, "
+             f"{len(encode_block_ms)} encodes")
+    server_mod.session_frames_storage.clear()
+    # the same blocks without the server: each block's frames pushed (and
+    # decoded) on this thread first, then the block timed alone between syncs
+    direct = GenerationSession(GenerateParams(**cam_req), int8_config, models=models,
+                               frame_callback=lambda *a: None)
+    direct_ms = []
+    for b in range(3):
+        for i in range(9 if b == 0 else 12):
+            direct.push_frame(jpegs[(12 * b + i) % len(jpegs)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if direct.generate_block_internal(models) is None:
+            fail("direct webcam session: a block produced nothing")
+        torch.cuda.synchronize()
+        direct_ms.append((time.perf_counter() - t0) * 1e3)
+    phase("webcam_blocks_without_server", block_ms=direct_ms,
+          server_block_ms=cam_stats["block_ms"], card=card)
+    del direct
+
+    # a start frame (uploaded, then named by its path), resume latents (.npy
+    # bytes) and an input video (uploaded): each takes one block of the budget
+    start_buf = io.BytesIO()
+    Image.fromarray((pics * 255).astype(np.uint8)).save(start_buf, format="JPEG", quality=90)
+    start_path = asyncio.run(upload("/upload_start_frame", start_buf.getvalue(), "start.jpg"))
+    npy = io.BytesIO()
+    np.save(npy, np.random.default_rng(25).normal(size=(3, 16, 60, 104)).astype(np.float32))
+    specs = [("start-frame-0", dict(request, start_frame=start_path), None),
+             ("resume-0", dict(request, resume_latents=npy.getvalue()), None)]
+    try:
+        import cv2
+
+        clip = os.path.join(tempfile.mkdtemp(), "clip.avi")
+        writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 16, (640, 480))
+        for i in range(33):  # 9 latents: 9 // 3 - 1 = 2 blocks (the reference's arithmetic)
+            writer.write((np.roll(pics, 16 * i, axis=0) * 255).astype(np.uint8))
+        writer.release()
+        with open(clip, "rb") as f:
+            video_path = asyncio.run(upload("/upload_video", f.read(), "clip.avi"))
+        shutil.rmtree(os.path.dirname(clip))
+        specs.append(("input-video-0", dict(request, input_video=video_path, strength=0.7), None))
+        v2v_note = "ran"
+    except ImportError as e:
+        v2v_note = f"not run: cv2 is not installed on this host ({e}); the webcam session ran " \
+                   "the same encode-and-mix path"
+    ingest_launches, ingest_plain, ingest_peak, ingest_stats = serve(
+        int8_config, models, specs, "int8 + umT5, video in", kernel_paths["int8"], blocks=2)
+    phase("ingest_sessions", sessions=[s_[0] for s_ in specs], input_video=v2v_note,
+          launches=ingest_launches, plain_on_cuda=ingest_plain, peak_mem_gib=ingest_peak,
+          card=card)
+    session_mod._encode_v2v_cached.cache_clear()  # its key holds these models' VAE
+    del models, te
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the checkpoint path: the random t2v-1.3B tree as a reference-layout
+    # .pt state dict (with the wrapper's "model." prefix), served in the int8
+    # tier from checkpoint_path; the same weights through the same kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        base_dit = WanDiffusion(cfg=WAN_CONFIGS["t2v-1.3B"], device=dev, dtype=torch.bfloat16,
+                                seed=0)
+        ckpt = os.path.join(tmp, "t2v-1.3B.pt")
+        torch.save({f"model.{k}": v for k, v in
+                    reference_state_dict(base_dit.params, base_dit.cfg).items()}, ckpt)
+        ckpt_gib = os.path.getsize(ckpt) / 2**30
+        del base_dit
+        ckpt_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                         timestep_shift=5.0, checkpoint_path=ckpt, **int8_flags)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models = load(ckpt_config)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    launches_ck, plain_ck, peak_ck, _ = serve(ckpt_config, models, t2v_specs(("ckpt-0",)),
+                                              "int8 from checkpoint_path", kernel_paths["int8"])
+    x0_ck = block0_x0(ckpt_config, models, head_w)
+    ck_equal = torch.equal(x0_ck, tiers["int8"]["x0"])
+    phase("checkpoint_path", file_gib=ckpt_gib, load_convert_and_calibrate_s=load_s,
+          launches=launches_ck, plain_on_cuda=plain_ck, peak_mem_gib=peak_ck,
+          block0_x0_bit_equal_to_random_init=ck_equal,
+          max_abs_diff=float((x0_ck - tiers["int8"]["x0"]).abs().max()), card=card)
+    if not ck_equal:
+        fail("the server loaded from checkpoint_path does not reproduce the random-init "
+             "server's block-0 latents bit for bit")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- t2v-14B in the int8 tier with the int8 QK^T attention on --
     config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
                                 timestep_shift=5.0, **int8_flags)
@@ -970,12 +1574,12 @@ def main() -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        models = load_all(config, dev, seed=0)
+        models = load(config)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches14, plain14, peak14 = serve(
-            config, models, ("14b-int8qk-0",), "t2v-14B int8 + int8 QK^T",
+        launches14, plain14, peak14, _ = serve(
+            config, models, t2v_specs(("14b-int8qk-0",)), "t2v-14B int8 + int8 QK^T",
             ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3",
              "conv_quantize"))
         phase("server", model="t2v-14B", tier="int8 + int8 QK^T attention",
@@ -1085,7 +1689,10 @@ def main() -> None:
                "bf16_cudnn_ms": conv_results["s8_kt1_c96_480x832"]["bf16_cudnn_ms"],
                **times(conv_results, "s8_kt1_c3_480x832"),
                **times(conv_results, "s8_stride2_c96_480x832"),
-               "launches_quantize_prepass": int8_l["conv_quantize"]}),
+               "launches_quantize_prepass": int8_l["conv_quantize"],
+               "launches_webcam_encode_block0": encode_launches["block0"]["kt1"],
+               "launches_webcam_encode_warm_block": encode_launches["warm"]["kt1"],
+               "webcam_encoder_forms_held_here": encoder_forms_checked["kt1"]}),
         entry("conv3x3, kt x 3 x 3 form (K5: kt 3, the temporal taps inside)", conv_src,
               "realtime_video_tpu/ops/pallas_conv.py:53", int8_l["conv3x3_temporal"],
               conv_results["s8_kt3_c96_480x832"],
@@ -1099,7 +1706,10 @@ def main() -> None:
                **times(conv_results, "s8_head_kt3_c96_co3_480x832"),
                **times(conv_results, "s8_first_kt3_c16_co384_60x104"),
                **times(conv_results, "bf16_kt3_bias_c384_60x104",
-                       ("ms", "earlier_ms", "library_ms"))}),
+                       ("ms", "earlier_ms", "library_ms")),
+               "launches_webcam_encode_block0": encode_launches["block0"]["kt3"],
+               "launches_webcam_encode_warm_block": encode_launches["warm"]["kt3"],
+               "webcam_encoder_forms_held_here": encoder_forms_checked["kt3"]}),
         entry("skew_attention (K6a: the sm90 kernel's running max, QK^T(j) with PV(j-1))",
               sm90_src, "realtime_video_tpu/ops/pallas_attention.py:445",
               skew_launches["window_skew"], mode_results["skew_self"],

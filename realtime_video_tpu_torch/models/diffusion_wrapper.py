@@ -3,6 +3,7 @@ one forward returning (flow_pred, pred_x0, kv) and the per-block denoise loop.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -30,13 +31,19 @@ def generator_noise(generator: torch.Generator) -> NoiseFn:
 
 class WanDiffusion:
     """Holds (cfg, params, schedule, rope) on one device. Without `params` it
-    random-initialises them from `seed` on `device` (default: the CUDA card;
-    pass device="cpu" for the CPU); with them, it runs where they lie."""
+    loads `checkpoint_path` (a reference state dict; the config is detected
+    from it) when that file exists, else random-initialises them from `seed`,
+    on `device` (default: the CUDA card; pass device="cpu" for the CPU); with
+    them, it runs where they lie."""
 
     def __init__(self, cfg: Optional[WanModelConfig] = None, params=None,
                  model_name: str = "t2v-1.3B", timestep_shift: float = 5.0,
                  device=None, dtype=torch.bfloat16, seed: int = 0,
-                 fuse_qkv: bool = True):
+                 fuse_qkv: bool = True, checkpoint_path: Optional[str] = None):
+        if params is None and checkpoint_path and os.path.exists(checkpoint_path):
+            from realtime_video_tpu_torch.utils.checkpoint import load_wan_dit
+
+            cfg, params = load_wan_dit(checkpoint_path, dtype, resolve_device(device))
         if cfg is None:
             cfg = WAN_CONFIGS[model_name]
         if params is None:

@@ -581,11 +581,15 @@ def quantize_vae_params(params: Params, act_scales: Optional[Dict[str, float]] =
         else:
             return p
         co = wq5.shape[-1]
-        scale = torch.clamp(wq5.abs().reshape(-1, co).amax(dim=0), min=1e-8) / 127.0
+        amax = torch.clamp(wq5.abs().reshape(-1, co).amax(dim=0), min=1e-8)
+        # a tensor divisor: on a card PyTorch divides by a Python scalar as a
+        # multiply by its reciprocal, not the IEEE quotient numpy gives
+        scale = amax / torch.full_like(amax, 127.0)
         wq = torch.clamp(torch.round(wq5 / scale), -127, 127).to(torch.int8)
         out = {"w_q": hopper_conv.k_major(wq), "scale": scale, "b": p["b"]}
         if act_scales and path in act_scales:
-            out["a_scale"] = torch.tensor(max(act_scales[path], 1e-6) * margin / 127.0,
+            # Python floats (float64) on the host, as the JAX package's scale
+            out["a_scale"] = torch.tensor(max(float(act_scales[path]), 1e-6) * margin / 127.0,
                                           dtype=torch.float32, device=w.device)
             attached[0] += 1
         return out

@@ -5,31 +5,47 @@ Public layout as in the JAX package: [B, T, C, H, W], pixels in [-1, 1].
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
-from realtime_video_tpu_torch.config import VAE_CONFIGS, VAEConfig
+from realtime_video_tpu_torch.config import MODEL_FOLDER, VAE_CONFIGS, VAEConfig
 from realtime_video_tpu_torch.models import vae as vae_mod
 from realtime_video_tpu_torch.utils.device import resolve_device
 
 
 class VAEWrapper:
-    """Holds (cfg, params). Without `params` it random-initialises them from
-    `seed` on `device` (default: the CUDA card; pass device="cpu" for the
+    """Holds (cfg, params). Without `params` it loads `checkpoint_path` (the
+    reference's Wan2.1_VAE.pth) when given, else random-initialises them from
+    `seed`, on `device` (default: the CUDA card; pass device="cpu" for the
     CPU); with them, it runs where they lie, bf16 or int8 tier alike."""
 
     def __init__(self, cfg: Optional[VAEConfig] = None, params=None, device=None,
-                 dtype=torch.bfloat16, seed: int = 0):
+                 dtype=torch.bfloat16, seed: int = 0, checkpoint_path: Optional[str] = None):
         if cfg is None:
             cfg = VAE_CONFIGS["wan2.1"]
         if params is None:
             device = resolve_device(device)
-            gen = torch.Generator(device=device).manual_seed(seed)
-            params = vae_mod.init_vae_params(cfg, gen, device, dtype)
+            if checkpoint_path:
+                from realtime_video_tpu_torch.utils.checkpoint import load_vae
+
+                cfg, params = load_vae(checkpoint_path, cfg, dtype, device)
+            else:
+                gen = torch.Generator(device=device).manual_seed(seed)
+                params = vae_mod.init_vae_params(cfg, gen, device, dtype)
         self.cfg = cfg
         self.params = params
         self.dtype = params["conv2"]["w"].dtype
+        self.device = params["conv2"]["w"].device
+
+    @classmethod
+    def from_model_folder(cls, dtype=torch.bfloat16, device=None, seed: int = 0) -> "VAEWrapper":
+        """The Wan 2.1 VAE from MODEL_FOLDER's Wan2.1_VAE.pth when it exists,
+        else random-initialised from `seed`."""
+        ckpt = os.path.join(MODEL_FOLDER, "Wan2.1-T2V-1.3B", "Wan2.1_VAE.pth")
+        return cls(checkpoint_path=ckpt if os.path.exists(ckpt) else None, dtype=dtype,
+                   device=device, seed=seed)
 
     def decode_block(self, latents: torch.Tensor,
                      cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:

@@ -118,11 +118,15 @@ def quantize_wan_linears(params: Params, act_scales: Optional[dict] = None,
         scale = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
         for i in range(w.shape[0]):
             wl = w[i].float()
-            scale[i] = torch.clamp(wl.abs().amax(dim=0), min=1e-8) / 127.0
+            amax = torch.clamp(wl.abs().amax(dim=0), min=1e-8)
+            # a tensor divisor: on a card PyTorch divides by a Python scalar as
+            # a multiply by its reciprocal, not the IEEE quotient numpy gives
+            scale[i] = amax / torch.full_like(amax, 127.0)
             wq[i] = torch.clamp(torch.round(wl / scale[i]), -127, 127)
         out = {"w_q": wq, "scale": scale}
         if a_amax is not None:
-            a = torch.as_tensor(a_amax, dtype=torch.float64)
+            # float64 on the host, as numpy computes the JAX package's scale
+            a = torch.as_tensor(a_amax, dtype=torch.float64, device="cpu")
             out["a_scale"] = (torch.clamp(a, min=1e-6) * margin / 127.0).to(
                 device=w.device, dtype=torch.float32)
         if "b" in p:

@@ -117,7 +117,9 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     """The per-call activation scale max(max|x|, 1e-6) / 127 as a one-element
     f32 tensor on x's device (no host sync)."""
     amax = torch.clamp(x.float().abs().amax(), min=1e-6)
-    return (amax / 127.0).reshape(1)
+    # a tensor divisor: on a card PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, not the IEEE quotient
+    return (amax / torch.full_like(amax, 127.0)).reshape(1)
 
 
 def int_matmul(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:

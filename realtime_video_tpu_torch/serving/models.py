@@ -1,9 +1,12 @@
-"""Model loading for the port's server (port of realtime_video_tpu/serving/models.py).
+"""Model loading for the port's server (port of realtime_video_tpu/serving/models.py,
+after release_server.py:100-313).
 
-No checkpoint loader is ported yet, so `load_all` random-initialises the DiT
-named by `model_name` and the Wan 2.1 VAE from a seed, directly on `device`,
-and serves the fixed-embedding text encoder. A config that asks for what is
-not ported (a checkpoint, TAEHV) is refused.
+`load_all` builds every component on `device`: the DiT from the config's
+`checkpoint_path` when that file exists (a reference state dict; the model is
+detected from it), else random-initialised from a seed with a warning; the
+Wan 2.1 VAE from MODEL_FOLDER's Wan2.1_VAE.pth when it exists, else random;
+and the text encoder `load_text_encoder` picks. A config that asks for the
+TAEHV preview tier, which is not ported, is refused.
 
 The int8 tier follows the JAX loaders' steps on the device itself:
 `enable_int8_dit` (default: `enable_int8`) calibrates the DiT's block linears
@@ -17,15 +20,16 @@ card takes seconds.
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
 
-from realtime_video_tpu_torch.config import VAE_CONFIGS, WAN_CONFIGS
+from realtime_video_tpu_torch.config import T5_CONFIGS, WAN_CONFIGS
 from realtime_video_tpu_torch.models import vae as vae_mod
 from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
-from realtime_video_tpu_torch.models.text_encoder import StaticTextEncoder
+from realtime_video_tpu_torch.models.text_encoder import StaticTextEncoder, WanTextEncoder
 from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
@@ -44,15 +48,9 @@ class Models:
 
 
 def _check_config(config) -> None:
-    unsupported = {
-        "checkpoint_path": bool(config.get("checkpoint_path", "")),
-        "use_taehv": bool(config.get("use_taehv", False)),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"server config asks for what the PyTorch port does not have yet: "
-            f"{', '.join(bad)} (random-init text-to-video only)")
+    if config.get("use_taehv", False):
+        raise NotImplementedError("server config asks for the TAEHV preview tier "
+                                  "(use_taehv), which the PyTorch port does not have yet")
 
 
 def _denoise_steps(config, shift) -> tuple:
@@ -64,13 +62,26 @@ def _denoise_steps(config, shift) -> tuple:
         int(config.get("num_denoising_steps", 5) or 5)))
 
 
+def _build_base_transformer(config, ckpt: str, shift, device, seed: int) -> WanDiffusion:
+    """The bf16 DiT from `ckpt` when it exists, else random-init `model_name`
+    with a warning (serving/models.py:52-63 of the JAX package)."""
+    if ckpt and os.path.exists(ckpt):
+        return WanDiffusion(checkpoint_path=ckpt, timestep_shift=shift, device=device,
+                            dtype=torch.bfloat16)
+    name = config.get("model_name", "t2v-1.3B")
+    log.warning("checkpoint %r missing — random-init %s", ckpt, name)
+    return WanDiffusion(cfg=WAN_CONFIGS[name], timestep_shift=shift, device=device,
+                        dtype=torch.bfloat16, seed=seed)
+
+
 def load_transformer(config, device, seed: int = 0) -> WanDiffusion:
-    """Random-init DiT in bf16 on `device`; on the int8 tier, calibrated (on
-    the serving schedule, when scales are static) and quantised there."""
+    """The DiT in bf16 on `device` (`checkpoint_path`, or random init); on the
+    int8 tier, calibrated (on the serving schedule, when scales are static)
+    and quantised there."""
     shift = config.get("timestep_shift", 5.0)
-    cfg = WAN_CONFIGS[config.get("model_name", "t2v-1.3B")]
-    transformer = WanDiffusion(cfg=cfg, timestep_shift=shift, device=device,
-                               dtype=torch.bfloat16, seed=seed)
+    transformer = _build_base_transformer(config, config.get("checkpoint_path", ""), shift,
+                                          device, seed)
+    cfg = transformer.cfg
     if not config.get("enable_int8_dit", config.get("enable_int8", False)):
         return transformer
     static = bool(config.get("int8_static_scales", True))
@@ -82,12 +93,12 @@ def load_transformer(config, device, seed: int = 0) -> WanDiffusion:
 
 
 def load_vae(config, device, seed: int = 0) -> VAEWrapper:
-    """Random-init Wan 2.1 VAE in bf16 on `device`; with `enable_int8`, its 3x3
-    convs calibrated (static scales: a float decode of 2 latents (1, 2, 8, 8,
-    16) and an encode of one (1, 1, 64, 64, 3) frame, the JAX loader's
-    shapes) and quantised there, the encoder's included."""
-    vae = VAEWrapper(cfg=VAE_CONFIGS["wan2.1"], device=device, dtype=torch.bfloat16,
-                     seed=seed)
+    """The Wan 2.1 VAE in bf16 on `device` (Wan2.1_VAE.pth under MODEL_FOLDER,
+    or random init); with `enable_int8`, its 3x3 convs calibrated (static
+    scales: a float decode of 2 latents (1, 2, 8, 8, 16) and an encode of one
+    (1, 1, 64, 64, 3) frame, the JAX loader's shapes) and quantised there, the
+    encoder's included."""
+    vae = VAEWrapper.from_model_folder(dtype=torch.bfloat16, device=device, seed=seed)
     if not config.get("enable_int8", False):
         return vae
     static = bool(config.get("int8_static_scales", True))
@@ -103,19 +114,38 @@ def load_vae(config, device, seed: int = 0) -> VAEWrapper:
     return VAEWrapper(cfg=vae.cfg, params=params)
 
 
+def _env_flag(name: str, default: str, true=("true", "1", "yes")) -> bool:
+    return os.getenv(name, default).lower() in true
+
+
+def load_text_encoder(config, device, seed: int = 0, text_len: int = 512,
+                      text_dim: int = 4096):
+    """serving/models.py:129-143 of the JAX package: USE_STATIC_ENCODER_COND_DICT
+    serves one fixed [1, text_len, text_dim] embedding (drawn from `seed`);
+    RTV_T5_TINY the random t5-tiny; otherwise umT5-xxl, from the model folder's
+    checkpoint or random-initialised from `seed` on `device`."""
+    del config  # the JAX loader reads only the environment too
+    if _env_flag("USE_STATIC_ENCODER_COND_DICT", "false"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        emb = torch.randn((1, text_len, text_dim), generator=gen, dtype=torch.float32,
+                          device=device)
+        return StaticTextEncoder(emb.to(torch.bfloat16))
+    if _env_flag("RTV_T5_TINY", "0", ("1", "true")):
+        return WanTextEncoder(cfg=T5_CONFIGS["t5-tiny"], device=device, seed=seed)
+    return WanTextEncoder.from_model_folder(device=device, seed=seed)
+
+
 def load_all(config, device, seed: int = 0) -> Models:
-    """DiT (config["model_name"]) and Wan 2.1 VAE on `device`, random weights
-    from `seed`, in the tier the config asks for; the static text encoder's
-    [1, 512, text_dim] embedding is drawn from the same seed."""
+    """DiT (`checkpoint_path`, else config["model_name"] from `seed`), Wan 2.1
+    VAE (seed + 1) and text encoder (seed + 2) on `device`, in the tier the
+    config asks for."""
     _check_config(config)
     t0 = time.time()
     device = torch.device(device)
     transformer = load_transformer(config, device, seed)
+    text_encoder = load_text_encoder(config, device, seed + 2, transformer.cfg.text_len,
+                                     transformer.cfg.text_dim)
     vae = load_vae(config, device, seed + 1)
-    gen = torch.Generator(device=device).manual_seed(seed + 2)
-    emb = torch.randn((1, transformer.cfg.text_len, transformer.cfg.text_dim),
-                      generator=gen, dtype=torch.float32, device=device)
-    text_encoder = StaticTextEncoder(emb.to(torch.bfloat16))
     pipeline = CausalInferencePipeline(config, transformer)
     log.info("All models loaded in %.2fs", time.time() - t0)
     return Models(text_encoder, transformer, pipeline, vae, vae)

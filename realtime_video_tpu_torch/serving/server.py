@@ -1,19 +1,25 @@
 """Real-time WebSocket streaming server for the PyTorch port (port of
-realtime_video_tpu/serving/server.py:143-390, after release_server.py:758-1085).
+realtime_video_tpu/serving/server.py, after release_server.py:758-1085).
 
-  * GET /health, GET /metrics, GET / (demo page)
+  * GET /health, GET /metrics, GET / (demo page);
+  * POST /upload_video, POST /upload_start_frame: a multipart file, saved to a
+    temporary file whose path comes back as {"path", "filename"}, for a
+    request's `input_video` or `start_frame`;
+  * GET /download_video/{session_id}: the session's frames so far as an mp4;
   * WS /session/{id}: msgpack-encoded GenerateParams in, JPEG frames (or
     msgpack {image, request_id} with ?fmt=msgpack) out, then
     {"status": "completed"}; mid-stream dict messages: action "reset", a new
-    "prompt" (+ "interp_steps"), "seed".
+    "prompt" (+ "interp_steps"), "seed", and "image" (+ "strength",
+    "request_id", "timestamp"): a webcam frame pushed into the session.
 
 A single-worker generate pool runs the session's blocks (all GPU work), a
-thread pool turns frames into JPEGs with PIL, and an asyncio queue feeds the
-socket in order. A request that needs what the port does not have yet (v2v,
-webcam frames, start frames, resume latents) gets an error message.
+thread pool turns frames into JPEGs (the native codec when it builds, else
+PIL) and decodes pushed frames, and an asyncio queue feeds the socket in
+order.
 
 Run: `python -m realtime_video_tpu_torch.serving.server` (PORT, CONFIG,
-DEVICE env vars; the DiT named by `model_name`, random weights).
+DEVICE env vars; the text encoder by USE_STATIC_ENCODER_COND_DICT and
+RTV_T5_TINY, as `serving/models.load_text_encoder` reads them).
 """
 from __future__ import annotations
 
@@ -23,12 +29,15 @@ import logging
 import os
 import random
 import socket
+import tempfile
+import threading
+import time
 import traceback
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from io import BytesIO
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 from aiohttp import WSMsgType, web
@@ -39,18 +48,29 @@ from realtime_video_tpu_torch.config import load_server_config
 from realtime_video_tpu_torch.serving.metrics import METRICS
 from realtime_video_tpu_torch.serving.models import Models, load_all
 from realtime_video_tpu_torch.serving.params import GenerateParams
-from realtime_video_tpu_torch.serving.session import GenerationSession, UnsupportedRequest
+from realtime_video_tpu_torch.serving.session import GenerationSession
+from realtime_video_tpu_torch.serving.video_io import save_video_to_bytes
 
 log = logging.getLogger(__name__)
 
 UUID_NIL = str(uuid.UUID(int=0))
+
+#: every session's frames sent so far ([1, T, 3, H, W] in [0, 1]), for download
+session_frames_storage: Dict[str, List[np.ndarray]] = {}
+session_frame_locks: Dict[str, threading.Lock] = {}
 
 generate_pool = ThreadPoolExecutor(max_workers=1)
 encode_pool = ThreadPoolExecutor(max_workers=min(24, (os.cpu_count() or 4) * 4))
 
 
 def _jpeg_bytes(frame: np.ndarray, quality: int = 90) -> bytes:
-    """[3, H, W] float in [0, 1] -> JPEG bytes."""
+    """[3, H, W] float in [0, 1] -> JPEG bytes: the native codec when it is
+    available, else PIL."""
+    from realtime_video_tpu_torch.native import encode_jpeg_planar
+
+    data = encode_jpeg_planar(frame, quality=quality)
+    if data is not None:
+        return data
     from PIL import Image
 
     arr = (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8).transpose(1, 2, 0)
@@ -73,6 +93,50 @@ async def root(request: web.Request) -> web.Response:
         return web.Response(text="<h1>realtime-video</h1><p>Demo UI not found.</p>",
                             content_type="text/html", status=404)
     return web.Response(text=demo.read_text(encoding="utf-8"), content_type="text/html")
+
+
+async def _save_upload(request: web.Request, default_name: str) -> web.Response:
+    """Write the request's first multipart field to a temporary file and
+    answer with its path."""
+    try:
+        reader = await request.multipart()
+        field = await reader.next()
+        suffix = Path(field.filename or default_name).suffix or Path(default_name).suffix
+        with tempfile.NamedTemporaryFile(delete=False, suffix=suffix) as tmp:
+            while chunk := await field.read_chunk():
+                tmp.write(chunk)
+        return web.json_response({"path": tmp.name, "filename": field.filename})
+    except Exception as e:  # noqa: BLE001 — report a bad upload to the client
+        return web.json_response({"error": str(e)}, status=500)
+
+
+async def upload_video(request: web.Request) -> web.Response:
+    return await _save_upload(request, "video.mp4")
+
+
+async def upload_start_frame(request: web.Request) -> web.Response:
+    return await _save_upload(request, "frame.jpg")
+
+
+async def download_video(request: web.Request) -> web.Response:
+    """The session's frames as an mp4 at 16 fps; the stored frames are
+    dropped once they are downloaded."""
+    session_id = request.match_info["session_id"]
+    if session_id not in session_frames_storage:
+        return web.json_response({"error": "No video data found for this session"}, status=404)
+    frames = session_frames_storage[session_id]
+    if not frames:
+        return web.json_response({"error": "No frames available"}, status=404)
+    all_frames = np.concatenate(frames, axis=1)  # [1, T, 3, H, W]
+    mp4 = await asyncio.get_running_loop().run_in_executor(
+        encode_pool, save_video_to_bytes, all_frames, 16)
+    if mp4 is None:
+        return web.json_response({"error": "Failed to generate MP4"}, status=500)
+    del session_frames_storage[session_id]
+    session_frame_locks.pop(session_id, None)
+    return web.Response(
+        body=mp4, content_type="video/mp4",
+        headers={"Content-Disposition": f"attachment; filename=video_{session_id}.mp4"})
 
 
 async def ws_session(websocket: web.WebSocketResponse, id: str, config,
@@ -105,6 +169,19 @@ async def ws_session(websocket: web.WebSocketResponse, id: str, config,
         if params.seed is None:
             params.seed = random.randint(0, 2**24 - 1)
 
+        if isinstance(params.start_frame, str):  # a path, from /upload_start_frame
+            try:
+                from PIL import Image
+
+                params.start_frame = Image.open(params.start_frame).convert("RGB")
+            except Exception as e:  # noqa: BLE001 — serve the request without it
+                log.error("Failed to load start frame: %s", e)
+                params.start_frame = None
+
+        if id not in session_frames_storage:
+            session_frames_storage[id] = []
+            session_frame_locks[id] = threading.Lock()
+
         frame_queue: asyncio.Queue = asyncio.Queue()
         use_msgpack = (query or {}).get("fmt", "jpeg") == "msgpack"
 
@@ -131,7 +208,10 @@ async def ws_session(websocket: web.WebSocketResponse, id: str, config,
 
         def frame_callback(tensor, frame_ids, _event):
             def to_host():
-                return np.clip((tensor.float().cpu().numpy() + 1.0) * 0.5, 0.0, 1.0)
+                arr = np.clip((tensor.float().cpu().numpy() + 1.0) * 0.5, 0.0, 1.0)
+                with session_frame_locks[id]:
+                    session_frames_storage[id].append(arr)
+                return arr
 
             try:
                 cpu_future = loop.run_in_executor(encode_pool, to_host)
@@ -154,7 +234,8 @@ async def ws_session(websocket: web.WebSocketResponse, id: str, config,
 
         try:
             session = new_session()
-        except UnsupportedRequest as e:
+        except Exception as e:  # noqa: BLE001 — refused or unreadable input: tell the client
+            log.error("Session set-up failed: %s", e)
             await websocket.send_json({"error": str(e)})
             return
 
@@ -217,9 +298,13 @@ async def ws_session(websocket: web.WebSocketResponse, id: str, config,
                                                       max(1, interp_steps))
                 if (new_seed := frame.get("seed")) is not None:
                     session.params.seed = int(new_seed)
-                if frame.get("image"):
-                    await websocket.send_json({"error": "webcam / v2v frames are not "
-                                               "supported by the PyTorch port yet"})
+                if image := frame.get("image"):
+                    await loop.run_in_executor(encode_pool, session.push_frame, image,
+                                               frame.get("strength"), frame.get("request_id"))
+                    if (ts := frame.get("timestamp")) and isinstance(ts, (int, float)):
+                        if time.time() - ts / 1000.0 > 1.0:
+                            log.warning("High latency detected: %.2fs",
+                                        time.time() - ts / 1000.0)
             except Exception as e:  # noqa: BLE001 — one bad control message != dead session
                 log.error("Error handling mid-stream message: %s", e)
     finally:
@@ -269,6 +354,9 @@ def create_app(config=None, models: Optional[Models] = None, device=None) -> web
     app.router.add_get("/health", health)
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/", root)
+    app.router.add_post("/upload_video", upload_video)
+    app.router.add_post("/upload_start_frame", upload_start_frame)
+    app.router.add_get("/download_video/{session_id}", download_video)
     app.router.add_get("/session/{id}", app_session)
     return app
 

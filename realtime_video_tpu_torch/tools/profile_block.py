@@ -1,7 +1,7 @@
-"""Profile one warm block of the t2v serving path on a GPU.
+"""Profile one warm block of the serving path on a GPU.
 
     python -m realtime_video_tpu_torch.tools.profile_block [--model t2v-1.3B|t2v-14B]
-        [--tier bf16|int8] [--int8-qk] [--out profile_out]
+        [--tier bf16|int8] [--int8-qk] [--webcam] [--umt5] [--out profile_out]
 
 `load_all` builds the DiT (default t2v-1.3B; random weights from a seed) and
 the Wan 2.1 VAE on the card, in bf16 or in the int8 tier (the server flags
@@ -26,13 +26,24 @@ re-encode). Then:
     operations over 1979 TOP/s (the H100 SXM data sheet at 700 W, as
     chip_smoke.py counts them).
 
-Writes profile_block_<model>_<tier>[_int8qk].json and the op table (.txt)
-under --out and prints the JSON summary.
+With `--webcam` the session runs in webcam mode (strength 0.7): before each
+block the frames it takes (9 at block 0, then 12) are pushed as seeded
+640x480 JPEGs and decoded on the calling thread, and the stream encode of
+those frames (resize to 832x480, the VAE encoder through its cache) is its
+own phase, `webcam_encode`. The text encoder is the static embedding
+(USE_STATIC_ENCODER_COND_DICT) unless `--umt5` asks for load_all's default,
+umT5-xxl; then one forward of it at its 512 tokens is also timed with CUDA
+events and profiled the same way (`umt5`).
+
+Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5].json and the op
+table (.txt) under --out and prints the JSON summary.
 """
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -162,6 +173,48 @@ class PhaseTimer:
         return dict(out)
 
 
+def device_summary(prof, range_name: str) -> dict:
+    """The device's busy time inside the host range `range_name` against the
+    range's span, and device time by category and by kernel."""
+    events = prof.events()
+    span = next(e for e in events if e.name == range_name)
+    span_start, span_end = span.time_range.start, span.time_range.end
+    # device kernels and copies; the range's own annotation on the GPU
+    # timeline is left out
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != range_name]
+    intervals = [(max(e.time_range.start, span_start), min(e.time_range.end, span_end))
+                 for e in device]
+    busy_ms = union_length((a, b) for a, b in intervals if b > a) / 1e3
+    span_ms = (span_end - span_start) / 1e3
+    by_cat: Dict[str, float] = {c: 0.0 for c in CATEGORIES}
+    by_kernel: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_cat[category(e.name)] += ms
+        by_kernel[e.name][0] += ms
+        by_kernel[e.name][1] += 1
+    top = sorted(([ms, n, name[:140]] for name, (ms, n) in by_kernel.items()), reverse=True)
+    return {"profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
+            "idle_share_of_profiled_span": 1.0 - busy_ms / span_ms,
+            "device_ms_by_category": by_cat, "top_kernels": top[:25]}
+
+
+def webcam_jpegs(count: int = 24, seed: int = 24) -> List[bytes]:
+    """Seeded 640x480 JPEG frames, each the last shifted 8 pixels."""
+    import numpy as np
+    from PIL import Image
+
+    pic = np.random.default_rng(seed).random((480, 640, 3))
+    out = []
+    for i in range(count):
+        buf = io.BytesIO()
+        Image.fromarray((np.roll(pic, 8 * i, axis=1) * 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("t2v-1.3B", "t2v-14B"), default="t2v-1.3B",
@@ -170,17 +223,29 @@ def main() -> None:
                     help="the serving tier to profile")
     ap.add_argument("--int8-qk", action="store_true",
                     help="the int8 QK^T attention (RTV_ATTN_INT8's switch)")
+    ap.add_argument("--webcam", action="store_true",
+                    help="a webcam session: frames pushed before each block, their stream "
+                         "encode timed as its own phase")
+    ap.add_argument("--umt5", action="store_true",
+                    help="load_all's default text encoder, umT5-xxl (else the static "
+                         "embedding), and a profile of one forward of it")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
+    if args.umt5:
+        os.environ.pop("USE_STATIC_ENCODER_COND_DICT", None)
+    else:
+        os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
 
     from torch.autograd.profiler_util import FunctionEventAvg
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.models import t5 as t5_mod
     from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv
+    from realtime_video_tpu_torch.serving import session as session_mod
     from realtime_video_tpu_torch.serving.models import load_all
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
@@ -199,25 +264,56 @@ def main() -> None:
     timer = PhaseTimer()
     conv_bounds = ConvBounds(hopper_conv)
     vae, gen = models.vae_decoder, models.transformer
-    vae.encode_stream = timer.wrap("vae_reencode", vae.encode_stream)
+    # the anti-drift re-encode and the webcam encode share encode_stream: the
+    # webcam encode's calls go untimed here, as they are timed as their phase
+    in_webcam_encode = [False]
+    raw_encode = vae.encode_stream
+    reencode = timer.wrap("vae_reencode", raw_encode)
+    vae.encode_stream = lambda *a, **k: (raw_encode if in_webcam_encode[0] else reencode)(
+        *a, **k)
     vae.decode_block = timer.wrap("vae_decode", vae.decode_block)
     wan_dit.context_prefill = timer.wrap("prefill", wan_dit.context_prefill)
     make_denoise = gen.make_denoise_block_fn
     gen.make_denoise_block_fn = lambda *a, **k: timer.wrap("denoise", make_denoise(*a, **k))
+    webcam_encode = timer.wrap("webcam_encode", session_mod.encode_video_latent)
+
+    def timed_webcam_encode(*a, **k):
+        in_webcam_encode[0] = True
+        try:
+            return webcam_encode(*a, **k)
+        finally:
+            in_webcam_encode[0] = False
+
+    session_mod.encode_video_latent = timed_webcam_encode
 
     params = GenerateParams(prompt="a red fox running through snow", width=832, height=480,
                             seed=7, num_blocks=BLOCKS, num_denoising_steps=4,
-                            kv_cache_num_frames=3)
+                            kv_cache_num_frames=3, webcam_mode=args.webcam,
+                            strength=0.7 if args.webcam else 1.0)
     session = GenerationSession(params, config, models=models,
                                 frame_callback=lambda px, ids, ev: px.float().cpu())
+    jpegs, pushed = webcam_jpegs(), [0]
+
+    def run_block(prof_range=None):
+        """One block; in webcam mode the frames it takes are pushed first."""
+        if args.webcam:
+            for _ in range(9 if session.block_idx == 0 else 12):
+                session.push_frame(jpegs[pushed[0] % len(jpegs)])
+                pushed[0] += 1
+        if prof_range is None:
+            return session.generate_block(models)
+        with record_function(prof_range):
+            session.generate_block(models)
+            torch.cuda.synchronize()
+
     for _ in range(BLOCKS - 2):
-        session.generate_block(models)
+        run_block()
     torch.cuda.reset_peak_memory_stats()
 
     timer.enabled = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    session.generate_block(models)
+    run_block()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     timer.enabled = False
@@ -225,52 +321,56 @@ def main() -> None:
 
     conv_bounds.enabled = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("warm_block"):
-            session.generate_block(models)
-            torch.cuda.synchronize()
+        run_block("warm_block")
     conv_bounds.enabled = False
-
-    events = prof.events()
-    block = next(e for e in events if e.name == "warm_block")
-    span_start, span_end = block.time_range.start, block.time_range.end
-    # device kernels and copies; the range's own annotation on the GPU
-    # timeline is left out
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name != "warm_block"]
-    intervals = [(max(e.time_range.start, span_start), min(e.time_range.end, span_end))
-                 for e in device]
-    busy_ms = union_length((a, b) for a, b in intervals if b > a) / 1e3
-    span_ms = (span_end - span_start) / 1e3
-    by_cat: Dict[str, float] = {c: 0.0 for c in CATEGORIES}
-    by_kernel: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
-    for e in device:
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        by_cat[category(e.name)] += ms
-        by_kernel[e.name][0] += ms
-        by_kernel[e.name][1] += 1
-    top = sorted(([ms, n, name[:140]] for name, (ms, n) in by_kernel.items()), reverse=True)
+    block = device_summary(prof, "warm_block")
 
     summary = {
         "card": card, "model": args.model, "tier": args.tier, "int8_qk": args.int8_qk,
+        "webcam": args.webcam, "text_encoder": "umt5-xxl" if args.umt5 else "static",
         "load_peak_mem_gib": load_peak_gib,
         "warm_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "blocks": BLOCKS, "timed_block": BLOCKS - 2,
         "profiled_block": BLOCKS - 1,
         "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
-        "profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
-        "idle_share_of_profiled_span": 1.0 - busy_ms / span_ms,
-        "device_ms_by_category": by_cat, "int8_vae_conv_bounds": conv_bounds.summary(),
-        "top_kernels": top[:25],
+        **block, "int8_vae_conv_bounds": conv_bounds.summary(),
     }
+    tables = [prof]
+    if args.umt5:
+        te = models.text_encoder
+        ids, mask = te.tokenizer([params.prompt])
+        ids, mask = torch.from_numpy(ids).long().to(dev), torch.from_numpy(mask).to(dev)
+
+        def forward():
+            return t5_mod.encode_prompts(te.cfg, te.params, ids, mask)
+
+        forward()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_t5:
+            with record_function("umt5_forward"):
+                forward()
+                torch.cuda.synchronize()
+        summary["umt5"] = {"forward_ms": start.elapsed_time(end) / 10, "length": ids.shape[1],
+                           **device_summary(prof_t5, "umt5_forward")}
+        tables.append(prof_t5)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    stem = f"profile_block_{args.model}_{args.tier}" + ("_int8qk" if args.int8_qk else "")
+    stem = (f"profile_block_{args.model}_{args.tier}" + ("_int8qk" if args.int8_qk else "")
+            + ("_webcam" if args.webcam else "") + ("_umt5" if args.umt5 else ""))
     (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
                 else "self_cuda_time_total")
-    (out / f"{stem}.txt").write_text(
-        prof.key_averages().table(sort_by=sort_key, row_limit=60))
-    print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
+    (out / f"{stem}.txt").write_text("\n\n".join(
+        p.key_averages().table(sort_by=sort_key, row_limit=60) for p in tables))
+    print(json.dumps({k: (v if k != "umt5" else {kk: vv for kk, vv in v.items()
+                                                  if kk != "top_kernels"})
+                      for k, v in summary.items() if k != "top_kernels"}), flush=True)
 
 
 if __name__ == "__main__":

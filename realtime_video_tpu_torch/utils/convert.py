@@ -87,3 +87,12 @@ def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = N
     if isinstance(tree, (list, tuple)):
         return type(tree)(vae_params_from_jax(v, device, dtype) for v in tree)
     return _leaf(tree, device, dtype)
+
+
+def t5_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_t5_encoder_params` tree (numpy leaves) as the port's umT5
+    params (`models/t5.py`, the same layout). dtype applies to every floating
+    leaf but the relative position embeddings, which stay f32 as in JAX."""
+    out = tree_from_numpy(tree, device, dtype)
+    out["blocks"]["rel_emb"] = _leaf(tree["blocks"]["rel_emb"], device, torch.float32)
+    return out

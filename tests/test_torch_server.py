@@ -1,10 +1,15 @@
 """The port's WebSocket server over a real TCP socket on the CPU, tiny random
 models: ready -> msgpack GenerateParams -> 30 JPEG frames for 3 blocks ->
-completed; an unported request field gets an error; /health and /metrics."""
+completed; a request whose input cannot be read, or a server that would
+serve the unported TAEHV tier, gets an error; /health and /metrics; the
+upload and download endpoints; webcam frames pushed as mid-stream "image"
+messages; a start frame given as an uploaded file's path."""
 import asyncio
+import time
 from io import BytesIO
 
 import aiohttp
+import numpy as np
 import pytest
 import torch
 from aiohttp import web
@@ -43,10 +48,10 @@ async def serve(app):
     return runner, f"http://127.0.0.1:{port}"
 
 
-async def stream(session, base, request, timeout=120):
+async def stream(session, base, request, timeout=120, sid="t1"):
     """Run one WS session; returns (jpeg frames, final status message)."""
     frames, final = [], None
-    async with session.ws_connect(f"{base}/session/t1") as ws:
+    async with session.ws_connect(f"{base}/session/{sid}") as ws:
         ready = await ws.receive_json(timeout=timeout)
         assert ready["status"] == "ready"
         await ws.send_bytes(packb(request))
@@ -80,10 +85,11 @@ def test_ws_session_streams_30_frames_over_a_socket(stack):
                 im = Image.open(BytesIO(frames[0]))
                 assert im.size == (64, 64) and im.mode == "RGB"
 
+                # a clip that cannot be read: the session is not set up
                 frames, final = await stream(s, base, {
                     "prompt": "a cat", "width": 64, "height": 64,
-                    "input_video": "clip.mp4"})
-                assert frames == [] and "not supported" in final["error"]
+                    "input_video": "missing-clip.mp4"})
+                assert frames == [] and "Cannot open video file" in final["error"]
 
                 for _ in range(50):  # server-side teardown is asynchronous
                     async with s.get(f"{base}/metrics") as r:
@@ -92,6 +98,150 @@ def test_ws_session_streams_30_frames_over_a_socket(stack):
                         break
                     await asyncio.sleep(0.1)
                 assert snap["frames_sent_total"] >= 30 and snap["ttff_ms_last"] is not None
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(run())
+
+
+def test_taehv_server_refuses_sessions(stack):
+    """The TAEHV preview tier is the one server option the port refuses."""
+    config, models = stack
+    taehv = load_server_config(num_frame_per_block=3, model_name="t2v-tiny", use_taehv=True)
+
+    async def run():
+        runner, base = await serve(create_app(taehv, models))
+        try:
+            async with aiohttp.ClientSession() as s:
+                frames, final = await stream(s, base, {"prompt": "a cat", "width": 64,
+                                                       "height": 64})
+                assert frames == [] and "not supported" in final["error"]
+                assert "use_taehv" in final["error"]
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(run())
+
+
+def _jpeg(rng, h=48, w=80) -> bytes:
+    buf = BytesIO()
+    Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def test_upload_endpoints_and_download(stack):
+    """upload_start_frame / upload_video save the file and answer its path; a
+    non-multipart upload is a 500 with an error; after a stream its frames
+    download as an mp4 once (tests/test_server.py:129-181)."""
+    config, models = stack
+
+    async def run():
+        runner, base = await serve(create_app(config, models))
+        try:
+            async with aiohttp.ClientSession() as s:
+                buf = BytesIO()
+                Image.new("RGB", (64, 64), (10, 200, 30)).save(buf, format="PNG")
+                data = aiohttp.FormData()
+                data.add_field("file", buf.getvalue(), filename="frame.png")
+                async with s.post(f"{base}/upload_start_frame", data=data) as r:
+                    assert r.status == 200
+                    body = await r.json()
+                assert body["path"].endswith(".png") and body["filename"] == "frame.png"
+                with open(body["path"], "rb") as f:
+                    assert f.read() == buf.getvalue()
+                data = aiohttp.FormData()
+                data.add_field("file", b"\x00" * 64, filename="clip.mp4")
+                async with s.post(f"{base}/upload_video", data=data) as r:
+                    assert r.status == 200 and (await r.json())["path"].endswith(".mp4")
+                async with s.post(f"{base}/upload_video", data=b"not multipart") as r:
+                    assert r.status == 500 and "error" in await r.json()
+                async with s.get(f"{base}/download_video/never-ran") as r:
+                    assert r.status == 404
+
+                frames, final = await stream(s, base, {
+                    "prompt": "a cat", "width": 64, "height": 64, "seed": 1,
+                    "num_blocks": 1, "num_denoising_steps": 1, "kv_cache_num_frames": 3,
+                }, sid="dl1")
+                assert final["status"] == "completed" and len(frames) == 6
+                async with s.get(f"{base}/download_video/dl1") as r:
+                    status = r.status
+                    mp4 = await r.read()
+                    ctype = r.content_type
+                if status == 200:
+                    assert ctype == "video/mp4" and len(mp4) > 100
+                    async with s.get(f"{base}/download_video/dl1") as r:
+                        assert r.status == 404  # the frames went with the download
+                else:
+                    assert status == 500  # no mp4 writer on this host
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(run())
+
+
+def test_webcam_frames_pushed_midstream(stack):
+    """A webcam session fed by mid-stream "image" messages (JPEG bytes, a
+    strength, a stale timestamp that only logs a warning), as a webcam client
+    sends them: 10 frames, then 13 more once block 0's 6 frames are back
+    (each block takes every frame queued by then); 6 + 12 frames return."""
+    config, models = stack
+    rng = np.random.default_rng(1)
+    stale_ms = (time.time() - 5.0) * 1e3
+
+    async def push(ws, n):
+        for _ in range(n):
+            await ws.send_bytes(packb({"image": _jpeg(rng), "strength": 0.7,
+                                       "timestamp": stale_ms}))
+
+    async def run():
+        runner, base = await serve(create_app(config, models))
+        frames, final = [], None
+        try:
+            async with aiohttp.ClientSession() as s:
+                async with s.ws_connect(f"{base}/session/cam") as ws:
+                    assert (await ws.receive_json(timeout=60))["status"] == "ready"
+                    await ws.send_bytes(packb({
+                        "prompt": "a cat", "width": 64, "height": 64, "seed": 2,
+                        "num_blocks": 2, "num_denoising_steps": 2,
+                        "kv_cache_num_frames": 3, "webcam_mode": True, "strength": 0.7}))
+                    await push(ws, 10)
+                    while final is None:
+                        msg = await ws.receive(timeout=120)
+                        if msg.type == aiohttp.WSMsgType.BINARY:
+                            frames.append(msg.data)
+                            if len(frames) == 6:
+                                await push(ws, 13)
+                        else:
+                            final = msg.json()
+            assert final["status"] == "completed", final
+            assert len(frames) == 18
+            assert Image.open(BytesIO(frames[-1])).size == (64, 64)
+        finally:
+            await runner.cleanup()
+
+    asyncio.run(run())
+
+
+def test_start_frame_path_over_the_socket(stack):
+    """A start frame uploaded, then named by its path in the request: its
+    latents take one block of a 2-block budget, so 6 frames come back."""
+    config, models = stack
+
+    async def run():
+        runner, base = await serve(create_app(config, models))
+        try:
+            async with aiohttp.ClientSession() as s:
+                data = aiohttp.FormData()
+                data.add_field("file", _jpeg(np.random.default_rng(2), 64, 64),
+                               filename="start.jpg")
+                async with s.post(f"{base}/upload_start_frame", data=data) as r:
+                    path = (await r.json())["path"]
+                frames, final = await stream(s, base, {
+                    "prompt": "a cat", "width": 64, "height": 64, "seed": 3,
+                    "num_blocks": 2, "num_denoising_steps": 2, "kv_cache_num_frames": 3,
+                    "start_frame": path}, sid="start")
+                assert final["status"] == "completed", final
+                assert len(frames) == 6
         finally:
             await runner.cleanup()
 

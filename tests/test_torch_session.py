@@ -143,8 +143,58 @@ def test_three_block_session_matches_jax(stacks):
 
 
 def test_unported_request_fields_are_refused(stacks):
+    """The TAEHV preview tier (a server option) is the one part of a request
+    the port still refuses; every request field is served (below)."""
     config, _, tm = stacks
-    for field in (dict(input_video="x.mp4"), dict(webcam_mode=True),
-                  dict(start_frame=b"\xff"), dict(resume_latents=b"\x00")):
-        with pytest.raises(UnsupportedRequest):
-            TSession(TParams(**REQ, **field), config, models=tm)
+    taehv = load_server_config(num_frame_per_block=3, use_taehv=True)
+    with pytest.raises(UnsupportedRequest, match="use_taehv"):
+        TSession(TParams(**REQ), taehv, models=tm)
+
+
+def _png_bytes() -> bytes:
+    from io import BytesIO
+
+    from PIL import Image
+
+    buf = BytesIO()
+    Image.fromarray(np.full((64, 64, 3), 90, np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _npy_bytes(tz: int) -> bytes:
+    from io import BytesIO
+
+    buf = BytesIO()
+    np.save(buf, np.zeros((tz, 16, 8, 8), np.float32))
+    return buf.getvalue()
+
+
+def _clip(path) -> str:
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 16, (64, 64))
+    for i in range(13):
+        writer.write(np.full((64, 64, 3), 10 * i, np.uint8))
+    writer.release()
+    return str(path)
+
+
+@pytest.mark.parametrize("field", ["input_video", "webcam_mode", "start_frame",
+                                   "resume_latents"])
+def test_lifted_request_fields_are_served(stacks, field, tmp_path):
+    """Each video-in field the port used to refuse now sets its session up:
+    a clip's latents mixed into the noise (13 frames: 4 latents, so
+    4 // 3 - 1 = 0 blocks by the reference's arithmetic), the webcam queue,
+    a start frame's 3 resume latents, .npy resume latents."""
+    config, _, tm = stacks
+    value = {"input_video": lambda: _clip(tmp_path / "clip.avi"),
+             "webcam_mode": lambda: True, "start_frame": _png_bytes,
+             "resume_latents": lambda: _npy_bytes(3)}[field]()
+    ts = TSession(TParams(**{**REQ, field: value, "strength": 0.5}), config, models=tm)
+    if field == "input_video":
+        assert ts.num_blocks == 0 and ts.params.strength == 0.5
+        assert ts.generate_block_internal(tm) is None
+    elif field == "webcam_mode":
+        assert ts.params.strength == 0.5 and ts.frame_queue.empty()
+    else:
+        assert tuple(ts.resume_latents.shape) == (1, 3, 16, 8, 8)
+        assert ts.params.strength == 1.0  # text-to-video from a start: pure noise
