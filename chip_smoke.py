@@ -20,10 +20,12 @@ Phases, each reported on its own lines:
          specialisation), t2v-1.3B shapes (K1/K2): self-attention Lq 4680 /
          Lk 9360 with lo > 0, cross-attention Lk 512, a large-norm input whose
          logit bound trips the running-max path, block-causal 9360 tokens in
-         4680-token blocks; each timed as the route (the bound pre-pass, then
-         the kernel) and as the kernel alone; the bound pre-pass's M against
-         `logit_bound`'s (relative 1e-5); planted faults: the window's edges,
-         the last block's end, and ring stages filled with the previous tile;
+         4680-token blocks, and the offline sampler's global window (Lk
+         32760, live [0, 18720) and [0, 32760)); each timed as the route
+         (the bound pre-pass, then the kernel) and as the kernel alone; the
+         bound pre-pass's M against `logit_bound`'s (relative 1e-5); planted
+         faults: the window's edges, the last block's end, and ring stages
+         filled with the previous tile;
        - the same kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
          heads): self-attention Lq 4680 / Lk 9360 over [1560, 9360),
          cross-attention Lk 512, block-causal 4680 in one block, and keys that
@@ -68,6 +70,11 @@ Phases, each reported on its own lines:
        - umT5-xxl at full width (dim 4096, vocab 256384): a 2-layer slice on
          the card in bf16 against the CPU's f32 forward of the same weights
          (cosine > 0.999 over the prompt's tokens);
+       - TAEHV's decode (cuDNN convs) on the card against the CPU's f32 on
+         the same random init, 3 latents of 30x52: f32 with TF32 off within
+         relative Frobenius 1e-3, bf16 within 3e-2; then one 832x480 block (3
+         latents -> 12 frames) in bf16 with its carried state, timed beside
+         its bound;
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
@@ -105,10 +112,26 @@ Phases, each reported on its own lines:
          reference-layout .pt state dict (the inverse mapping below), served in
          the int8 tier from `checkpoint_path`; its block-0 x0 must equal the
          random-init server's bit for bit;
+       - the quantised-tree cache: `load_all` at 1.3B int8 with the TAEHV
+         tier twice, RTV_QUANT_CACHE on in a temporary directory (a miss,
+         then a hit): load seconds, entry sizes, the DiT and VAE trees equal
+         bit for bit and stride for stride, block 0's x0 equal;
+       - on the hit's models: the TAEHV preview tier (`use_taehv`), two
+         sessions of 9 + 12 + 12 frames, TAEHV's decode timed per block;
+         the offline sampler (`CausalInferencePipeline.inference` on a fresh
+         pipeline: 21 latents over the global 32760-token window, 4 warped
+         steps and the refresh forward a block, decoded to 81 frames), run
+         twice with one seed (relative Frobenius < 1e-3), an extension from
+         its first 3 latents (passed through unchanged) and an
+         `encode_to_latent` of its first 9 frames; `sample_videos` (one
+         prompt, 30 frames, an mp4 or .npy file);
        - t2v-14B in the int8 tier with the int8 QK^T attention on
          (RTV_ATTN_INT8's switch), one session, with its load peak and
-         serving peak beside the memory plan's total; block 0's x0 with the
-         int8 QK^T attention on against off, on the same model (> 0.99).
+         serving peak beside the memory plan's total, then one TAEHV session
+         on the same models; block 0's x0 with the int8 QK^T attention on
+         against off, on the same model (> 0.99).
+The quantised-tree cache is off (RTV_QUANT_CACHE=0) outside its phase, and
+its directory is a temporary one, removed at exit.
 
 Before its last line it prints the kernels' JSON summary, one row per TPU
 kernel of the repo (nine rows, each with `earlier_ms`: the replaced
@@ -129,6 +152,7 @@ QK^T counts as int8, its PV as bf16), the H100 SXM data-sheet figures at
 from __future__ import annotations
 
 import asyncio
+import atexit
 import ctypes
 import dataclasses
 import faulthandler
@@ -306,6 +330,8 @@ def tree_to(tree, device, dtype=None):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device, dtype) for v in tree]
+    if tree is None:
+        return None
     if dtype is not None and tree.is_floating_point():
         return tree.to(device, dtype)
     return tree.to(device)
@@ -352,6 +378,12 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs an NVIDIA GPU")
+    # the quantised-tree cache stays off but in the quant_cache phase; any
+    # entry it writes goes to a temporary directory, removed at exit
+    qcache_dir = tempfile.mkdtemp(prefix="rtv_qcache_")
+    atexit.register(shutil.rmtree, qcache_dir, ignore_errors=True)
+    os.environ["RTV_QUANT_CACHE_DIR"] = qcache_dir
+    os.environ["RTV_QUANT_CACHE"] = "0"
     import numpy as np
     import torch.nn.functional as F
     from aiohttp import ClientSession, FormData, WSMsgType, web
@@ -366,7 +398,9 @@ def main() -> None:
         WanModelConfig,
         load_server_config,
     )
+    from realtime_video_tpu_torch import sample as sample_mod
     from realtime_video_tpu_torch.models import t5 as t5_mod
+    from realtime_video_tpu_torch.models import taehv as taehv_mod
     from realtime_video_tpu_torch.models import vae as vae_mod
     from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
@@ -378,9 +412,10 @@ def main() -> None:
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
     from realtime_video_tpu_torch.ops import kv_cache as kvc
     from realtime_video_tpu_torch.parallel.plan import serving_memory_plan
+    from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
     from realtime_video_tpu_torch.serving import server as server_mod
     from realtime_video_tpu_torch.serving import session as session_mod
-    from realtime_video_tpu_torch.serving.models import load_all, load_vae
+    from realtime_video_tpu_torch.serving.models import load_all, load_taehv, load_vae
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
     from realtime_video_tpu_torch.utils.tokenizer import FallbackTokenizer
@@ -535,6 +570,10 @@ def main() -> None:
         ("cross_attn", "window", 4680, 512, 0, 512, 1.0),
         ("large_norm", "window", 4680, 9360, 1560, 9360, 3.0),
         ("block_causal", "block_causal", 9360, 9360, 0, 4680, 1.0),
+        # the offline sampler's global window (21 frames): a block attends
+        # over [0, 18720) at block 3 and [0, 32760) at block 6
+        ("offline_window_18720", "window", 4680, 32760, 0, 18720, 1.0),
+        ("offline_window_32760", "window", 4680, 32760, 0, 32760, 1.0),
     ]
     for name, mode, lq, lk, lo, arg, scale in cases:
         q = hk.prescale(rnd((1, lq, heads, hd), scale), hd ** -0.5)
@@ -1107,6 +1146,45 @@ def main() -> None:
     del p_t5, t5_card, t5_cpu
     torch.cuda.empty_cache()
 
+    # -- TAEHV, the preview tier's decoder (cuDNN convs, as the JAX package
+    # leaves them to XLA): card against CPU on the same random init at a
+    # reduced size (3 latents of 30x52 -> 12 frames of 240x416), f32 with
+    # TF32 off within relative Frobenius 1e-3, bf16 within 3e-2 (bf16 on the
+    # CPU reads 1.1e-2 against f32 at 16x20); then one 832x480 block (3
+    # latents -> 12 frames) in bf16 with its carried state, as a session
+    # decodes it, timed beside its bound
+    def rel_fro(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).norm() / want.norm())
+
+    tg = torch.Generator().manual_seed(3)
+    taehv_cpu = taehv_mod.init_taehv_params(tg, "cpu", torch.float32)
+    z_small = torch.randn((1, 3, 16, 30, 52), generator=tg)
+    want_px, _ = taehv_mod.taehv_decode(taehv_cpu, z_small)
+    got32, _ = taehv_mod.taehv_decode(tree_to(taehv_cpu, dev), z_small.to(dev))
+    taehv_bf16 = tree_to(taehv_cpu, dev, torch.bfloat16)
+    got16, _ = taehv_mod.taehv_decode(taehv_bf16, z_small.to(dev, torch.bfloat16))
+    rel32, rel16 = rel_fro(got32, want_px), rel_fro(got16, want_px)
+    phase("taehv_decode_card_vs_cpu", latents=list(z_small.shape), frames=got32.shape[1],
+          f32_rel_fro=rel32, f32_bar=1e-3, bf16_rel_fro=rel16, bf16_bar=3e-2,
+          tf32=torch.backends.cudnn.allow_tf32, card=card)
+    if not (rel32 < 1e-3 and rel16 < 3e-2 and tuple(got32.shape) == tuple(want_px.shape)):
+        fail(f"TAEHV decode on the card disagrees with the CPU: f32 {rel32}, bf16 {rel16}")
+    z_full = rnd((1, 3, 16, 60, 104))
+    px_full, taehv_state = taehv_mod.taehv_decode(taehv_bf16, z_full)
+    taehv_ms = cuda_ms(lambda: taehv_mod.taehv_decode(taehv_bf16, z_full, taehv_state), 10)
+    taehv_macs, taehv_bytes = taehv_mod.decode_work(3, 60, 104, itemsize=2)
+    taehv_bound_ms, taehv_bound_by = bound(taehv_bytes, 2 * taehv_macs, "bf16")
+    phase("taehv_decode_832x480", latents=list(z_full.shape), frames=px_full.shape[1],
+          ms=taehv_ms, bound_ms=taehv_bound_ms, bound_by=taehv_bound_by,
+          tflop=2 * taehv_macs / 1e12, bytes_gb=taehv_bytes / 1e9,
+          tflops=2 * taehv_macs / taehv_ms / 1e9, library="F.conv2d (cuDNN), bf16, "
+          "channels-last", finite=bool(torch.isfinite(px_full).all()), card=card)
+    if not (px_full.shape[1] == 12 and torch.isfinite(px_full).all()):
+        fail(f"TAEHV decode of a 832x480 block: {tuple(px_full.shape)}")
+    del taehv_cpu, got32, got16, taehv_bf16, px_full, taehv_state
+    torch.cuda.empty_cache()
+
     # ---- phase 3: a small DiT block step on the card against the CPU ----
     small = WanModelConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2)
     cpu_gen = torch.Generator().manual_seed(1)
@@ -1268,10 +1346,12 @@ def main() -> None:
         launches.update(hc.PREPASS_LAUNCHES)
         return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
 
-    def session_stats(label, sid, t_send, stamps, sizes, final, frames, blocks, **extra):
-        """Check one session's frames (6 + 12 (blocks - 1), finite, 832x480)
-        and report its times at the client."""
-        n_frames = 6 + 12 * (blocks - 1)
+    def session_stats(label, sid, t_send, stamps, sizes, final, frames, blocks, first=6,
+                      **extra):
+        """Check one session's frames (`first` + 12 (blocks - 1): block 0
+        sends 6 with the Wan decoder, 9 with TAEHV; finite, 832x480) and
+        report its times at the client."""
+        n_frames = first + 12 * (blocks - 1)
         if final != {"session_id": sid, "status": "completed"}:
             fail(f"{sid}: final message {final}")
         if len(stamps) != n_frames:
@@ -1279,7 +1359,7 @@ def main() -> None:
         if len(frames) != n_frames or any(shape != (3, 480, 832) or not finite
                                           for shape, finite, _ in frames):
             fail(f"{sid}: encoded frames {[(s_, f_) for s_, f_, _ in frames]}")
-        ends = [stamps[5 + 12 * b] for b in range(blocks)]  # a block's last frame
+        ends = [stamps[first - 1 + 12 * b] for b in range(blocks)]  # a block's last frame
         stats = dict(ttff_ms=(stamps[0] - t_send) * 1e3,
                      block_ms=[(b - a) * 1e3 for a, b in zip([t_send] + ends, ends)],
                      fps_warm=12 * (blocks - 1) / (ends[-1] - ends[0]) if blocks > 1 else None,
@@ -1289,7 +1369,7 @@ def main() -> None:
               pixel_mean=float(np.mean([m for _, _, m in frames])), card=card)
         return stats
 
-    def serve(config, models, specs, label, required, blocks=3):
+    def serve(config, models, specs, label, required, blocks=3, first=6):
         """Drive the sessions with every launch count set to 0 just before and
         read just after; check each session's frames, that every kernel in
         `required` launched, and that no plain version saw a CUDA tensor."""
@@ -1299,7 +1379,7 @@ def main() -> None:
         sessions = asyncio.run(drive(config, models, specs))
         launches, plain_on_cuda = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        stats = [session_stats(label, *s_, blocks=blocks) for s_ in sessions]
+        stats = [session_stats(label, *s_, blocks=blocks, first=first) for s_ in sessions]
         missing = [k for k in required if launches.get(k, 0) <= 0]
         if missing:
             fail(f"{label}: kernels of the path not launched: {missing} ({launches})")
@@ -1565,6 +1645,192 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- the quantised-tree cache: load_all at 1.3B int8 (with the TAEHV tier)
+    # twice with RTV_QUANT_CACHE on in a temporary directory, a miss that
+    # builds and stores both trees, then a hit; the trees must be equal bit
+    # for bit and stride for stride, and block 0's x0 of a session on each
+    def same_tree(a, b, path=""):
+        """The first path where two trees differ (structure, dtype, stride,
+        bits), or None."""
+        if isinstance(a, dict) or isinstance(b, dict):
+            if not (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()):
+                return path or "/"
+            return next((d for k in a if (d := same_tree(a[k], b[k], f"{path}/{k}"))), None)
+        if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+            if not (type(a) is type(b) and len(a) == len(b)):
+                return path or "/"
+            return next((d for i, (x, y) in enumerate(zip(a, b))
+                         if (d := same_tree(x, y, f"{path}/{i}"))), None)
+        if isinstance(a, torch.Tensor):
+            ok = (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                  and a.stride() == b.stride() and torch.equal(a, b))
+            return None if ok else path
+        return None if a == b else path
+
+    taehv_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                      timestep_shift=5.0, use_taehv=True, **int8_flags)
+    os.environ["RTV_QUANT_CACHE"] = "1"
+    try:
+        cache_loads, cache_s = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache_loads.append(load(taehv_config))
+            torch.cuda.synchronize()
+            cache_s.append(time.perf_counter() - t0)
+        cache_entries = {f: os.path.getsize(os.path.join(qcache_dir, f)) / 2**30
+                         for f in sorted(os.listdir(qcache_dir))}
+    finally:
+        os.environ["RTV_QUANT_CACHE"] = "0"
+        shutil.rmtree(qcache_dir, ignore_errors=True)
+        os.makedirs(qcache_dir, exist_ok=True)
+    cold, models = cache_loads
+    diff_dit = same_tree(cold.transformer.params, models.transformer.params)
+    diff_vae = same_tree(cold.vae_decoder.params, models.vae_decoder.params)
+    x0_cold = block0_x0(int8_config, cold, head_w)
+    del cold, cache_loads
+    gc.collect()
+    torch.cuda.empty_cache()
+    x0_warm = block0_x0(int8_config, models, head_w)
+    phase("quant_cache", miss_load_s=cache_s[0], hit_load_s=cache_s[1],
+          entries_gib=cache_entries, dit_tree_equal=diff_dit is None,
+          vae_tree_equal=diff_vae is None, first_difference=diff_dit or diff_vae,
+          block0_x0_bit_equal=torch.equal(x0_cold, x0_warm),
+          block0_x0_equal_to_int8_tier=torch.equal(x0_warm, tiers["int8"]["x0"]),
+          note="each load is load_all: DiT, VAE, static embedding and TAEHV", card=card)
+    if len(cache_entries) != 2 or diff_dit or diff_vae or not torch.equal(x0_cold, x0_warm):
+        fail(f"quantised-tree cache: entries {cache_entries}, trees differ at "
+             f"{diff_dit or diff_vae}, or block-0 x0 differs")
+
+    # -- the TAEHV preview tier on the hit's models (load_all with use_taehv):
+    # two sessions, 9 + 12 + 12 frames, TAEHV's decode timed per block with
+    # CUDA events, beside the Wan VAE's int8 sessions above
+    taehv_events = []
+    taehv_decode = taehv_mod.taehv_decode
+
+    def timed_taehv_decode(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = taehv_decode(*a, **k)
+        e1.record()
+        taehv_events.append((e0, e1))
+        return out
+
+    taehv_mod.taehv_decode = timed_taehv_decode
+    try:
+        launches_tv, plain_tv, peak_tv, stats_tv = serve(
+            taehv_config, models, t2v_specs(("taehv-0", "taehv-1")), "int8 + TAEHV",
+            kernel_paths["int8"], first=9)
+    finally:
+        taehv_mod.taehv_decode = taehv_decode
+    torch.cuda.synchronize()
+    phase("taehv_sessions", model="t2v-1.3B", tier="int8 + TAEHV", launches=launches_tv,
+          plain_on_cuda=plain_tv, peak_mem_gib=peak_tv,
+          ttff_ms=[s_["ttff_ms"] for s_ in stats_tv],
+          fps_warm=[s_["fps_warm"] for s_ in stats_tv],
+          block_ms=[s_["block_ms"] for s_ in stats_tv],
+          taehv_decode_ms=[a.elapsed_time(b) for a, b in taehv_events],
+          taehv_decode_bound_ms=taehv_bound_ms,
+          wan_vae_int8_ttff_ms=[s_["ttff_ms"] for s_ in tiers["int8"]["stats"]],
+          wan_vae_int8_fps_warm=[s_["fps_warm"] for s_ in tiers["int8"]["stats"]],
+          wan_vae_int8_block_ms=[s_["block_ms"] for s_ in tiers["int8"]["stats"]], card=card)
+    if len(taehv_events) != 6:
+        fail(f"TAEHV decoded {len(taehv_events)} blocks, expected 6")
+
+    # -- the offline sampler on a fresh pipeline over the same models (its
+    # window the global 21 frames, 32760 tokens), the DiT head random as in
+    # block0_x0: 21 latents (7 blocks; 4 warped steps and the refresh
+    # forward each), decoded to 81 frames; the same call again; an extension
+    # from its first 3 latents; the first 9 frames encoded back
+    head = models.transformer.params["head"]["head"]
+    saved_head, head["w"] = head["w"], head_w.to(head["w"].dtype)
+    offline_config = load_server_config(
+        model_name="t2v-1.3B", num_frame_per_block=3, timestep_shift=5.0,
+        denoising_step_list=[1000, 750, 500, 250], warp_denoising_step=True, context_noise=0,
+        **int8_flags)
+    pipe = CausalInferencePipeline(offline_config, models.transformer, models.text_encoder,
+                                   models.vae_decoder)
+    emb = models.text_encoder(text_prompts=[request["prompt"]])["prompt_embeds"]
+    noise = torch.randn((1, 21, 16, 60, 104), generator=torch.Generator(device=dev).manual_seed(21),
+                        device=dev).to(torch.bfloat16)
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    video, lat = pipe.inference(noise, prompt_embeds=emb, return_latents=True, profile=True,
+                                seed=5)
+    launches_off, plain_off = read_counts()
+    peak_off = torch.cuda.max_memory_allocated() / 2**30
+    prof_off = dict(pipe.last_profile)
+    kv_gib = sum(t.numel() * t.element_size() for t in pipe.kv_cache.values()
+                 if isinstance(t, torch.Tensor)) / 2**30
+    missing_off = [k for k in ("window", "logit_bound", "int8_linear", "conv3x3", "conv_quantize")
+                   if launches_off.get(k, 0) <= 0]
+    video2, lat2 = pipe.inference(noise, prompt_embeds=emb, return_latents=True, profile=True,
+                                  seed=5)
+    prof_off2 = dict(pipe.last_profile)
+    rerun_rel, rerun_video_rel = rel_fro(lat2, lat), rel_fro(video2, video)
+    video_ext, lat_ext = pipe.inference(noise[:, :6], prompt_embeds=emb,
+                                        initial_latent=lat[:, :3], return_latents=True, seed=6)
+    z_rt = models.vae_encoder.encode_to_latent(video[:, :9] * 2.0 - 1.0)
+    phase("offline_inference", model="t2v-1.3B", tier="int8", latent_frames=lat.shape[1],
+          frames=video.shape[1], steps=list(pipe.denoising_step_list),
+          refresh_t=pipe.context_noise, max_attention_size=pipe.kv_cache["k"].shape[2],
+          init_ms=prof_off["init_ms"], diffusion_ms=prof_off["diffusion_ms"],
+          block_ms=prof_off["block_ms"], decode_ms=prof_off["vae_ms"],
+          second_call_ms={k: prof_off2[k] for k in ("diffusion_ms", "vae_ms")},
+          second_call_block_ms=prof_off2["block_ms"], kv_cache_gib=kv_gib,
+          peak_mem_gib=peak_off, launches=launches_off, plain_on_cuda=plain_off,
+          rerun_latents_rel_fro=rerun_rel, rerun_video_rel_fro=rerun_video_rel, rerun_bar=1e-3,
+          rerun_bit_equal=torch.equal(lat2, lat),
+          extension_latents=lat_ext.shape[1], extension_frames=video_ext.shape[1],
+          extension_prefix_equal=torch.equal(lat_ext[:, :3], lat[:, :3]),
+          round_trip_latents=list(z_rt.shape), card=card)
+    if not (tuple(video.shape) == (1, 81, 3, 480, 832) and torch.isfinite(video).all()
+            and tuple(lat.shape) == (1, 21, 16, 60, 104)):
+        fail(f"offline inference: video {tuple(video.shape)}, latents {tuple(lat.shape)}, "
+             f"finite {bool(torch.isfinite(video).all())}")
+    if missing_off or any(plain_off.values()):
+        fail(f"offline inference: kernels not launched {missing_off}, plain on CUDA {plain_off}")
+    if not (rerun_rel < 1e-3 and rerun_video_rel < 1e-3):
+        fail(f"offline inference: a second call with the same seed differs: {rerun_rel}")
+    if not (lat_ext.shape[1] == 9 and torch.equal(lat_ext[:, :3], lat[:, :3])
+            and video_ext.shape[1] == 33 and torch.isfinite(video_ext).all()):
+        fail(f"offline extension: latents {tuple(lat_ext.shape)}, frames {video_ext.shape[1]}")
+    if not (tuple(z_rt.shape) == (1, 3, 16, 60, 104) and torch.isfinite(z_rt).all()):
+        fail(f"encode_to_latent of 9 frames: {tuple(z_rt.shape)}")
+    del pipe, video, video2, video_ext, lat2, lat_ext, z_rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- sample_videos (the offline batch API over the session): one prompt,
+    # 3 blocks, the Wan VAE's 30 frames, written as mp4 (or .npy)
+    sample_dir = tempfile.mkdtemp()
+    try:
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        vids = sample_mod.sample_videos([request["prompt"]], None, sample_dir,
+                                        GenerateParams(**request), models)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches_sv, plain_sv = read_counts()
+        written = {f: os.path.getsize(os.path.join(sample_dir, f))
+                   for f in sorted(os.listdir(sample_dir))}
+    finally:
+        shutil.rmtree(sample_dir, ignore_errors=True)
+        head["w"] = saved_head
+    phase("sample_videos", frames=vids[0].shape[0], seconds=sample_s, written=written,
+          launches=launches_sv, plain_on_cuda=plain_sv, card=card)
+    missing_sv = [k for k in kernel_paths["int8"] if launches_sv.get(k, 0) <= 0]
+    if not (vids[0].shape == (30, 3, 480, 832) and np.isfinite(vids[0]).all()
+            and len(written) == 1 and next(iter(written)) in ("video_000.mp4", "video_000.npy")):
+        fail(f"sample_videos: {vids[0].shape}, files {written}")
+    if missing_sv or any(plain_sv.values()):
+        fail(f"sample_videos: kernels not launched {missing_sv}, plain on CUDA {plain_sv}")
+    del models, vids
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- t2v-14B in the int8 tier with the int8 QK^T attention on --
     config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
                                 timestep_shift=5.0, **int8_flags)
@@ -1578,15 +1844,29 @@ def main() -> None:
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         load_peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        launches14, plain14, peak14, _ = serve(
-            config, models, t2v_specs(("14b-int8qk-0",)), "t2v-14B int8 + int8 QK^T",
-            ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3",
-             "conv_quantize"))
+        path14 = ("window_int8qk", "block_causal_int8qk", "int8_linear", "conv3x3",
+                  "conv_quantize")
+        launches14, plain14, peak14, stats14 = serve(
+            config, models, t2v_specs(("14b-int8qk-0",)), "t2v-14B int8 + int8 QK^T", path14)
         phase("server", model="t2v-14B", tier="int8 + int8 QK^T attention",
               load_and_calibrate_s=load_s, load_peak_mem_gib=load_peak_gb,
               peak_mem_gib=peak14, plan_total_gib=plan.total / 2**30,
               plan=plan.table().splitlines(), launches=launches14, plain_on_cuda=plain14,
               card=card)
+        # the TAEHV preview tier on the same models, its params built before
+        # the session so that block 0 pays no build
+        models.taehv_params = load_taehv(dev)
+        taehv14_config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
+                                            timestep_shift=5.0, use_taehv=True, **int8_flags)
+        launches14t, plain14t, peak14t, stats14t = serve(
+            taehv14_config, models, t2v_specs(("14b-taehv-0",)),
+            "t2v-14B int8 + int8 QK^T + TAEHV", path14, first=9)
+        phase("taehv_session_14b", launches=launches14t, plain_on_cuda=plain14t,
+              peak_mem_gib=peak14t, ttff_ms=stats14t[0]["ttff_ms"],
+              fps_warm=stats14t[0]["fps_warm"], block_ms=stats14t[0]["block_ms"],
+              wan_vae_int8_ttff_ms=stats14[0]["ttff_ms"],
+              wan_vae_int8_fps_warm=stats14[0]["fps_warm"],
+              wan_vae_int8_block_ms=stats14[0]["block_ms"], card=card)
         head14 = random_head(models)
         x0_on = block0_x0(config, models, head14)
         hk.INT8_QK = False
@@ -1638,7 +1918,12 @@ def main() -> None:
                "cross_library_ms": results["cross_attn"]["library_ms"],
                "fallback_max_abs_err": results["large_norm"]["max_abs_err"],
                "launches_logit_bound": bf16_l["logit_bound"],
-               "launches_int8_path": int8_l["window"]}),
+               "launches_int8_path": int8_l["window"],
+               "launches_offline_inference": launches_off["window"],
+               **{f"{c}_{k}": results[c][k]
+                  for c in ("offline_window_18720", "offline_window_32760")
+                  for k in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms",
+                            "max_abs_err", "rel_fro_err")}}),
         entry("block_causal_attention (K2 running-max flash, block-causal mode)", sm90_src,
               "realtime_video_tpu/ops/pallas_attention.py:97", bf16_l["block_causal"],
               results["block_causal"], results["block_causal"]["max_abs_err"],

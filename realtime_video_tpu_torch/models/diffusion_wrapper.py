@@ -127,9 +127,13 @@ class WanDiffusion:
         return flow, x0, kv
 
     def make_denoise_block_fn(self, steps: Tuple[float, ...], max_attention_size: int,
-                              schedule: Optional[FlowMatchSchedule] = None):
+                              schedule: Optional[FlowMatchSchedule] = None,
+                              refresh_t: Optional[float] = None):
         """The per-block denoise loop (release_server.py:669-706): a forward at
         each step's timestep, then x0 renoised to the next step's timestep.
+        With `refresh_t`, one more decode forward of the clean x0 at that
+        timestep rewrites the block's K/V (the offline sampler's clean-context
+        cache refresh, causal_inference.py:227-236); serving passes None.
 
         Returns fn(kv, cross, noisy, current_start, noise_fn) -> (x0, kv).
         noise_fn is called once per step, the last included (its draw is
@@ -150,6 +154,11 @@ class WanDiffusion:
                     tn = torch.full((b, f), t_next, dtype=torch.float32,
                                     device=noisy.device)
                     noisy = schedule.add_noise(x0, nz, tn)
+            if refresh_t is not None:
+                t = torch.full((b, f), float(refresh_t), dtype=torch.float32,
+                               device=noisy.device)
+                _, _, kv = self.forward(x0, cross, t, kv, current_start, "decode",
+                                        max_attention_size, schedule)
             return x0, kv
 
         return fn

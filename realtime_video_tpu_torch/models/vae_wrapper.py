@@ -1,5 +1,7 @@
-"""Streaming VAE entry points of the serving loop (port of
-realtime_video_tpu/models/vae_wrapper.py: `decode_block` and `encode_stream`).
+"""The VAE's entry points (port of realtime_video_tpu/models/vae_wrapper.py):
+the whole-clip pair `encode_to_latent` / `decode_to_pixel` of the offline
+sampler, and the streaming pair `decode_block` / `encode_stream` of the
+serving loop.
 
 Public layout as in the JAX package: [B, T, C, H, W], pixels in [-1, 1].
 """
@@ -46,6 +48,16 @@ class VAEWrapper:
         ckpt = os.path.join(MODEL_FOLDER, "Wan2.1-T2V-1.3B", "Wan2.1_VAE.pth")
         return cls(checkpoint_path=ckpt if os.path.exists(ckpt) else None, dtype=dtype,
                    device=device, seed=seed)
+
+    def encode_to_latent(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[B, T, 3, H, W] in [-1, 1] -> [B, Tz, z, h, w] normalised latents,
+        each clip encoded fresh (chunks 1, 4, 4, ...), in the wrapper's dtype."""
+        return torch.cat([self.encode_stream(p[None].to(self.dtype))[0] for p in pixels])
+
+    def decode_to_pixel(self, latents: torch.Tensor) -> torch.Tensor:
+        """[B, Tz, z, h, w] -> [B, 1 + 4 (Tz - 1), 3, H, W] f32 in [-1, 1]: a
+        fresh whole-clip decode of each clip, in the wrapper's dtype."""
+        return torch.cat([self.decode_block(z[None].to(self.dtype))[0] for z in latents])
 
     def decode_block(self, latents: torch.Tensor,
                      cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:

@@ -98,3 +98,12 @@ def get_denoising_schedule(zero_padded_timesteps, denoising_strength: float,
         np.int64
     )
     return tbl[1000 - idx]
+
+
+def warp_denoising_steps(timesteps, denoising_step_list) -> np.ndarray:
+    """Integer steps warped through the shifted schedule
+    (reference pipeline/causal_inference.py:29-32): a host-side float32 array."""
+    if isinstance(timesteps, torch.Tensor):
+        timesteps = timesteps.cpu().numpy()
+    tbl = np.concatenate([np.asarray(timesteps, np.float32), np.zeros(1, np.float32)])
+    return tbl[1000 - np.asarray(denoising_step_list, np.int64)]

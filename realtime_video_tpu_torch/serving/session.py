@@ -8,6 +8,12 @@ frame at a time. Block 0 drops its first 3 pixel frames, so a session of n
 blocks sends 6 + 12 (n - 1) frames. A prompt change lerps the text embedding
 over `interp_steps` blocks.
 
+The TAEHV preview tier (server config `use_taehv`) decodes each block whole
+with the tiny autoencoder instead (`models/taehv.py`, its MemBlock state kept
+where the Wan decoder keeps its cache): 12 frames a block, of which block 0
+drops the first 3, so n blocks send 9 + 12 (n - 1) frames; its pixels feed
+the anti-drift re-encode like the Wan decoder's.
+
 Video in, as in the JAX session:
   * `input_video`: the clip is encoded once and mixed into the initial noise
     at the schedule's first timestep; the block count follows the clip;
@@ -25,8 +31,6 @@ Random numbers come from a `torch.Generator` seeded with the request's seed
 the initial latents noise and `noise_fn` every later draw, in the JAX
 session's order: the v2v noise at set-up, then per block the webcam noise
 before the denoise's renoise draws.
-
-The TAEHV preview tier (`use_taehv`) is not ported, and is refused.
 """
 from __future__ import annotations
 
@@ -44,10 +48,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from realtime_video_tpu_torch.models import taehv as taehv_mod
 from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.diffusion_wrapper import NoiseFn, generator_noise
 from realtime_video_tpu_torch.ops import kv_cache as kvc
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
+from realtime_video_tpu_torch.serving.models import load_taehv
 from realtime_video_tpu_torch.serving.params import GenerateParams
 from realtime_video_tpu_torch.serving.video_io import load_video_as_rgb, resample_array
 from realtime_video_tpu_torch.utils.misc import AtomicCounter
@@ -55,16 +61,11 @@ from realtime_video_tpu_torch.utils.misc import AtomicCounter
 log = logging.getLogger(__name__)
 
 
-class UnsupportedRequest(ValueError):
-    """A request needs a part of the system the port does not have yet."""
-
-
-def check_supported(config) -> None:
-    """Raise UnsupportedRequest when the server serves the TAEHV preview tier
-    (every request field is served)."""
-    if config.get("use_taehv", False):
-        raise UnsupportedRequest("not supported by the PyTorch port yet: use_taehv "
-                                 "(server config)")
+def _ensure_taehv_params(models) -> None:
+    """Give `models` TAEHV's params when load_all did not (session.py:40-66 of
+    the JAX package builds them at the first preview session)."""
+    if getattr(models, "taehv_params", None) is None:
+        models.taehv_params = load_taehv(models.transformer.device)
 
 
 def resize_bicubic(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -142,7 +143,7 @@ class GenerationSession:
                  frame_callback: Optional[Callable] = None, models=None,
                  noise: Optional[torch.Tensor] = None,
                  noise_fn: Optional[NoiseFn] = None):
-        check_supported(config)
+        self.use_taehv = bool(config.get("use_taehv", False))
         self.frame_callback = frame_callback or (
             lambda *a, **k: log.warning("No frame callback set!"))
         self.session_id = self.SESSION_COUNTER.increment()
@@ -409,6 +410,8 @@ class GenerationSession:
         x0 = self.block_step(models, steps, clean_context, noisy_input,
                              model_input_start_frame * self.frame_seq_length)
         self.all_latents[:, csf:csf + nfpb] = x0
+        if self.use_taehv:
+            return self._emit_taehv_block(models, x0, idx)
 
         # stream the decode per latent frame: the block's first pixel frames
         # reach the client before the rest of the block is decoded (the
@@ -431,6 +434,26 @@ class GenerationSession:
         self.block_idx += 1
         self.resume_latents = None
         return torch.cat(parts, dim=1)
+
+    def _emit_taehv_block(self, models, x0: torch.Tensor, idx: int) -> torch.Tensor:
+        """Decode the block whole with TAEHV in bf16, its state carried in
+        `decode_vae_cache`, map ~[0, 1] to [-1, 1], keep every frame for the
+        anti-drift re-encode and send them, block 0's first 3 dropped
+        (session.py:774-790 and 822-830 of the JAX package)."""
+        _ensure_taehv_params(models)
+        px, self.decode_vae_cache = taehv_mod.taehv_decode(
+            models.taehv_params, x0.to(torch.bfloat16), self.decode_vae_cache)
+        pixels = px * 2.0 - 1.0
+        for fi in range(pixels.shape[1]):
+            self.frame_context_cache.append((pixels, fi))
+        if idx == 0:
+            pixels = pixels[:, 3:]
+        self.frame_callback(pixels, [], None)
+        self.total_frames_sent += pixels.shape[1]
+        self.current_start_frame += self.num_frame_per_block
+        self.block_idx += 1
+        self.resume_latents = None
+        return pixels
 
     def generate_block(self, models):
         out = self.generate_block_internal(models)

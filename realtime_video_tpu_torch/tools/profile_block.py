@@ -1,7 +1,7 @@
 """Profile one warm block of the serving path on a GPU.
 
     python -m realtime_video_tpu_torch.tools.profile_block [--model t2v-1.3B|t2v-14B]
-        [--tier bf16|int8] [--int8-qk] [--webcam] [--umt5] [--out profile_out]
+        [--tier bf16|int8] [--int8-qk] [--webcam] [--umt5] [--taehv] [--out profile_out]
 
 `load_all` builds the DiT (default t2v-1.3B; random weights from a seed) and
 the Wan 2.1 VAE on the card, in bf16 or in the int8 tier (the server flags
@@ -35,8 +35,16 @@ own phase, `webcam_encode`. The text encoder is the static embedding
 umT5-xxl; then one forward of it at its 512 tokens is also timed with CUDA
 events and profiled the same way (`umt5`).
 
-Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5].json and the op
-table (.txt) under --out and prints the JSON summary.
+With `--taehv` the server config asks for the TAEHV preview tier
+(`use_taehv`): each block is decoded whole by TAEHV (random weights without
+RTV_TAEHV_CKPT's file), timed as the phase `taehv_decode`, its convolutions
+bucketed with the other cuDNN convs (`conv`), beside the decode's bound
+(`taehv_decode_bound`: its conv operations over 989 TFLOP/s bf16 or its
+bytes over 3.35 TB/s, the larger).
+
+Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5][_taehv].json and
+the op table (.txt) under --out and prints the JSON summary. Quantised trees
+are not cached on disk unless RTV_QUANT_CACHE asks for it.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ CATEGORIES = ("attention_kernel", "attention_bound_prepass", "attention_int8_pre
 #: the H100 SXM data-sheet rates the bounds use (chip_smoke.py's)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 TIER_FLAGS = {"bf16": {},
               "int8": {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}}
 
@@ -200,6 +209,25 @@ def device_summary(prof, range_name: str) -> dict:
             "device_ms_by_category": by_cat, "top_kernels": top[:25]}
 
 
+def report_stem(model: str, tier: str, int8_qk=False, webcam=False, umt5=False,
+                taehv=False) -> str:
+    """The reports' file name, without its extension."""
+    return (f"profile_block_{model}_{tier}" + ("_int8qk" if int8_qk else "")
+            + ("_webcam" if webcam else "") + ("_umt5" if umt5 else "")
+            + ("_taehv" if taehv else ""))
+
+
+def taehv_decode_bound(latent_frames: int, lat_h: int, lat_w: int) -> dict:
+    """The bound of one bf16 TAEHV decode of a block: its conv operations over
+    the bf16 peak or its bytes over HBM's rate, whichever is larger."""
+    from realtime_video_tpu_torch.models import taehv
+
+    macs, io_bytes = taehv.decode_work(latent_frames, lat_h, lat_w, itemsize=2)
+    ops_ms, bytes_ms = 2 * macs / BF16_OPS_PER_S * 1e3, io_bytes / HBM_BYTES_PER_S * 1e3
+    return {"flop": 2 * macs, "bytes": io_bytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def webcam_jpegs(count: int = 24, seed: int = 24) -> List[bytes]:
     """Seeded 640x480 JPEG frames, each the last shifted 8 pixels."""
     import numpy as np
@@ -229,8 +257,12 @@ def main() -> None:
     ap.add_argument("--umt5", action="store_true",
                     help="load_all's default text encoder, umT5-xxl (else the static "
                          "embedding), and a profile of one forward of it")
+    ap.add_argument("--taehv", action="store_true",
+                    help="the TAEHV preview tier (use_taehv): each block decoded whole by "
+                         "TAEHV, timed as its phase")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
     args = ap.parse_args()
+    os.environ.setdefault("RTV_QUANT_CACHE", "0")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
     if args.umt5:
@@ -255,7 +287,8 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda")
     config = load_server_config(model_name=args.model, num_frame_per_block=3,
-                                timestep_shift=5.0, **TIER_FLAGS[args.tier])
+                                timestep_shift=5.0, use_taehv=args.taehv,
+                                **TIER_FLAGS[args.tier])
     hopper_attention.INT8_QK = args.int8_qk
     torch.cuda.reset_peak_memory_stats()
     models = load_all(config, dev, seed=0)
@@ -272,6 +305,8 @@ def main() -> None:
     vae.encode_stream = lambda *a, **k: (raw_encode if in_webcam_encode[0] else reencode)(
         *a, **k)
     vae.decode_block = timer.wrap("vae_decode", vae.decode_block)
+    session_mod.taehv_mod.taehv_decode = timer.wrap("taehv_decode",
+                                                    session_mod.taehv_mod.taehv_decode)
     wan_dit.context_prefill = timer.wrap("prefill", wan_dit.context_prefill)
     make_denoise = gen.make_denoise_block_fn
     gen.make_denoise_block_fn = lambda *a, **k: timer.wrap("denoise", make_denoise(*a, **k))
@@ -334,6 +369,8 @@ def main() -> None:
         "profiled_block": BLOCKS - 1,
         "warm_block_wall_ms": wall_ms, "phase_device_ms": phases,
         **block, "int8_vae_conv_bounds": conv_bounds.summary(),
+        "taehv": args.taehv,
+        "taehv_decode_bound": taehv_decode_bound(3, 60, 104) if args.taehv else None,
     }
     tables = [prof]
     if args.umt5:
@@ -361,8 +398,7 @@ def main() -> None:
         tables.append(prof_t5)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    stem = (f"profile_block_{args.model}_{args.tier}" + ("_int8qk" if args.int8_qk else "")
-            + ("_webcam" if args.webcam else "") + ("_umt5" if args.umt5 else ""))
+    stem = report_stem(args.model, args.tier, args.int8_qk, args.webcam, args.umt5, args.taehv)
     (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
                 else "self_cuda_time_total")

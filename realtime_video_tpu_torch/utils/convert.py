@@ -9,6 +9,8 @@ exact. This module imports no JAX.
 int8 trees (`quantize_wan_linears`, `quantize_vae_params`) carry across as they
 are: `w_q` stays int8, and the `scale` and `a_scale` beside it stay float32
 whatever `dtype` asks, since they are dequantisation factors, not weights.
+TAEHV trees keep their structure, but conv weights turn from JAX's HWIO to
+F.conv2d's [co, ci, kh, kw] (`taehv_params_from_jax`).
 A DiT linear's `w_q` [.., in, out] is stored [.., out, in] and handed out as
 that view, the fused int8 kernel's K-major layout (`hopper_int8_mm.k_major`),
 as `quantize_wan_linears` builds it; a VAE conv's `w_q` [kt, 3, 3, ci, co] is
@@ -96,3 +98,19 @@ def t5_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = No
     out = tree_from_numpy(tree, device, dtype)
     out["blocks"]["rel_emb"] = _leaf(tree["blocks"]["rel_emb"], device, torch.float32)
     return out
+
+
+def taehv_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_taehv_params` or `convert_taehv_checkpoint` tree (numpy
+    leaves, conv weights HWIO) as the port's TAEHV params (`models/taehv.py`:
+    weights [co, ci, kh, kw]); the layers' None entries stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        out = {k: taehv_params_from_jax(v, device, dtype) for k, v in tree.items()}
+        if "w" in tree:
+            out["w"] = out["w"].permute(3, 2, 0, 1).contiguous()
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(taehv_params_from_jax(v, device, dtype) for v in tree)
+    return _leaf(tree, device, dtype)

@@ -1,8 +1,10 @@
 """The PyTorch port imports no JAX: a fresh interpreter imports the package,
-its serving stack and every other module of it, and `jax` stays out of
-sys.modules. Also holds that the port's kernel wrappers take a CUDA tensor
-only to their kernels (on a CPU-only host they must raise, not fall back),
-and that its entry points build on the card unless asked for the CPU."""
+its serving stack, TAEHV, the quantised-tree cache, the offline sampler and
+every other module of it, and `jax` stays out of sys.modules. Also holds
+that the port's kernel wrappers take a CUDA tensor only to their kernels (on
+a CPU-only host they must raise, not fall back), and that its entry points
+(TAEHV's init and `sample_videos` among them) build on the card unless
+asked for the CPU."""
 import pathlib
 import subprocess
 import sys
@@ -22,7 +24,9 @@ def _modules():
 
 def test_port_imports_no_jax():
     mods = _modules()
-    assert "realtime_video_tpu_torch.serving.server" in mods
+    assert {"realtime_video_tpu_torch.serving.server", "realtime_video_tpu_torch.models.taehv",
+            "realtime_video_tpu_torch.utils.qcache", "realtime_video_tpu_torch.sample",
+            "realtime_video_tpu_torch.pipelines.causal_inference"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,6 +72,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     vae = VAEWrapper(VAEConfig(dim=8, z_dim=4, dim_mult=(1, 1, 2, 2), num_res_blocks=1),
                      device="cpu")
     assert vae.params["conv2"]["w"].device.type == "cpu"
+    from realtime_video_tpu_torch import sample
+    from realtime_video_tpu_torch.models import taehv
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        taehv.init_taehv_params(torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample.sample_videos(["a cat"], save_videos=False)
+    assert taehv.init_taehv_params(torch.Generator(), "cpu")["decoder"][1]["w"].device.type == \
+        "cpu"
 
 
 def test_int8_kernel_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):

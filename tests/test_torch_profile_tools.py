@@ -77,3 +77,28 @@ def test_agreement_passes_rounding_and_catches_dropped_columns():
     dropped = hk.window_attention_plain(q, k, v, 100, 1024, scale=inv)
     res = hk.agreement(dropped, want)
     assert not res["within_tol"] and res["rel_fro_err"] > hk.REL_FRO
+
+
+@pytest.mark.parametrize("flags, stem", [
+    ({}, "profile_block_t2v-1.3B_int8"),
+    ({"taehv": True}, "profile_block_t2v-1.3B_int8_taehv"),
+    ({"int8_qk": True, "webcam": True, "umt5": True, "taehv": True},
+     "profile_block_t2v-1.3B_int8_int8qk_webcam_umt5_taehv"),
+])
+def test_report_stem(flags, stem):
+    assert pb.report_stem("t2v-1.3B", "int8", **flags) == stem
+
+
+def test_taehv_decode_bound_at_832x480():
+    """One block (3 latents of 60 x 104 -> 12 frames of 480 x 832): about
+    0.81 T MACs, so its bf16 operations (1.62 TFLOP) bound it at ~1.64 ms,
+    above its bytes' time."""
+    from realtime_video_tpu_torch.models import taehv
+
+    got = pb.taehv_decode_bound(3, 60, 104)
+    macs, io_bytes = taehv.decode_work(3, 60, 104)
+    assert got["flop"] == 2 * macs and got["bytes"] == io_bytes
+    assert 0.80e12 < macs < 0.83e12
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(2 * macs / 989e12 * 1e3)
+    assert io_bytes / 3.35e12 * 1e3 < got["bound_ms"]

@@ -1,7 +1,7 @@
 """The port's WebSocket server over a real TCP socket on the CPU, tiny random
 models: ready -> msgpack GenerateParams -> 30 JPEG frames for 3 blocks ->
-completed; a request whose input cannot be read, or a server that would
-serve the unported TAEHV tier, gets an error; /health and /metrics; the
+completed; the same with the TAEHV preview tier (33 frames); a request
+whose input cannot be read gets an error; /health and /metrics; the
 upload and download endpoints; webcam frames pushed as mid-stream "image"
 messages; a start frame given as an uploaded file's path."""
 import asyncio
@@ -104,9 +104,13 @@ def test_ws_session_streams_30_frames_over_a_socket(stack):
     asyncio.run(run())
 
 
-def test_taehv_server_refuses_sessions(stack):
-    """The TAEHV preview tier is the one server option the port refuses."""
+def test_taehv_session_streams_33_frames_over_a_socket(stack, monkeypatch, tmp_path):
+    """A server with the TAEHV preview tier (`use_taehv`) streams a session:
+    TAEHV random-initialised at the session's start (no checkpoint at
+    RTV_TAEHV_CKPT), 3 blocks of 12 frames with block 0's first 3 dropped."""
     config, models = stack
+    monkeypatch.setenv("RTV_TAEHV_CKPT", str(tmp_path / "taew2_1.pth"))
+    monkeypatch.setattr(models, "taehv_params", None)
     taehv = load_server_config(num_frame_per_block=3, model_name="t2v-tiny", use_taehv=True)
 
     async def run():
@@ -114,13 +118,16 @@ def test_taehv_server_refuses_sessions(stack):
         try:
             async with aiohttp.ClientSession() as s:
                 frames, final = await stream(s, base, {"prompt": "a cat", "width": 64,
-                                                       "height": 64})
-                assert frames == [] and "not supported" in final["error"]
-                assert "use_taehv" in final["error"]
+                                                       "height": 64, "num_blocks": 3,
+                                                       "num_denoising_steps": 2})
+                assert final == {"session_id": "t1", "status": "completed"}
+                assert len(frames) == 33
+                assert Image.open(BytesIO(frames[0])).size == (64, 64)
         finally:
             await runner.cleanup()
 
     asyncio.run(run())
+    assert models.taehv_params["decoder"][1]["w"].dtype == torch.bfloat16
 
 
 def _jpeg(rng, h=48, w=80) -> bytes:

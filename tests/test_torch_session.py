@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from realtime_video_tpu.config import VAEConfig, WanModelConfig, load_server_config
+from realtime_video_tpu.models import taehv as jtaehv
 from realtime_video_tpu.models import vae as jvae
 from realtime_video_tpu.models import wan_dit as jdit
 from realtime_video_tpu.models.diffusion_wrapper import WanDiffusion as JGen
@@ -32,8 +33,11 @@ from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferenceP
 from realtime_video_tpu_torch.serving.models import Models as TModels
 from realtime_video_tpu_torch.serving.params import GenerateParams as TParams
 from realtime_video_tpu_torch.serving.session import GenerationSession as TSession
-from realtime_video_tpu_torch.serving.session import UnsupportedRequest
-from realtime_video_tpu_torch.utils.convert import vae_params_from_jax, wan_params_from_jax
+from realtime_video_tpu_torch.utils.convert import (
+    taehv_params_from_jax,
+    vae_params_from_jax,
+    wan_params_from_jax,
+)
 
 WAN = WanModelConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=2)
 VAEC = VAEConfig(dim=8, z_dim=16, dim_mult=(1, 1, 2, 2), num_res_blocks=1)
@@ -142,13 +146,33 @@ def test_three_block_session_matches_jax(stacks):
     assert len(encodes) == 1  # the anti-drift re-encode runs from block 2 on
 
 
-def test_unported_request_fields_are_refused(stacks):
-    """The TAEHV preview tier (a server option) is the one part of a request
-    the port still refuses; every request field is served (below)."""
-    config, _, tm = stacks
+def test_taehv_session_matches_jax(stacks, monkeypatch):
+    """The TAEHV preview tier (`use_taehv`): 3 blocks against the JAX
+    session's eager TAEHV path (the JAX tests hold its fused path equal to
+    it), with the same TAEHV weights (bf16) carried across. Each block is
+    decoded whole: 12 frames, block 0 dropping its first 3, so 9 + 12 + 12;
+    TAEHV's pixels feed block 2's anti-drift re-encode. Same bars as the Wan
+    decode's session above."""
+    config, jm, tm = stacks
+    monkeypatch.setenv("RTV_SESSION_MEGAFUSE", "0")
+    taehv_np, taehv_shapes = numpy_tree(lambda k: jtaehv.init_taehv_params(k, jnp.bfloat16), 4)
+    # the init's spread (uniform +-1/sqrt(fan_in)), so that pixels stay near [-1, 1]
+    taehv_np = jax.tree.map(lambda a: a / np.float32(np.sqrt(3.0)), taehv_np)
+    monkeypatch.setattr(jm, "taehv_params", jax.tree.map(
+        lambda a, s: jnp.asarray(a, s.dtype), taehv_np, taehv_shapes), raising=False)
+    monkeypatch.setattr(tm, "taehv_params", taehv_params_from_jax(taehv_np, dtype=torch.bfloat16))
     taehv = load_server_config(num_frame_per_block=3, use_taehv=True)
-    with pytest.raises(UnsupportedRequest, match="use_taehv"):
-        TSession(TParams(**REQ), taehv, models=tm)
+    js, ts, jframes, tframes, encodes = run_sessions(taehv, jm, tm)
+    jl = np.asarray(js.all_latents.astype(jnp.float32))
+    np.testing.assert_allclose(ts.all_latents.float().numpy(), jl, rtol=2e-2, atol=5e-2)
+    assert [f.shape[1] for f in tframes] == [f.shape[1] for f in jframes] == [9, 12, 12]
+    J, T = np.concatenate(jframes, 1), np.concatenate(tframes, 1)
+    assert J.shape == T.shape == (1, 33, 3, 64, 64)
+    assert np.isfinite(T).all() and float(T.std()) > 1e-2
+    assert float(np.abs(J - T).mean()) < 3e-2
+    assert ts.total_frames_sent == js.total_frames_sent == 33
+    assert len(encodes) == 1
+    assert len(ts.decode_vae_cache) == 9  # one carried frame per MemBlock
 
 
 def _png_bytes() -> bytes:
