@@ -25,7 +25,11 @@ Phases, each reported on its own lines:
          (the bound pre-pass, then the kernel) and as the kernel alone; the
          bound pre-pass's M against `logit_bound`'s (relative 1e-5); planted
          faults: the window's edges, the last block's end, and ring stages
-         filled with the previous tile;
+         filled with the previous tile; and the teacher's self-attention,
+         Lq = Lk = 32760 unmasked (256 q-tiles, the last of 120 rows) at 12
+         and 40 heads, held on rows [0, 1024) and [31744, 32760) with every
+         head and the whole K/V, timed beside SDPA flash on the same q, k, v,
+         with a stale ring stage and the last 128 columns dropped as faults;
        - the same kernel's int8 QK^T mode (K2-int8) at t2v-14B shapes (40
          heads): self-attention Lq 4680 / Lk 9360 over [1560, 9360),
          cross-attention Lk 512, block-causal 4680 in one block, and keys that
@@ -33,7 +37,11 @@ Phases, each reported on its own lines:
          segment's k scales one row off and a ring stage out of step must be
          caught; its pre-pass (raw q, the prescale folded in) must give the
          plain version's s8 quanta but for a share <= 1e-3, off by 1 at most;
-         the bf16 route at the same 14B shape is timed beside it;
+         the bf16 route at the same 14B shape is timed beside it; and at the
+         14B teacher's shape, Lq = Lk = 32760 unmasked with 40 heads, held
+         on the same two row ranges as K1's teacher case, timed beside the
+         bf16 route and SDPA flash, with a stale ring stage and the last 128
+         columns dropped as faults;
        - the skewed routes (K6a running max, K6b static max with the M >= 64
          fallback, also on a large-norm input), now launches of the same
          kernel, at the 1.3B self-attention shape, where a ring stage out of
@@ -41,7 +49,8 @@ Phases, each reported on its own lines:
        - the fused int8 linear (csrc/int8_mm.cu, K3: s8 wgmma, TMA) at the
          DiT block linears of t2v-1.3B (qkv, fc1, fc2 with K 8960, and o with
          a scale computed on the device) and of t2v-14B (qkv 4680 x 5120 x
-         15360, fc2 4680 x 13824 x 5120), on K-major weights, within 1 bf16
+         15360, fc2 4680 x 13824 x 5120; and the teacher's M = 32760 for qkv,
+         fc2 and o with the device scale), on K-major weights, within 1 bf16
          ulp of the plain version; planted faults: the last K tile, w_scale a
          column off, a ring stage holding the previous K tile;
        - the kt x 3 x 3 conv (csrc/conv_sm90.cu, K4/K5: s8 wgmma, TMA, halos
@@ -76,7 +85,9 @@ Phases, each reported on its own lines:
          latents -> 12 frames) in bf16 with its carried state, timed beside
          its bound;
   3. a small DiT block step on the card against the same step on the CPU
-     (plain versions), the port's own reference on a small input;
+     (plain versions), the port's own reference on a small input; the
+     teacher's train-mode forward (no cache, no mask) at t2v-1.3B's full
+     width with 2 layers on 3 latent frames at 832x480 the same way;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
      Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
      every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
@@ -89,7 +100,15 @@ Phases, each reported on its own lines:
        - t2v-1.3B in bf16, two sessions; then, on the same models, one
          session with RTV_ATTN_SKEW2's switch (K6b) and one with
          RTV_ATTN_SKEW's (K6a), whose block-0 x0 must match the default
-         attention's (cosine > 0.999);
+         attention's (cosine > 0.999); then the teacher path on the same
+         models (the teacher's precision, a random head, prompts from
+         SeededTextEncoder) over a whole 81-frame clip, 21 latents of
+         32760 tokens: `WanT2V.generate` (4 UniPC steps, guidance 5), the
+         few-step `BidirectionalInferencePipeline` (the default step list,
+         5 forwards) and `CausalDiffusionInferencePipeline` (7 blocks of 3,
+         2 UniPC steps, two 32760-token caches), each decoded to 81 frames,
+         its forwards timed apart with CUDA events, and K1 (with its bound
+         pre-pass) launched exactly 2 x 30 times a forward;
        - t2v-1.3B in the int8 tier (`enable_int8`, `enable_int8_dit`,
          `int8_static_scales`: calibrated and quantised on the card), two
          sessions; block 0's x0 must correlate with the bf16 tier's (> 0.99)
@@ -129,7 +148,10 @@ Phases, each reported on its own lines:
          (RTV_ATTN_INT8's switch), one session, with its load peak and
          serving peak beside the memory plan's total, then one TAEHV session
          on the same models; block 0's x0 with the int8 QK^T attention on
-         against off, on the same model (> 0.99).
+         against off, on the same model (> 0.99); one teacher step with CFG
+         (two train-mode forwards over the 21 latents) with the int8 QK^T
+         attention, then with K1 in bf16 (`teacher_14b`): the two routes'
+         latents and conditional flows at cosine > 0.99.
 The quantised-tree cache is off (RTV_QUANT_CACHE=0) outside its phase, and
 its directory is a temporary one, removed at exit.
 
@@ -230,7 +252,8 @@ def load_earlier(libs: dict):
 
 
 def cosine(a, b) -> float:
-    a, b = a.flatten(), b.flatten()
+    """Cosine similarity, in f32 whatever the inputs' dtype."""
+    a, b = a.flatten().float(), b.flatten().float()
     return float(a @ b / (a.norm() * b.norm()))
 
 
@@ -392,6 +415,7 @@ def main() -> None:
 
     from realtime_video_tpu_torch import native
     from realtime_video_tpu_torch.config import (
+        SAMPLE_NEG_PROMPT,
         T5_CONFIGS,
         VAE_CONFIGS,
         WAN_CONFIGS,
@@ -399,25 +423,31 @@ def main() -> None:
         load_server_config,
     )
     from realtime_video_tpu_torch import sample as sample_mod
+    from realtime_video_tpu_torch.generators import WanT2V
     from realtime_video_tpu_torch.models import t5 as t5_mod
     from realtime_video_tpu_torch.models import taehv as taehv_mod
     from realtime_video_tpu_torch.models import vae as vae_mod
     from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
     from realtime_video_tpu_torch.models.rope import RopeTables
-    from realtime_video_tpu_torch.models.text_encoder import WanTextEncoder
+    from realtime_video_tpu_torch.models.text_encoder import SeededTextEncoder, WanTextEncoder
     from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
     from realtime_video_tpu_torch.ops import hopper_conv as hc
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
     from realtime_video_tpu_torch.ops import kv_cache as kvc
     from realtime_video_tpu_torch.parallel.plan import serving_memory_plan
-    from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
+    from realtime_video_tpu_torch.pipelines import (
+        BidirectionalInferencePipeline,
+        CausalDiffusionInferencePipeline,
+        CausalInferencePipeline,
+    )
     from realtime_video_tpu_torch.serving import server as server_mod
     from realtime_video_tpu_torch.serving import session as session_mod
     from realtime_video_tpu_torch.serving.models import load_all, load_taehv, load_vae
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
+    from realtime_video_tpu_torch.solvers import make_solver
     from realtime_video_tpu_torch.utils.tokenizer import FallbackTokenizer
 
     # comparisons below are in full f32 on the plain side: no TF32 anywhere
@@ -425,6 +455,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernel_mods = (hk, hm, hc)
+
+    def read_counts():
+        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+        launches.update(hk.PREPASS_LAUNCHES)
+        launches.update(hc.PREPASS_LAUNCHES)
+        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
 
     # ---- phase 1: device and kernel builds ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -673,6 +709,135 @@ def main() -> None:
         fail("the self-attention case does not take the static-max path")
     torch.cuda.empty_cache()
 
+    # -- K1 at the teacher's shape: train-mode self-attention over a whole
+    # 81-frame clip, 32760 queries against 32760 keys, unmasked (256 q-tiles,
+    # the last of 120 rows), at t2v-1.3B's 12 heads and t2v-14B's 40. A plain
+    # version over every row would need 51.5 GB of f32 logits at 12 heads, so
+    # the error is taken on rows [0, 1024) and [31744, 32760) (all heads, the
+    # whole K/V); plain_ms is the plain version on the first range.
+    teacher_k1 = {}
+    tl = 32760
+    row_ranges = ((0, 1024), (31744, tl))
+    for name, nh in (("teacher_self_32760", 12), ("teacher_self_32760_14b", 40)):
+        q = hk.prescale(rnd((1, tl, nh, hd)), hd ** -0.5)
+        k, v = rnd((1, tl, nh, hd)), rnd((1, tl, nh, hd))
+        maxima = hk.logit_bound_maxima(q, k, inv)
+        kern = lambda: hk.window_attention(q, k, v, 0, tl, scale=inv)  # noqa: E731
+        alone = lambda: hk._launch_sm90(q, k, v, inv, maxima, hk._MODE_WINDOW,  # noqa: E731
+                                        0, tl, 1, tl, -1)
+
+        def rows(out):
+            return [out[:, a:b] for a, b in row_ranges]
+
+        got = rows(kern())
+        want = [hk.window_attention_plain(q[:, a:b], k, v, 0, tl, scale=inv)
+                for a, b in row_ranges]
+        torch.cuda.synchronize()
+        res = hk.agreement(torch.cat(got, dim=1), torch.cat(want, dim=1))
+        per_range = {f"rows_{a}_{b}": hk.agreement(g, w)["rel_fro_err"]
+                     for (a, b), g, w in zip(row_ranges, got, want)}
+        n_time = 5 if nh == 12 else 3
+        ms, route_ms = cuda_ms(alone, n_time), cuda_ms(kern, n_time)
+        plain_ms = cuda_ms(lambda: hk.window_attention_plain(q[:, :1024], k, v, 0, tl,
+                                                             scale=inv), 2)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=inv),
+                                 n_time)
+        flop = hk.window_flops(tl, 0, tl, nh, hd)
+        bound_ms, bound_by = bound(2.0 * nh * hd * 4 * tl, flop, "bf16")
+        m_bound = float(hk.logit_bound_from_maxima(maxima)[0])
+        teacher_k1[name] = dict(**res, **tol, rel_fro_by_rows=per_range, ms=ms,
+                                route_ms=route_ms, plain_ms_rows_1024=plain_ms,
+                                library_ms=library_ms, library="torch SDPA flash, unmasked",
+                                bound_ms=bound_ms, bound_by=bound_by, logit_bound=m_bound,
+                                tflops=flop / ms / 1e9)
+        phase("kernel", kernel="attention", case=name, mode="window", lq=tl, lk=tl, lo=0,
+              hi=tl, heads=nh, head_dim=hd, q_tiles=-(-tl // 128),
+              last_tile_rows=tl - 128 * (tl // 128), checked_rows=row_ranges,
+              **teacher_k1[name], card=card)
+        if not res["within_tol"]:
+            fail(f"{name}: kernel outside the bounds {tol} of the plain version: {res}")
+        if m_bound >= hk.STATIC_MAX_LIMIT:
+            fail(f"{name}: the teacher case does not take the static-max path")
+        if nh == 12:
+            # planted faults: the last ring stages filled with the previous
+            # tile; the window's last 128 columns dropped
+            faults = {"stale_ring_stage": lambda: hk._launch_sm90(
+                          q, k, v, inv, maxima, hk._MODE_WINDOW, 0, tl, 1, tl, -1,
+                          fault=hk.FAULT_STALE_RING_STAGE),
+                      "hi-128": lambda: hk.window_attention(q, k, v, 0, tl - 128, scale=inv)}
+            for fault, fn in faults.items():
+                bad = hk.agreement(torch.cat(rows(fn()), dim=1), torch.cat(want, dim=1))
+                phase("planted_fault", case=name, fault=fault, caught=not bad["within_tol"],
+                      max_abs_err=bad["max_abs_err"], rel_fro_err=bad["rel_fro_err"])
+                if bad["within_tol"]:
+                    fail(f"{name}: the check passes the planted fault {fault}: {bad}")
+        del q, k, v, got, want, qt, kt, vt, maxima
+        torch.cuda.empty_cache()
+
+    # -- K2-int8 at the same shape with t2v-14B's 40 heads, as the 14B
+    # teacher's int8 QK^T route runs it (`teacher_14b` below): the s8 form
+    # (the int8 pre-pass, then the kernel) against its plain version on the
+    # same two row ranges (q is quantised per row, so a row range's quanta
+    # are those of the whole call), the whole K/V. "ms" is the route as the
+    # path runs it; "bf16_route_ms" the bf16 `window` route on the same q,
+    # k, v; library_ms bf16 SDPA flash (no PyTorch call computes int8 QK^T
+    # attention).
+    name, nh = "teacher_self_32760_14b_int8qk", 40
+    q = hk.prescale(rnd((1, tl, nh, hd)), hd ** -0.5)
+    k, v = rnd((1, tl, nh, hd)), rnd((1, tl, nh, hd))
+    seg = hk.segment_rows(tl)
+    kern = lambda: hk.window_attention(q, k, v, 0, tl, scale=inv,  # noqa: E731
+                                       route="window_int8qk")
+
+    def rows(out):
+        return [out[:, a:b] for a, b in row_ranges]
+
+    got = rows(kern())
+    want = [hk.window_attention_int8qk_plain(q[:, a:b], k, v, 0, tl, scale=inv)
+            for a, b in row_ranges]
+    torch.cuda.synchronize()
+    res = hk.agreement(torch.cat(got, dim=1), torch.cat(want, dim=1))
+    per_range = {f"rows_{a}_{b}": hk.agreement(g, w)["rel_fro_err"]
+                 for (a, b), g, w in zip(row_ranges, got, want)}
+    ms = cuda_ms(kern, 3)
+    bf16_route_ms = cuda_ms(lambda: hk.window_attention(q, k, v, 0, tl, scale=inv,
+                                                        route="window"), 3)
+    plain_ms = cuda_ms(lambda: hk.window_attention_int8qk_plain(q[:, :1024], k, v, 0, tl,
+                                                                scale=inv), 2)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=inv), 3)
+    half = 2.0 * nh * hd * float(tl) * tl  # QK^T or PV
+    bound_ms, bound_by = bound(2.0 * nh * hd * 4 * tl, half, "int8", [(half, "bf16")])
+    teacher_k1[name] = dict(**res, **tol, rel_fro_by_rows=per_range, segment_rows=seg, ms=ms,
+                            bf16_route_ms=bf16_route_ms, plain_ms_rows_1024=plain_ms,
+                            library_ms=library_ms,
+                            library="torch SDPA flash (bf16), unmasked: no PyTorch call "
+                                    "computes int8 QK^T attention",
+                            bound_ms=bound_ms, bound_by=bound_by)
+    phase("kernel", kernel="attention", case=name, route="window_int8qk", lq=tl, lk=tl, lo=0,
+          hi=tl, heads=nh, head_dim=hd, checked_rows=row_ranges, **teacher_k1[name],
+          card=card)
+    if not res["within_tol"]:
+        fail(f"{name}: kernel outside the bounds {tol} of the plain version: {res}")
+    # planted faults: the last ring stages filled with the previous tile; the
+    # window's last 128 columns dropped
+    faults = {"stale_ring_stage": lambda: hk._launch_int8(
+                  q, k, v, inv, hk._MODE_WINDOW, 0, tl, 1, tl, -1, seg=seg,
+                  fault=hk.FAULT_STALE_RING_STAGE),
+              "hi-128": lambda: hk.window_attention(q, k, v, 0, tl - 128, scale=inv,
+                                                    route="window_int8qk")}
+    for fault, fn in faults.items():
+        bad = hk.agreement(torch.cat(rows(fn()), dim=1), torch.cat(want, dim=1))
+        phase("planted_fault", case=name, fault=fault, caught=not bad["within_tol"],
+              max_abs_err=bad["max_abs_err"], rel_fro_err=bad["rel_fro_err"])
+        if bad["within_tol"]:
+            fail(f"{name}: the check passes the planted fault {fault}: {bad}")
+    del q, k, v, got, want, qt, kt, vt
+    torch.cuda.empty_cache()
+
     # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed routes
     # (K6a, K6b, t2v-1.3B shapes) of the wgmma kernel, each route named
     # explicitly; the same bounds as K1/K2. The int8 mode's plain version
@@ -822,11 +987,16 @@ def main() -> None:
         return ((got.float() - want.float()).abs() / ulp).max().item()
 
     # The weights are K-major ([K, N] views of [N, K] storage, as the
-    # loaders build them).
+    # loaders build them). The *_teacher cases are the 14B teacher's
+    # train-mode forward over 32760 tokens (`teacher_14b`): M = 32760, the
+    # last 128-row tile holding 120.
     mm_results = {}
     mm_cases = [("qkv", 4680, 1536, 4608, True), ("fc1", 4680, 1536, 8960, True),
                 ("fc2", 4680, 8960, 1536, True), ("o_dynamic", 4680, 1536, 1536, False),
-                ("qkv_14b", 4680, 5120, 15360, True), ("fc2_14b", 4680, 13824, 5120, True)]
+                ("qkv_14b", 4680, 5120, 15360, True), ("fc2_14b", 4680, 13824, 5120, True),
+                ("qkv_14b_teacher", 32760, 5120, 15360, True),
+                ("fc2_14b_teacher", 32760, 13824, 5120, True),
+                ("o_14b_teacher_dynamic", 32760, 5120, 5120, False)]
     for name, m, kdim, n, static in mm_cases:
         x = rnd((1, m, kdim))
         w_q, bias = hm.k_major(rint8((kdim, n))), rnd((n,))
@@ -1223,6 +1393,43 @@ def main() -> None:
     if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all()):
         fail(f"small DiT block step on the card disagrees with the CPU: {rel}")
 
+    # the teacher's train-mode forward at t2v-1.3B's full width (dim 1536, 12
+    # heads) with 2 layers, 3 latent frames at 832x480 (4680 tokens, each
+    # attending to all), a random head and no mask: the card's bf16 against
+    # the CPU's f32 at the same bar
+    wide = dataclasses.replace(WAN_CONFIGS["t2v-1.3B"], num_layers=2)
+    p_cpu = wan_dit.fuse_qkv_params(wan_dit.init_wan_params(wide, cpu_gen, "cpu",
+                                                            torch.float32))
+    p_cpu["head"]["head"]["w"] = torch.randn(p_cpu["head"]["head"]["w"].shape,
+                                             generator=cpu_gen) * 0.05
+    p_gpu = to_gpu(p_cpu)
+    ctx = torch.randn((1, 512, wide.text_dim), generator=cpu_gen)
+    lat = torch.randn((1, 3, 16, 60, 104), generator=cpu_gen)
+    t = torch.tensor([[937.0, 500.0, 120.0]])
+    outs = {}
+    for name, params, device, dtype in (("cpu", p_cpu, "cpu", torch.float32),
+                                        ("gpu", p_gpu, dev, torch.bfloat16)):
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        rope = RopeTables.create(wide.head_dim, device=device)
+        cross = wan_dit.compute_crossattn_cache(wide, params, ctx.to(device, dtype))
+        flow, kv = wan_dit.dit_forward(wide, params, lat.to(device, dtype), t.to(device), rope,
+                                       cross, "train")
+        outs[name] = flow.float().cpu()
+    launches_tf, plain_tf = read_counts()
+    rel = ((outs["gpu"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+    phase("teacher_forward_small_vs_cpu", layers=wide.num_layers, dim=wide.dim,
+          heads=wide.num_heads, tokens=3 * 1560, rel_max_err=rel, tol=5e-2,
+          launches=launches_tf, plain_on_cuda=plain_tf, shape=list(outs["gpu"].shape),
+          card=card)
+    if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all() and kv is None):
+        fail(f"the train-mode forward on the card disagrees with the CPU: {rel}")
+    if launches_tf.get("window") != 2 * wide.num_layers or any(plain_tf.values()):
+        fail(f"the train-mode forward: K1 launches {launches_tf}, plain on CUDA {plain_tf}")
+    del p_cpu, p_gpu, outs, cross
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the server: 1.3B bf16 (+ skew sessions), 1.3B int8 (the
     # static embedding, then umT5 with the video-in sessions), the checkpoint
     # path, 14B int8 ----
@@ -1340,12 +1547,6 @@ def main() -> None:
         shape = models.transformer.params["head"]["head"]["w"].shape
         return torch.randn(shape, generator=head_gen, device=dev) * 0.05
 
-    def read_counts():
-        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
-        launches.update(hk.PREPASS_LAUNCHES)
-        launches.update(hc.PREPASS_LAUNCHES)
-        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
-
     def session_stats(label, sid, t_send, stamps, sizes, final, frames, blocks, first=6,
                       **extra):
         """Check one session's frames (`first` + 12 (blocks - 1): block 0
@@ -1388,7 +1589,134 @@ def main() -> None:
         server_mod.session_frames_storage.clear()  # kept for /download_video
         return launches, plain_on_cuda, peak_gb, stats
 
-    tiers, skew_launches, head_w = {}, {}, None
+    teacher_prompt = "a red fox running through snow"
+
+    def timed_forwards(gen, labels):
+        """Wrap gen.forward so that each call is timed with CUDA events; the
+        calls take `labels` in turn. Returns (events, restore)."""
+        events, forward = [], gen.forward
+
+        def timed(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = forward(*a, **k)
+            e1.record()
+            events.append((labels[len(events) % len(labels)], e0, e1))
+            return out
+
+        gen.forward = timed
+        return events, lambda: delattr(gen, "forward")
+
+    def forward_ms(events):
+        torch.cuda.synchronize()
+        out = {}
+        for label, e0, e1 in events:
+            out.setdefault(label, []).append(e0.elapsed_time(e1))
+        return out
+
+    def run_teacher(label, gen, fn, labels, want_window, **extra):
+        """One teacher phase on `gen`: every launch count set to 0 just
+        before fn() and read just after; the forwards timed apart; the output
+        must be 81 finite frames of 832x480; K1 (and its bound pre-pass) must
+        launch exactly `want_window` times and no plain version may see a
+        CUDA tensor."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        events, restore = timed_forwards(gen, labels)
+        t0 = time.perf_counter()
+        try:
+            video, lat, prof = fn()
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, plain_on_cuda = read_counts()
+        fwd = forward_ms(events)
+        finite = bool(torch.isfinite(video).all() and (lat is None or torch.isfinite(lat).all()))
+        phase(label, model="t2v-1.3B", tier="bf16", tokens=21 * 1560,
+              frames=list(video.shape), wall_s=wall_s,
+              forward_ms=fwd, forwards=len(events), **prof,
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+              plain_on_cuda=plain_on_cuda, k1_launches_expected=want_window, finite=finite,
+              **extra, card=card)
+        if not finite or tuple(video.shape[-4:]) != (81, 3, 480, 832):
+            fail(f"{label}: frames {tuple(video.shape)}, finite {finite}")
+        if (launches["window"] != want_window or launches["logit_bound"] != want_window
+                or any(plain_on_cuda.values())):
+            fail(f"{label}: K1 launches {launches['window']} / bound pre-passes "
+                 f"{launches['logit_bound']}, expected {want_window}; plain on CUDA "
+                 f"{plain_on_cuda}")
+        return dict(launches=launches, forward_ms=fwd, wall_s=wall_s, **prof)
+
+    def teacher_phases(models, head_w):
+        """The 50-step teacher's path on the bf16 tier's models (the teacher's
+        precision), at full depth and width, over a whole 81-frame clip at
+        832x480 (21 latents, 32760 tokens), the DiT head random (as in
+        block0_x0), prompts from SeededTextEncoder: WanT2V.generate with 4
+        UniPC steps, the few-step bidirectional sampler on the default step
+        list, and the block-causal CFG sampler with 2 steps a block."""
+        gen_t, vae = models.transformer, models.vae_decoder
+        layers = gen_t.cfg.num_layers
+        head = gen_t.params["head"]["head"]
+        saved, head["w"] = head["w"], head_w.to(head["w"].dtype)
+        enc = SeededTextEncoder(dev)
+        out = {}
+        try:
+            steps = 4
+            wan = WanT2V(gen_t, enc, vae, sample_solver="unipc", sampling_steps=steps,
+                         guidance_scale=5.0)
+
+            def bidi():
+                video = wan.generate(teacher_prompt, seed=7, profile=True)
+                return video, None, dict(wan.pipeline.last_profile)
+
+            # every forward: 30 self-attention and 30 cross-attention calls
+            out["bidirectional"] = run_teacher(
+                "bidirectional_diffusion_1.3b", gen_t, bidi, ("cond", "uncond"),
+                steps * 2 * 2 * layers, solver="unipc", steps=steps, guidance=5.0)
+            few = BidirectionalInferencePipeline(load_server_config(), gen_t, enc, vae)
+            noise = torch.randn(WanT2V.latent_shape((832, 480), 81),
+                                generator=torch.Generator(device=dev).manual_seed(8),
+                                device=dev).to(torch.bfloat16)
+
+            def few_step():
+                video, lat = few.inference(noise, text_prompts=[teacher_prompt],
+                                           return_latents=True, seed=8, profile=True)
+                return video, lat, dict(few.last_profile)
+
+            n_few = len(few.denoising_step_list)
+            out["few_step"] = run_teacher(
+                "bidirectional_few_step_1.3b", gen_t, few_step, ("forward",),
+                n_few * 2 * layers, steps=list(few.denoising_step_list))
+            causal_cfg = load_server_config(num_frame_per_block=3, sample_solver="unipc",
+                                            sampling_steps=2, guidance_scale=5.0,
+                                            timestep_shift=5.0, context_noise=0)
+            causal = CausalDiffusionInferencePipeline(causal_cfg, gen_t, enc, vae)
+
+            def causal_run():
+                video, lat = causal.inference(noise, text_prompts=[teacher_prompt],
+                                              return_latents=True, profile=True)
+                gib = sum(c[k].numel() * c[k].element_size()
+                          for c in (causal.kv_cache_pos, causal.kv_cache_neg)
+                          for k in ("k", "v")) / 2**30
+                return video, lat, dict(causal.last_profile, cache_gib=gib,
+                                        cache_tokens=causal.kv_cache_pos["k"].shape[2])
+
+            # 7 blocks of (2 steps x cond and uncond + the refresh of both caches)
+            n_causal = 7 * (2 * 2 + 2)
+            out["causal"] = run_teacher(
+                "causal_diffusion_1.3b", gen_t, causal_run, ("cond", "uncond"),
+                n_causal * 2 * layers, solver="unipc", steps_per_block=2, blocks=7,
+                decode_forwards=n_causal)
+            causal.kv_cache_pos = causal.kv_cache_neg = None
+        finally:
+            head["w"] = saved
+        return out
+
+    tiers, skew_launches, head_w, teacher = {}, {}, None, None
     kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
                     "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
                              "conv_quantize")}
@@ -1426,6 +1754,7 @@ def main() -> None:
                 if not (cos > 0.999 and torch.isfinite(x0).all()):
                     fail(f"{switch}: block-0 x0 does not match the default attention: {cos}")
                 skew_launches[key] = got[key]
+            teacher = teacher_phases(models, head_w)
         del models
         gc.collect()
         torch.cuda.empty_cache()
@@ -1831,6 +2160,71 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    def teacher_14b(models, head_w):
+        """One UniPC step with CFG (a conditional and an unconditional
+        train-mode forward) of the 14B int8 tier over the teacher's 21
+        latents (32760 tokens), the head random: with the int8 QK^T attention
+        (the 14B set's switch), then with K1 in bf16. The two routes' latents
+        and conditional flows must agree (cosine > 0.99, the serving set's
+        bar for the same switch)."""
+        gen = models.transformer
+        layers = gen.cfg.num_layers
+        head = gen.params["head"]["head"]
+        saved, head["w"] = head["w"], head_w.to(head["w"].dtype)
+        enc = SeededTextEncoder(dev, gen.cfg.text_len, gen.cfg.text_dim)
+        out, lats = {}, {}
+        try:
+            cross_c = gen.compute_crossattn_cache(enc([teacher_prompt])["prompt_embeds"])
+            cross_u = gen.compute_crossattn_cache(enc([SAMPLE_NEG_PROMPT])["prompt_embeds"])
+            noise = torch.randn(WanT2V.latent_shape((832, 480), 81),
+                                generator=torch.Generator(device=dev).manual_seed(8),
+                                device=dev).to(torch.bfloat16)
+            for route, int8qk in (("window_int8qk", True), ("window", False)):
+                hk.INT8_QK = int8qk
+                gc.collect()
+                torch.cuda.empty_cache()
+                for m in kernel_mods:
+                    m.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                solver = make_solver("unipc", 50, 5.0)  # the first step of the 50
+                t_val = float(solver.timesteps[0])
+                t = torch.full((1, noise.shape[1]), t_val, dtype=torch.float32, device=dev)
+                events, restore = timed_forwards(gen, ("cond", "uncond"))
+                t0 = time.perf_counter()
+                try:
+                    flow_c = gen.forward(noise, cross_c, t, mode="train")[0]
+                    flow_u = gen.forward(noise, cross_u, t, mode="train")[0]
+                    lat = solver.step(flow_u + 5.0 * (flow_c - flow_u), t_val, noise)
+                finally:
+                    restore()
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                launches, plain_on_cuda = read_counts()
+                finite = bool(torch.isfinite(lat).all())
+                out[route] = dict(forward_ms=forward_ms(events), step_ms=step_ms,
+                                  launches=launches,
+                                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                phase("teacher_14b", model="t2v-14B", tier="int8", attention_route=route,
+                      latents=list(lat.shape), tokens=noise.shape[1] * 1560, **out[route],
+                      plain_on_cuda=plain_on_cuda, finite=finite, card=card)
+                want = 2 * 2 * layers  # self and cross in every layer of 2 forwards
+                if not finite or launches[route] != want or any(plain_on_cuda.values()):
+                    fail(f"teacher_14b ({route}): finite {finite}, launches {launches}, "
+                         f"expected {want} on {route}, plain on CUDA {plain_on_cuda}")
+                lats[route] = (lat, flow_c)
+                del flow_u
+        finally:
+            head["w"] = saved
+        (lat8, flow8), (lat16, flow16) = lats["window_int8qk"], lats["window"]
+        cos = dict(latents_cosine=cosine(lat8, lat16), cond_flow_cosine=cosine(flow8, flow16),
+                   step_update_cosine=cosine(lat8.float() - noise.float(),
+                                             lat16.float() - noise.float()))
+        phase("teacher_14b_int8qk_vs_bf16_attention", **cos, bar=0.99,
+              held=["latents_cosine", "cond_flow_cosine"])
+        if not (cos["latents_cosine"] > 0.99 and cos["cond_flow_cosine"] > 0.99):
+            fail(f"teacher_14b: the int8 QK^T step does not track the bf16 attention's: {cos}")
+        return out
+
     # -- t2v-14B in the int8 tier with the int8 QK^T attention on --
     config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
                                 timestep_shift=5.0, **int8_flags)
@@ -1871,6 +2265,7 @@ def main() -> None:
         x0_on = block0_x0(config, models, head14)
         hk.INT8_QK = False
         x0_off = block0_x0(config, models, head14)
+        teacher14 = teacher_14b(models, head14)
     finally:
         hk.INT8_QK = False
     cos14 = cosine(x0_on, x0_off)
@@ -1895,6 +2290,8 @@ def main() -> None:
     conv_src = "realtime_video_tpu_torch/csrc/conv_sm90.cu"
     int8qk_cases = ("int8qk_self_14b", "int8qk_cross_14b", "int8qk_block_causal_14b",
                     "int8qk_shared_offset_14b")
+    k3b_cases = ("fc2", "qkv_14b", "fc2_14b", "qkv_14b_teacher", "fc2_14b_teacher",
+                 "o_14b_teacher_dynamic")
     k4_cases = ("s8_kt1_c96_480x832", "s8_kt1_c3_480x832", "s8_stride2_c96_480x832")
     k5_cases = ("s8_kt3_c96_480x832", "s8_kt3_c384_60x104", "s8_head_kt3_c96_co3_480x832",
                 "s8_first_kt3_c16_co384_60x104", "bf16_kt3_bias_c384_60x104")
@@ -1920,6 +2317,14 @@ def main() -> None:
                "launches_logit_bound": bf16_l["logit_bound"],
                "launches_int8_path": int8_l["window"],
                "launches_offline_inference": launches_off["window"],
+               **{f"teacher_self_32760{sfx}_{k}": teacher_k1[f"teacher_self_32760{sfx}"][k]
+                  for sfx in ("", "_14b")
+                  for k in ("ms", "route_ms", "plain_ms_rows_1024", "library_ms", "bound_ms",
+                            "max_abs_err", "rel_fro_err", "tflops")},
+               "launches_teacher_wan_t2v_4_steps": teacher["bidirectional"]["launches"]["window"],
+               "launches_teacher_few_step": teacher["few_step"]["launches"]["window"],
+               "launches_teacher_causal_diffusion": teacher["causal"]["launches"]["window"],
+               "launches_teacher_14b_bf16_cfg_step": teacher14["window"]["launches"]["window"],
                **{f"{c}_{k}": results[c][k]
                   for c in ("offline_window_18720", "offline_window_32760")
                   for k in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1934,14 +2339,20 @@ def main() -> None:
               sm90_src, "realtime_video_tpu/ops/pallas_attention.py:155",
               launches14["window_int8qk"] + launches14["block_causal_int8qk"],
               mode_results["int8qk_self_14b"],
-              max(mode_results[c]["max_abs_err"] for c in int8qk_cases),
+              max([mode_results[c]["max_abs_err"] for c in int8qk_cases]
+                  + [teacher_k1["teacher_self_32760_14b_int8qk"]["max_abs_err"]]),
               {"case": "14B self-attn 4680 / 9360, 40 heads; ms the route (pre-pass + kernel)",
+               **{f"teacher_self_32760_14b_{k}": teacher_k1["teacher_self_32760_14b_int8qk"][k]
+                  for k in ("ms", "bf16_route_ms", "plain_ms_rows_1024", "library_ms",
+                            "bound_ms", "bound_by", "max_abs_err", "rel_fro_err")},
                "earlier_ms": mode_results["int8qk_self_14b"]["earlier_ms"],
                "bf16_route_ms": mode_results["int8qk_self_14b"]["bf16_route_ms"],
                **times(mode_results, "int8qk_cross_14b", ("ms", "earlier_ms", "bf16_route_ms")),
                **times(mode_results, "int8qk_block_causal_14b",
                        ("ms", "earlier_ms", "bf16_route_ms")),
                "launches_window": launches14["window_int8qk"],
+               "launches_teacher_14b_cfg_step":
+               teacher14["window_int8qk"]["launches"]["window_int8qk"],
                "launches_block_causal": launches14["block_causal_int8qk"],
                "quanta_differing_share": max(mode_results[c]["quanta_differing_share"]
                                              for c in int8qk_cases),
@@ -1957,10 +2368,10 @@ def main() -> None:
               "realtime_video_tpu_torch/csrc/int8_mm.cu",
               "realtime_video_tpu/ops/pallas_int8_mm.py:62", int8_l["int8_linear_k_tiled"],
               mm_results["fc2"],
-              max(mm_results[c]["max_abs_err"] for c in ("fc2", "qkv_14b", "fc2_14b")),
+              max(mm_results[c]["max_abs_err"] for c in k3b_cases),
               {"case": "fc2 4680x8960x1536", "earlier_ms": mm_results["fc2"]["earlier_ms"],
-               "qkv_14b_ms": mm_results["qkv_14b"]["ms"],
-               "fc2_14b_ms": mm_results["fc2_14b"]["ms"],
+               **{f"{c}_{k}": mm_results[c][k] for c in k3b_cases[1:]
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                "launches_14b": launches14["int8_linear_k_tiled"]}),
         entry("conv3x3, 3x3 form (K4: kt 1; s8 with the fused dequantise)", conv_src,
               "realtime_video_tpu/ops/pallas_conv2.py:67",

@@ -108,12 +108,14 @@ class WanDiffusion:
         return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds)
 
     def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
-                kv_cache: Dict, current_start: int = 0, mode: str = "decode",
+                kv_cache: Optional[Dict] = None, current_start: int = 0, mode: str = "decode",
                 max_attention_size: Optional[int] = None,
                 schedule: Optional[FlowMatchSchedule] = None,
-                act_calib: Optional[list] = None):
+                act_calib: Optional[list] = None,
+                attn_mask: Optional[torch.Tensor] = None):
         """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
-        (wan_wrapper.py:230-301)."""
+        (wan_wrapper.py:230-301). Train mode takes no cache (kv_cache None,
+        returned as None) and an optional dense `attn_mask` [L, L]."""
         t = timestep.to(torch.float32)
         if max_attention_size is None:
             fsl = self.cfg.frame_seq_length(noisy.shape[-2], noisy.shape[-1])
@@ -122,7 +124,7 @@ class WanDiffusion:
             self.cfg, self.params, noisy, t, self.rope, crossattn_cache, mode=mode,
             kv_cache=kv_cache, current_start=current_start,
             max_attention_size=max_attention_size, layers=self.layers,
-            act_calib=act_calib)
+            act_calib=act_calib, attn_mask=attn_mask)
         x0 = (schedule or self.schedule).flow_to_x0(flow, noisy, t)
         return flow, x0, kv
 

@@ -6,11 +6,14 @@ after the reference's utils/wan_wrapper.py:20-55 WanTextEncoder).
 is given, else random-initialises the encoder on its device from a seed; it
 uses the HuggingFace tokenizer files when present, else the fallback
 tokenizer. `StaticTextEncoder` returns one fixed embedding for every prompt
-(the reference's USE_STATIC_ENCODER_COND_DICT, release_server.py:125-133).
+(the reference's USE_STATIC_ENCODER_COND_DICT, release_server.py:125-133);
+`SeededTextEncoder` a random one per prompt, drawn from the prompt's text,
+so that a guided sampler's prompt and negative prompt differ without umT5.
 """
 from __future__ import annotations
 
 import os
+import zlib
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -76,3 +79,20 @@ class StaticTextEncoder:
     def __call__(self, text_prompts: List[str]) -> Dict[str, torch.Tensor]:
         del text_prompts
         return {"prompt_embeds": self.prompt_embeds}
+
+
+class SeededTextEncoder:
+    """Returns a random [1, text_len, text_dim] bf16 embedding per prompt,
+    drawn on `device` from a generator seeded with the CRC-32 of the
+    prompt's text: the same prompt gives the same embedding."""
+
+    def __init__(self, device, text_len: int = 512, text_dim: int = 4096):
+        self.device = torch.device(device)
+        self.shape = (1, text_len, text_dim)
+
+    def __call__(self, text_prompts: List[str]) -> Dict[str, torch.Tensor]:
+        embs = []
+        for prompt in text_prompts:
+            gen = torch.Generator(device=self.device).manual_seed(zlib.crc32(prompt.encode()))
+            embs.append(torch.randn(self.shape, generator=gen, device=self.device))
+        return {"prompt_embeds": torch.cat(embs).to(torch.bfloat16)}

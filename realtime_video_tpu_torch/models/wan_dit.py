@@ -10,7 +10,10 @@ transformer blocks stacked on a leading layer axis, linear weights `w` as
     reference's local indices; attention over the window
     [local_end - max_attention_size, local_end) (causal_model.py:349-392);
   * "prefill": K/V written at [0, L), blockwise-causal attention over the
-    input (causal_model.py:305-348 + the serving recompute path).
+    input (causal_model.py:305-348 + the serving recompute path);
+  * "train": no cache; full attention over the input, or under a dense
+    `attn_mask` on the CPU (the 50-step teacher and the bidirectional
+    samplers, text2video.py's generate).
 
 AdaLN modulation is per frame ([B, F, 6, C], causal_model.py:463-491).
 Numerics as in the JAX package: params and activations bf16, norms, RoPE and
@@ -395,13 +398,22 @@ def dit_forward(
     prefill_block_tokens: Optional[int] = None,
     layers: Optional[List[Params]] = None,
     act_calib: Optional[list] = None,
-) -> Tuple[torch.Tensor, Dict]:
+    attn_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
-    the cache updated in place. `layers` may carry precomputed per-layer views
-    of params["blocks"] (`layer_params`). `act_calib`, when given, receives
-    max|input| of every block linear, layer by layer in `_calib_site_order`."""
-    if kv_cache is None:
-        raise ValueError("the port's dit_forward needs a kv_cache (decode or prefill)")
+    the cache updated in place (None in train mode). `layers` may carry
+    precomputed per-layer views of params["blocks"] (`layer_params`).
+    `act_calib`, when given, receives max|input| of every block linear, layer
+    by layer in `_calib_site_order`. `attn_mask` ([L, L] bool, True = attend)
+    applies in train mode only; without it train mode attends over every
+    token, through the unmasked kernel on a card."""
+    if mode == "train":
+        if kv_cache is not None:
+            raise ValueError("train mode takes no kv_cache")
+    elif kv_cache is None:
+        raise ValueError(f"{mode!r} mode needs a kv_cache")
+    elif attn_mask is not None:
+        raise ValueError("a dense attn_mask applies in train mode only")
     b, f, c, H, W = x.shape
     pt, ph, pw = cfg.patch_size
     grid = (f, H // ph, W // pw)
@@ -413,7 +425,7 @@ def dit_forward(
     tokens = patchify(cfg, params, x)
     e, e0 = time_embeddings(cfg, params, t)
 
-    cache_size = kv_cache["k"].shape[2]
+    cache_size = kv_cache["k"].shape[2] if kv_cache is not None else 0
     if mode == "decode":
         if max_attention_size is None:
             raise ValueError("decode mode needs max_attention_size")
@@ -429,9 +441,11 @@ def dit_forward(
             raise ValueError("prefill mode needs prefill_block_tokens")
         start_frame, write_start, shift = 0, 0, 0
         new_global_end = new_local_end = L
+    elif mode == "train":
+        start_frame = 0
     else:
-        raise ValueError(f"mode {mode!r}: the port runs 'decode' and 'prefill'")
-    if write_start < 0 or write_start + L > cache_size:
+        raise ValueError(f"mode {mode!r}: the port runs 'decode', 'prefill' and 'train'")
+    if mode != "train" and (write_start < 0 or write_start + L > cache_size):
         raise ValueError(f"cache write [{write_start}, {write_start + L}) outside "
                          f"the {cache_size}-token cache")
 
@@ -458,17 +472,21 @@ def dit_forward(
         q = rope_apply_fused(q, rope_cos, rope_sin)
         k = rope_apply_fused(k, rope_cos, rope_sin)
 
-        ck, cv = kv_cache["k"][lid], kv_cache["v"][lid]  # [B, S, N, Dh] views
-        if mode == "decode" and rolling and shift:
-            ck.copy_(kvc.shift_layer_cache(ck, shift, sink_tokens))
-            cv.copy_(kvc.shift_layer_cache(cv, shift, sink_tokens))
-        ck[:, write_start:write_start + L] = k.to(ck.dtype)
-        cv[:, write_start:write_start + L] = v.to(cv.dtype)
+        if mode == "train":
+            mask = None if attn_mask is None else attn_mask[None, None]
+            y = attn_ops.attention(q, k.contiguous(), v.contiguous(), mask=mask)
+        else:
+            ck, cv = kv_cache["k"][lid], kv_cache["v"][lid]  # [B, S, N, Dh] views
+            if mode == "decode" and rolling and shift:
+                ck.copy_(kvc.shift_layer_cache(ck, shift, sink_tokens))
+                cv.copy_(kvc.shift_layer_cache(cv, shift, sink_tokens))
+            ck[:, write_start:write_start + L] = k.to(ck.dtype)
+            cv[:, write_start:write_start + L] = v.to(cv.dtype)
         if mode == "decode":
             wk = ck[:, win_start:win_start + win].to(q.dtype).contiguous()
             wv = cv[:, win_start:win_start + win].to(q.dtype).contiguous()
             y = attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi)
-        else:
+        elif mode == "prefill":
             y = attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
                                                 prefill_block_tokens)
         y = lin(sa["o"], y.reshape(b, L, cfg.dim))
@@ -492,8 +510,9 @@ def dit_forward(
         y = lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
         tokens = tokens + gate(y, f, g_ffn)
 
-    kv_cache["global_end"] = new_global_end
-    kv_cache["local_end"] = new_local_end
+    if kv_cache is not None:
+        kv_cache["global_end"] = new_global_end
+        kv_cache["local_end"] = new_local_end
 
     # ---- head (CausalHead, causal_model.py:495-523) ----
     hp = params["head"]

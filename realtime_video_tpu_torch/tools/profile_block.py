@@ -1,7 +1,10 @@
-"""Profile one warm block of the serving path on a GPU.
+"""Profile one warm block of the serving path, or one step of the 50-step
+teacher, on a GPU.
 
     python -m realtime_video_tpu_torch.tools.profile_block [--model t2v-1.3B|t2v-14B]
         [--tier bf16|int8] [--int8-qk] [--webcam] [--umt5] [--taehv] [--out profile_out]
+    python -m realtime_video_tpu_torch.tools.profile_block --teacher
+        [--model t2v-1.3B|t2v-14B] [--clip-steps N] [--out profile_out]
 
 `load_all` builds the DiT (default t2v-1.3B; random weights from a seed) and
 the Wan 2.1 VAE on the card, in bf16 or in the int8 tier (the server flags
@@ -45,6 +48,21 @@ bytes over 3.35 TB/s, the larger).
 Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5][_taehv].json and
 the op table (.txt) under --out and prints the JSON summary. Quantised trees
 are not cached on disk unless RTV_QUANT_CACHE asks for it.
+
+With `--teacher` it profiles the bf16 teacher instead (`WanDiffusion`, random
+weights from a seed and a random head, as the head's init is zero): one
+classifier-free-guidance step, a conditional and an unconditional train-mode
+forward over a whole 81-frame clip at 832x480 (21 latents, 32760 tokens,
+each attending to all of them), the prompts' embeddings from
+`SeededTextEncoder`. After a warm step, one step runs unprofiled (its host
+wall with a sync at both ends, each forward's CUDA-event time), then one
+under torch.profiler inside the range `cfg_step`: device time by kernel,
+with the attention kernel and its bound pre-pass split into self- and
+cross-attention (their launches alternate in that order in every layer),
+cuBLAS and the elementwise ops apart, and the busy share of the range's
+span. `--clip-steps N` then times one whole `WanT2V.generate` of N UniPC
+steps with the Wan 2.1 VAE's decode (bf16), each step and the decode ended
+by a sync. Writes profile_teacher_<model>.json and .txt.
 """
 from __future__ import annotations
 
@@ -182,16 +200,20 @@ class PhaseTimer:
         return dict(out)
 
 
+def device_events(prof, range_name: str):
+    """(the host range's event, the device kernels and copies); the range's
+    own annotation on the GPU timeline is left out."""
+    events = prof.events()
+    span = next(e for e in events if e.name == range_name)
+    return span, [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != range_name]
+
+
 def device_summary(prof, range_name: str) -> dict:
     """The device's busy time inside the host range `range_name` against the
     range's span, and device time by category and by kernel."""
-    events = prof.events()
-    span = next(e for e in events if e.name == range_name)
+    span, device = device_events(prof, range_name)
     span_start, span_end = span.time_range.start, span.time_range.end
-    # device kernels and copies; the range's own annotation on the GPU
-    # timeline is left out
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name != range_name]
     intervals = [(max(e.time_range.start, span_start), min(e.time_range.end, span_end))
                  for e in device]
     busy_ms = union_length((a, b) for a, b in intervals if b > a) / 1e3
@@ -207,6 +229,23 @@ def device_summary(prof, range_name: str) -> dict:
     return {"profiled_span_ms": span_ms, "device_busy_ms": busy_ms,
             "idle_share_of_profiled_span": 1.0 - busy_ms / span_ms,
             "device_ms_by_category": by_cat, "top_kernels": top[:25]}
+
+
+def teacher_categories(events) -> Dict[str, float]:
+    """Device ms by bucket for the train-mode forwards: `category`'s, with
+    the attention kernel's and the bound pre-pass's launches split into
+    self- and cross-attention by launch order (every layer attends over its
+    tokens, then over the text, so the launches alternate, self first)."""
+    out: Dict[str, float] = defaultdict(float)
+    seen: Dict[str, int] = defaultdict(int)
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        cat = category(e.name)
+        if cat in ("attention_kernel", "attention_bound_prepass"):
+            side = "self_" if seen[cat] % 2 == 0 else "cross_"
+            seen[cat] += 1
+            cat = side + cat
+        out[cat] += (e.time_range.end - e.time_range.start) / 1e3
+    return dict(out)
 
 
 def report_stem(model: str, tier: str, int8_qk=False, webcam=False, umt5=False,
@@ -243,6 +282,97 @@ def webcam_jpegs(count: int = 24, seed: int = 24) -> List[bytes]:
     return out
 
 
+def op_table(profs) -> str:
+    """The profilers' op tables, by device time."""
+    from torch.autograd.profiler_util import FunctionEventAvg
+
+    sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
+                else "self_cuda_time_total")
+    return "\n\n".join(p.key_averages().table(sort_by=sort_key, row_limit=60) for p in profs)
+
+
+def teacher(args, card: str) -> None:
+    """The --teacher profile (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from realtime_video_tpu_torch.config import SAMPLE_NEG_PROMPT, load_server_config
+    from realtime_video_tpu_torch.generators import WanT2V
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.models.text_encoder import SeededTextEncoder
+    from realtime_video_tpu_torch.serving.models import load_vae
+    from realtime_video_tpu_torch.solvers import make_solver
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = WanDiffusion(model_name=args.model, device=dev, seed=0)
+    head = gen.params["head"]["head"]
+    head["w"] = (torch.randn(head["w"].shape, generator=torch.Generator(device=dev).manual_seed(11),
+                             device=dev) * 0.05).to(head["w"].dtype)
+    enc = SeededTextEncoder(dev, gen.cfg.text_len, gen.cfg.text_dim)
+    prompt = "a red fox running through snow"
+    cross_c = gen.compute_crossattn_cache(enc([prompt])["prompt_embeds"])
+    cross_u = gen.compute_crossattn_cache(enc([SAMPLE_NEG_PROMPT])["prompt_embeds"])
+    shape = WanT2V.latent_shape((832, 480), 81)
+    latent = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(21),
+                         device=dev).to(gen.dtype)
+    solver = make_solver("unipc", 50, 5.0)
+    t = torch.full(shape[:2], float(solver.timesteps[0]), dtype=torch.float32, device=dev)
+    fwd_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def forward(cross):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        flow, _, _ = gen.forward(latent, cross, t, mode="train")
+        end.record()
+        fwd_events.append((start, end))
+        return flow
+
+    def cfg_step():
+        flow_c = forward(cross_c)
+        flow_u = forward(cross_u)
+        return flow_u + 5.0 * (flow_c - flow_u)
+
+    cfg_step()
+    torch.cuda.synchronize()
+    fwd_events.clear()
+    t0 = time.perf_counter()
+    flow = cfg_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    fwd_ms = [a.elapsed_time(b) for a, b in fwd_events]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("cfg_step"):
+            cfg_step()
+            torch.cuda.synchronize()
+    step = device_summary(prof, "cfg_step")
+    step["device_ms_by_category"] = teacher_categories(device_events(prof, "cfg_step")[1])
+    summary = {"card": card, "model": args.model, "tier": "bf16", "latents": list(shape),
+               "tokens": shape[1] * gen.cfg.frame_seq_length(*shape[-2:]),
+               "step_wall_ms": wall_ms, "forward_ms": {"cond": fwd_ms[0], "uncond": fwd_ms[1]},
+               "flow_finite": bool(torch.isfinite(flow).all()), **step,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if args.clip_steps:
+        vae = load_vae(load_server_config(), dev, seed=1)
+        wan = WanT2V(gen, enc, vae, sampling_steps=args.clip_steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = wan.generate(prompt, seed=7, profile=True)
+        torch.cuda.synchronize()
+        prof_clip = wan.pipeline.last_profile
+        summary["clip"] = {"steps": args.clip_steps, "forwards": 2 * args.clip_steps,
+                           "wall_s": time.perf_counter() - t0,
+                           "step_ms": prof_clip["step_ms"], "decode_ms": prof_clip["decode_ms"],
+                           "frames": list(video.shape),
+                           "finite": bool(torch.isfinite(video).all()),
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    stem = f"profile_teacher_{args.model}"
+    (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
+    (out / f"{stem}.txt").write_text(op_table([prof]))
+    print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("t2v-1.3B", "t2v-14B"), default="t2v-1.3B",
@@ -260,17 +390,26 @@ def main() -> None:
     ap.add_argument("--taehv", action="store_true",
                     help="the TAEHV preview tier (use_taehv): each block decoded whole by "
                          "TAEHV, timed as its phase")
+    ap.add_argument("--teacher", action="store_true",
+                    help="profile one CFG step of the bf16 teacher over an 81-frame clip "
+                         "instead of a serving block")
+    ap.add_argument("--clip-steps", type=int, default=0,
+                    help="with --teacher: then time one WanT2V.generate of this many steps")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
     args = ap.parse_args()
     os.environ.setdefault("RTV_QUANT_CACHE", "0")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    if args.teacher:
+        return teacher(args, card)
     if args.umt5:
         os.environ.pop("USE_STATIC_ENCODER_COND_DICT", None)
     else:
         os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
 
-    from torch.autograd.profiler_util import FunctionEventAvg
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from realtime_video_tpu_torch.config import load_server_config
@@ -282,9 +421,6 @@ def main() -> None:
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
     dev = torch.device("cuda")
     config = load_server_config(model_name=args.model, num_frame_per_block=3,
                                 timestep_shift=5.0, use_taehv=args.taehv,
@@ -400,10 +536,7 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
     stem = report_stem(args.model, args.tier, args.int8_qk, args.webcam, args.umt5, args.taehv)
     (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
-    sort_key = ("self_device_time_total" if hasattr(FunctionEventAvg, "self_device_time_total")
-                else "self_cuda_time_total")
-    (out / f"{stem}.txt").write_text("\n\n".join(
-        p.key_averages().table(sort_by=sort_key, row_limit=60) for p in tables))
+    (out / f"{stem}.txt").write_text(op_table(tables))
     print(json.dumps({k: (v if k != "umt5" else {kk: vv for kk, vv in v.items()
                                                   if kk != "top_kernels"})
                       for k, v in summary.items() if k != "top_kernels"}), flush=True)

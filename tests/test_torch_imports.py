@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX: a fresh interpreter imports the package,
-its serving stack, TAEHV, the quantised-tree cache, the offline sampler and
-every other module of it, and `jax` stays out of sys.modules. Also holds
+its serving stack, TAEHV, the quantised-tree cache, the offline sampler, the
+solvers, the teacher pipelines, `WanT2V` and every other module of it, and
+`jax` stays out of sys.modules. Also holds
 that the port's kernel wrappers take a CUDA tensor only to their kernels (on
 a CPU-only host they must raise, not fall back), and that its entry points
 (TAEHV's init and `sample_videos` among them) build on the card unless
@@ -26,7 +27,11 @@ def test_port_imports_no_jax():
     mods = _modules()
     assert {"realtime_video_tpu_torch.serving.server", "realtime_video_tpu_torch.models.taehv",
             "realtime_video_tpu_torch.utils.qcache", "realtime_video_tpu_torch.sample",
-            "realtime_video_tpu_torch.pipelines.causal_inference"} <= set(mods)
+            "realtime_video_tpu_torch.pipelines.causal_inference",
+            "realtime_video_tpu_torch.solvers", "realtime_video_tpu_torch.generators",
+            "realtime_video_tpu_torch.pipelines.causal_diffusion_inference",
+            "realtime_video_tpu_torch.pipelines.bidirectional_diffusion_inference",
+            "realtime_video_tpu_torch.pipelines.bidirectional_inference"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

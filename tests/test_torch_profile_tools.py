@@ -102,3 +102,46 @@ def test_taehv_decode_bound_at_832x480():
     assert got["bound_by"] == "operations"
     assert got["bound_ms"] == pytest.approx(2 * macs / 989e12 * 1e3)
     assert io_bytes / 3.35e12 * 1e3 < got["bound_ms"]
+
+
+def test_teacher_categories_split_self_and_cross_attention(monkeypatch):
+    """A tiny train-mode forward on the CPU calls the attention self, cross,
+    self, cross, ... (the order `teacher_categories` relies on); device
+    events launched in that order are bucketed by it."""
+    from types import SimpleNamespace
+
+    from realtime_video_tpu_torch.config import WanModelConfig
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+
+    cfg = WanModelConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=3)
+    gen = WanDiffusion(cfg=cfg, device="cpu", dtype=torch.float32, seed=0)
+    calls, window = [], hk.window_attention
+    monkeypatch.setattr(hk, "window_attention",
+                        lambda q, k, *a, **kw: calls.append(k.shape[1]) or window(q, k, *a, **kw))
+    g = torch.Generator().manual_seed(0)
+    cross = gen.compute_crossattn_cache(torch.randn((1, 7, cfg.text_dim), generator=g))
+    x = torch.randn((1, 2, 16, 4, 6), generator=g)
+    flow, _, kv = gen.forward(x, cross, torch.full((1, 2), 500.0), mode="train")
+    assert kv is None and flow.shape == x.shape
+    assert calls == [2 * 6, 7] * cfg.num_layers  # self over 12 tokens, cross over 7
+
+    def ev(name, start, ms):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start,
+                                                                    end=start + ms * 1e3))
+
+    names = {"self": "(anonymous namespace)::attention_kernel<128>(void const*)",
+             "bound": "(anonymous namespace)::attn_logit_bound_kernel(void const*)"}
+    events, clock = [], 0.0
+    for layer in range(cfg.num_layers):
+        for side, ms in (("self", 4.0), ("cross", 0.5)):
+            events += [ev(names["bound"], clock, 0.1 if side == "self" else 0.01),
+                       ev(names["self"], clock + 200, ms)]
+            clock += 1000
+        events += [ev("nvjet_tst_192x144_64x5_2x1_v_bz_coopB_NNT", clock, 1.0),
+                   ev("void at::native::vectorized_elementwise_kernel<4>", clock + 300, 2.0)]
+        clock += 1000
+    got = pb.teacher_categories(events[::-1])  # any order: sorted by start
+    assert got == pytest.approx({"self_attention_kernel": 12.0, "cross_attention_kernel": 1.5,
+                                 "self_attention_bound_prepass": 0.3,
+                                 "cross_attention_bound_prepass": 0.03, "gemm": 3.0,
+                                 "elementwise/other": 6.0})
