@@ -423,7 +423,8 @@ def main() -> None:
         load_server_config,
     )
     from realtime_video_tpu_torch import sample as sample_mod
-    from realtime_video_tpu_torch.generators import WanT2V
+    from realtime_video_tpu_torch.generators import WanI2V, WanT2V
+    from realtime_video_tpu_torch.models import clip as clip_mod
     from realtime_video_tpu_torch.models import t5 as t5_mod
     from realtime_video_tpu_torch.models import taehv as taehv_mod
     from realtime_video_tpu_torch.models import vae as vae_mod
@@ -444,7 +445,12 @@ def main() -> None:
     )
     from realtime_video_tpu_torch.serving import server as server_mod
     from realtime_video_tpu_torch.serving import session as session_mod
-    from realtime_video_tpu_torch.serving.models import load_all, load_taehv, load_vae
+    from realtime_video_tpu_torch.serving.models import (
+        load_all,
+        load_taehv,
+        load_transformer,
+        load_vae,
+    )
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
     from realtime_video_tpu_torch.solvers import make_solver
@@ -836,6 +842,86 @@ def main() -> None:
         if bad["within_tol"]:
             fail(f"{name}: the check passes the planted fault {fault}: {bad}")
     del q, k, v, got, want, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- K1 and K2-int8 at the i2v image cross-attention's shape: 32760
+    # queries against the 257 CLIP tokens, i2v-14B's 40 heads, the first key
+    # length that is no multiple of the 64- and 128-row tiles (the last
+    # 128-row K tile holds 1 live row; K2-int8's one 384-row mean segment
+    # counts 127 pad rows). Held on the two row ranges, the whole K/V; "ms"
+    # is the kernel alone (K1) or the route (K2-int8), "route_ms" K1's
+    # route; library_ms bf16 SDPA flash. Planted faults: the window's last
+    # column (the lone live row of the last tile) dropped, and for K1 the
+    # last ring stages filled with the previous tile.
+    image_cross = {}
+    lk_img, nh = 257, 40
+    q = hk.prescale(rnd((1, tl, nh, hd)), hd ** -0.5)
+    k, v = rnd((1, lk_img, nh, hd)), rnd((1, lk_img, nh, hd))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    flop = hk.window_flops(tl, 0, lk_img, nh, hd)
+    io_bytes = 2.0 * nh * hd * (2 * tl + 2 * lk_img)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=inv), 10)
+    maxima = hk.logit_bound_maxima(q, k, inv)
+    for name, route in (("image_cross_257_14b", "window"),
+                        ("image_cross_257_14b_int8qk", "window_int8qk")):
+        int8 = route == "window_int8qk"
+        plain_fn = hk.window_attention_int8qk_plain if int8 else hk.window_attention_plain
+        kern = lambda: hk.window_attention(q, k, v, 0, lk_img, scale=inv,  # noqa: E731
+                                           route=route)
+        got = [kern()[:, a:b] for a, b in row_ranges]
+        want = [plain_fn(q[:, a:b], k, v, 0, lk_img, scale=inv) for a, b in row_ranges]
+        torch.cuda.synchronize()
+        res = hk.agreement(torch.cat(got, dim=1), torch.cat(want, dim=1))
+        per_range = {f"rows_{a}_{b}": hk.agreement(g, w)["rel_fro_err"]
+                     for (a, b), g, w in zip(row_ranges, got, want)}
+        route_ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(lambda: plain_fn(q[:, :1024], k, v, 0, lk_img, scale=inv), 3)
+        faults = {"hi-1": lambda: hk.window_attention(q, k, v, 0, lk_img - 1, scale=inv,
+                                                      route=route)}
+        if int8:
+            seg = hk.segment_rows(lk_img)
+            extra = hk.quanta_agreement(hk.int8_qk_prepass(q, k, seg, inv),
+                                        hk.int8_qk_prepass_plain(q, k, seg, inv))
+            extra["quanta_within_tol"] = extra.pop("within_tol")
+            extra.update(ms=route_ms, segment_rows=seg, bf16_route_ms=cuda_ms(
+                lambda: hk.window_attention(q, k, v, 0, lk_img, scale=inv, route="window"),
+                20))
+            bound_ms, bound_by = bound(io_bytes, flop / 2, "int8", [(flop / 2, "bf16")])
+        else:
+            alone = lambda: hk._launch_sm90(q, k, v, inv, maxima,  # noqa: E731
+                                            hk._MODE_WINDOW, 0, lk_img, 1, lk_img, -1)
+            extra = dict(ms=cuda_ms(alone, 20), route_ms=route_ms,
+                         logit_bound=float(hk.logit_bound_from_maxima(maxima)[0]))
+            faults["stale_ring_stage"] = lambda: hk._launch_sm90(
+                q, k, v, inv, maxima, hk._MODE_WINDOW, 0, lk_img, 1, lk_img, -1,
+                fault=hk.FAULT_STALE_RING_STAGE)
+            bound_ms, bound_by = bound(io_bytes, flop, "bf16")
+        image_cross[name] = dict(**res, **tol, rel_fro_by_rows=per_range, **extra,
+                                 plain_ms_rows_1024=plain_ms, library_ms=library_ms,
+                                 library="torch SDPA flash (bf16), unmasked"
+                                 + (": no PyTorch call computes int8 QK^T attention"
+                                    if int8 else ""),
+                                 bound_ms=bound_ms, bound_by=bound_by)
+        phase("kernel", kernel="attention", case=name, route=route, lq=tl, lk=lk_img, lo=0,
+              hi=lk_img, heads=nh, head_dim=hd, checked_rows=row_ranges,
+              last_k_tile_live_rows=lk_img - 128 * (lk_img // 128), **image_cross[name],
+              card=card)
+        if not res["within_tol"]:
+            fail(f"{name}: kernel outside the bounds {tol} of the plain version: {res}")
+        if int8 and not image_cross[name]["quanta_within_tol"]:
+            fail(f"{name}: the pre-pass's quanta differ from the plain version's")
+        if not int8 and image_cross[name]["logit_bound"] >= hk.STATIC_MAX_LIMIT:
+            fail(f"{name}: the image cross case does not take the static-max path")
+        for fault, fn in faults.items():
+            bad = hk.agreement(torch.cat([fn()[:, a:b] for a, b in row_ranges], dim=1),
+                               torch.cat(want, dim=1))
+            phase("planted_fault", case=name, fault=fault, caught=not bad["within_tol"],
+                  max_abs_err=bad["max_abs_err"], rel_fro_err=bad["rel_fro_err"])
+            if bad["within_tol"]:
+                fail(f"{name}: the check passes the planted fault {fault}: {bad}")
+        del got, want
+    del q, k, v, qt, kt, vt, maxima
     torch.cuda.empty_cache()
 
     # -- the int8 QK^T mode (K2-int8, t2v-14B shapes) and the skewed routes
@@ -1427,6 +1513,73 @@ def main() -> None:
     if launches_tf.get("window") != 2 * wide.num_layers or any(plain_tf.values()):
         fail(f"the train-mode forward: K1 launches {launches_tf}, plain on CUDA {plain_tf}")
     del p_cpu, p_gpu, outs, cross
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # CLIP ViT-H/14 at full width and depth (32 blocks, dim 1280, 16 heads;
+    # i2v uses 31), random f32 weights from a seed: one 832x480 image on the
+    # card against the CPU's plain run (f32 both, no TF32); forward ms by
+    # CUDA events over the encoder's call (resize, normalisation, 31 blocks)
+    clip_gen = torch.Generator().manual_seed(5)
+    vit_cpu = clip_mod.init_vit_params(clip_gen, None, "cpu")
+    image = torch.rand((3, 480, 832), generator=clip_gen) * 2.0 - 1.0
+    feats = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        enc = clip_mod.CLIPVisionEncoder(params=tree_to(vit_cpu, device))
+        image = image.to(device)
+        feats[name] = enc(image[None, :, None]).float().cpu()
+    clip_ms = cuda_ms(lambda: enc(image[None, :, None]), 5)
+    rel = (torch.linalg.norm(feats["gpu"] - feats["cpu"])
+           / torch.linalg.norm(feats["cpu"])).item()
+    phase("clip_vit_h_card_vs_cpu", blocks=31, dim=1280, heads=16, image="832x480 -> 224x224",
+          features=list(feats["gpu"].shape), rel_fro_err=rel, tol=1e-3, forward_ms=clip_ms,
+          finite=bool(torch.isfinite(feats["gpu"]).all()), card=card)
+    if not (rel < 1e-3 and tuple(feats["gpu"].shape) == (1, 257, 1280)
+            and torch.isfinite(feats["gpu"]).all()):
+        fail(f"CLIP ViT-H on the card disagrees with the CPU: {rel}, "
+             f"{tuple(feats['gpu'].shape)}")
+    clip_fea = feats["cpu"]
+    del vit_cpu, enc, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the i2v DiT at i2v-14B's full width (dim 5120, 40 heads, in_dim 36) with
+    # 2 layers, the image branch on (CLIP features [1, 257, 1280]), train
+    # mode over 3 latent frames of 30x32 (720 tokens: the last q tile
+    # ragged), a random head: the card's bf16 against the CPU's f32, as
+    # dit_small_vs_cpu; three K1 launches a layer (self, text, image)
+    i2v_two = dataclasses.replace(WAN_CONFIGS["i2v-14B"], num_layers=2)
+    p_cpu = wan_dit.fuse_qkv_params(wan_dit.init_wan_params(i2v_two, cpu_gen, "cpu",
+                                                            torch.float32))
+    p_cpu["head"]["head"]["w"] = torch.randn(p_cpu["head"]["head"]["w"].shape,
+                                             generator=cpu_gen) * 0.05
+    p_gpu = to_gpu(p_cpu)
+    ctx = torch.randn((1, 512, i2v_two.text_dim), generator=cpu_gen)
+    lat = torch.randn((1, 3, 36, 30, 32), generator=cpu_gen)
+    t = torch.tensor([[937.0, 937.0, 937.0]])
+    outs = {}
+    for name, params, device, dtype in (("cpu", p_cpu, "cpu", torch.float32),
+                                        ("gpu", p_gpu, dev, torch.bfloat16)):
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        rope = RopeTables.create(i2v_two.head_dim, device=device)
+        cross = wan_dit.compute_crossattn_cache(i2v_two, params, ctx.to(device, dtype),
+                                                clip_fea=clip_fea.to(device, dtype))
+        flow, _ = wan_dit.dit_forward(i2v_two, params, lat.to(device, dtype), t.to(device),
+                                      rope, cross, "train")
+        outs[name] = flow.float().cpu()
+    launches_i2v, plain_i2v = read_counts()
+    rel = ((outs["gpu"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+    phase("i2v_small_card_vs_cpu", layers=2, dim=i2v_two.dim, heads=i2v_two.num_heads,
+          in_dim=i2v_two.in_dim, tokens=3 * 15 * 16, image_tokens=257, rel_max_err=rel,
+          tol=5e-2, launches=launches_i2v, plain_on_cuda=plain_i2v,
+          shape=list(outs["gpu"].shape), card=card)
+    if not (rel < 5e-2 and torch.isfinite(outs["gpu"]).all()
+            and tuple(outs["gpu"].shape) == (1, 3, 16, 30, 32)):
+        fail(f"the i2v forward on the card disagrees with the CPU: {rel}")
+    if launches_i2v.get("window") != 3 * i2v_two.num_layers or any(plain_i2v.values()):
+        fail(f"the i2v forward: K1 launches {launches_i2v}, plain on CUDA {plain_i2v}")
+    del p_cpu, p_gpu, outs, cross, clip_fea
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2278,6 +2431,96 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- i2v-14B: WanI2V.generate at full depth and width in the int8 tier,
+    # 81 frames of 832x480 (21 latents, 32760 tokens) from a seeded image,
+    # CLIP ViT-H random f32 on the card, seeded prompts, a random head; 2
+    # UniPC steps at guidance 5 (the 50-step loop is the same code), with
+    # the int8 QK^T attention (K2-int8), then with K1 in bf16. Every window
+    # launch is one of the 3 attentions (self, text, image) of a layer in a
+    # forward: exactly 2 x 3 x 40 x steps.
+    def i2v_14b():
+        i2v_steps = 2
+        config = load_server_config(model_name="i2v-14B", timestep_shift=5.0, **int8_flags)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = load_transformer(config, dev, seed=0)
+        vae = load_vae(config, dev, seed=1)
+        clip_enc = clip_mod.CLIPVisionEncoder(device=dev, seed=2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 2**30
+        if gen.cfg.model_type != "i2v" or gen.cfg.in_dim != 36:
+            fail(f"i2v_14b: load_transformer built {gen.cfg}")
+        head = gen.params["head"]["head"]
+        head["w"] = (torch.randn(head["w"].shape, generator=head_gen, device=dev)
+                     * 0.05).to(head["w"].dtype)
+        enc = SeededTextEncoder(dev, gen.cfg.text_len, gen.cfg.text_dim)
+        img = torch.rand((3, 480, 832), generator=torch.Generator(device=dev).manual_seed(9),
+                         device=dev) * 2.0 - 1.0
+        i2v = WanI2V(gen, enc, vae, clip_enc, sampling_steps=i2v_steps, guidance_scale=5.0)
+        out, lats = {}, {}
+        try:
+            for route, int8qk in (("window_int8qk", True), ("window", False)):
+                hk.INT8_QK = int8qk
+                gc.collect()
+                torch.cuda.empty_cache()
+                for m in kernel_mods:
+                    m.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                events, restore = timed_forwards(gen, ("cond", "uncond"))
+                flows, forward = [], gen.forward
+
+                def keep_first(*a, **k):  # the first step's conditional forward
+                    res = forward(*a, **k)
+                    if not flows:
+                        flows.append(res[0])
+                    return res
+
+                gen.forward = keep_first
+                t0 = time.perf_counter()
+                try:
+                    video, lat = i2v.generate(teacher_prompt, img, frame_num=81, seed=8,
+                                              return_latents=True, profile=True)
+                finally:
+                    restore()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                launches, plain_on_cuda = read_counts()
+                finite = bool(torch.isfinite(video).all() and torch.isfinite(lat).all())
+                want = 2 * 3 * gen.cfg.num_layers * i2v_steps
+                out[route] = dict(wall_s=wall_s, forward_ms=forward_ms(events),
+                                  **i2v.last_profile, launches=launches,
+                                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                phase("i2v_14b", model="i2v-14B", tier="int8", attention_route=route,
+                      steps=i2v_steps, guidance=5.0, frames=list(video.shape),
+                      latents=list(lat.shape), tokens=lat.shape[1] * 1560, image_tokens=257,
+                      load_and_calibrate_s=load_s, load_peak_mem_gib=load_peak,
+                      **out[route], window_launches_expected=want,
+                      plain_on_cuda=plain_on_cuda, finite=finite, card=card)
+                if (not finite or tuple(video.shape) != (81, 3, 480, 832)
+                        or launches[route] != want or any(plain_on_cuda.values())):
+                    fail(f"i2v_14b ({route}): frames {tuple(video.shape)}, finite {finite}, "
+                         f"launches {launches}, expected {want} on {route}, plain on CUDA "
+                         f"{plain_on_cuda}")
+                lats[route] = (lat, flows[0])
+                del video, flows
+        finally:
+            hk.INT8_QK = False
+        (lat8, flow8), (lat16, flow16) = lats["window_int8qk"], lats["window"]
+        cos = dict(latents_cosine=cosine(lat8, lat16), cond_flow_cosine=cosine(flow8, flow16))
+        phase("i2v_14b_int8qk_vs_bf16_attention", **cos, bar=0.99, card=card)
+        if not (cos["latents_cosine"] > 0.99 and cos["cond_flow_cosine"] > 0.99):
+            fail(f"i2v_14b: the int8 QK^T run does not track the bf16 attention's: {cos}")
+        del gen, vae, clip_enc, i2v, lats
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    i2v14 = i2v_14b()
+
     def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": case["ms"],
@@ -2304,7 +2547,8 @@ def main() -> None:
         entry("window_attention (K1 static-max; in-kernel running-max fallback)", sm90_src,
               "realtime_video_tpu/ops/pallas_attention.py:220", bf16_l["window"],
               results["self_attn"], max(results["self_attn"]["max_abs_err"],
-                                        results["cross_attn"]["max_abs_err"]),
+                                        results["cross_attn"]["max_abs_err"],
+                                        image_cross["image_cross_257_14b"]["max_abs_err"]),
               {"case": "1.3B self-attn; ms the kernel alone", "route_ms":
                results["self_attn"]["route_ms"],
                "earlier_ms": results["self_attn"]["earlier_ms"],
@@ -2325,6 +2569,10 @@ def main() -> None:
                "launches_teacher_few_step": teacher["few_step"]["launches"]["window"],
                "launches_teacher_causal_diffusion": teacher["causal"]["launches"]["window"],
                "launches_teacher_14b_bf16_cfg_step": teacher14["window"]["launches"]["window"],
+               **{f"image_cross_257_14b_{k}": image_cross["image_cross_257_14b"][k]
+                  for k in ("ms", "route_ms", "plain_ms_rows_1024", "library_ms", "bound_ms",
+                            "bound_by", "max_abs_err", "rel_fro_err")},
+               "launches_i2v_14b_bf16_2_steps": i2v14["window"]["launches"]["window"],
                **{f"{c}_{k}": results[c][k]
                   for c in ("offline_window_18720", "offline_window_32760")
                   for k in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms",
@@ -2340,7 +2588,8 @@ def main() -> None:
               launches14["window_int8qk"] + launches14["block_causal_int8qk"],
               mode_results["int8qk_self_14b"],
               max([mode_results[c]["max_abs_err"] for c in int8qk_cases]
-                  + [teacher_k1["teacher_self_32760_14b_int8qk"]["max_abs_err"]]),
+                  + [teacher_k1["teacher_self_32760_14b_int8qk"]["max_abs_err"],
+                     image_cross["image_cross_257_14b_int8qk"]["max_abs_err"]]),
               {"case": "14B self-attn 4680 / 9360, 40 heads; ms the route (pre-pass + kernel)",
                **{f"teacher_self_32760_14b_{k}": teacher_k1["teacher_self_32760_14b_int8qk"][k]
                   for k in ("ms", "bf16_route_ms", "plain_ms_rows_1024", "library_ms",
@@ -2353,6 +2602,12 @@ def main() -> None:
                "launches_window": launches14["window_int8qk"],
                "launches_teacher_14b_cfg_step":
                teacher14["window_int8qk"]["launches"]["window_int8qk"],
+               **{f"image_cross_257_14b_{k}": image_cross["image_cross_257_14b_int8qk"][k]
+                  for k in ("ms", "bf16_route_ms", "plain_ms_rows_1024", "library_ms",
+                            "bound_ms", "bound_by", "max_abs_err", "rel_fro_err",
+                            "segment_rows")},
+               "launches_i2v_14b_2_steps":
+               i2v14["window_int8qk"]["launches"]["window_int8qk"],
                "launches_block_causal": launches14["block_causal_int8qk"],
                "quanta_differing_share": max(mode_results[c]["quanta_differing_share"]
                                              for c in int8qk_cases),
@@ -2372,7 +2627,9 @@ def main() -> None:
               {"case": "fc2 4680x8960x1536", "earlier_ms": mm_results["fc2"]["earlier_ms"],
                **{f"{c}_{k}": mm_results[c][k] for c in k3b_cases[1:]
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-               "launches_14b": launches14["int8_linear_k_tiled"]}),
+               "launches_14b": launches14["int8_linear_k_tiled"],
+               "launches_i2v_14b_2_steps":
+               i2v14["window_int8qk"]["launches"]["int8_linear_k_tiled"]}),
         entry("conv3x3, 3x3 form (K4: kt 1; s8 with the fused dequantise)", conv_src,
               "realtime_video_tpu/ops/pallas_conv2.py:67",
               int8_l["conv3x3"] - int8_l["conv3x3_temporal"],
@@ -2386,6 +2643,9 @@ def main() -> None:
                **times(conv_results, "s8_kt1_c3_480x832"),
                **times(conv_results, "s8_stride2_c96_480x832"),
                "launches_quantize_prepass": int8_l["conv_quantize"],
+               "launches_i2v_14b_encode_and_decode":
+               i2v14["window"]["launches"]["conv3x3"]
+               - i2v14["window"]["launches"]["conv3x3_temporal"],
                "launches_webcam_encode_block0": encode_launches["block0"]["kt1"],
                "launches_webcam_encode_warm_block": encode_launches["warm"]["kt1"],
                "webcam_encoder_forms_held_here": encoder_forms_checked["kt1"]}),
@@ -2403,6 +2663,8 @@ def main() -> None:
                **times(conv_results, "s8_first_kt3_c16_co384_60x104"),
                **times(conv_results, "bf16_kt3_bias_c384_60x104",
                        ("ms", "earlier_ms", "library_ms")),
+               "launches_i2v_14b_encode_and_decode":
+               i2v14["window"]["launches"]["conv3x3_temporal"],
                "launches_webcam_encode_block0": encode_launches["block0"]["kt3"],
                "launches_webcam_encode_warm_block": encode_launches["warm"]["kt3"],
                "webcam_encoder_forms_held_here": encoder_forms_checked["kt3"]}),

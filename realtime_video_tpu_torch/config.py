@@ -70,8 +70,11 @@ class WanModelConfig:
 WAN_CONFIGS: Dict[str, WanModelConfig] = {
     "t2v-14B": WanModelConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40),
     "t2v-1.3B": WanModelConfig(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30),
+    # Wan2.1-I2V-14B's published config.json: model_type "i2v", in_dim 36
+    # (16 noisy latent channels + the 4-channel first-frame mask + 16 channels
+    # of the encoded conditioning clip), dim 5120, ffn 13824, 40 heads, 40 layers
     "i2v-14B": WanModelConfig(
-        model_type="i2v", dim=5120, ffn_dim=13824, num_heads=40, num_layers=40
+        model_type="i2v", in_dim=36, dim=5120, ffn_dim=13824, num_heads=40, num_layers=40
     ),
     # tiny config for CPU tests (not in reference)
     "t2v-tiny": WanModelConfig(dim=64, ffn_dim=128, num_heads=2, num_layers=2),

@@ -72,8 +72,11 @@ class WanDiffusion:
         package, its eager form). Feed the result to
         wan_dit.quantize_wan_linears(act_scales=); call it before quantising.
 
-        `noisy` (one [1, nfpb, in_dim, lat_h, lat_w] latent per timestep) and
-        `context` ([1, T, text_dim]) default to normal draws from `seed`."""
+        `noisy` (one [1, nfpb, in_dim, lat_h, lat_w] latent per timestep: 36
+        channels for i2v-14B) and `context` ([1, T, text_dim]) default to
+        normal draws from `seed`. An i2v model also draws CLIP features [1,
+        257, 1280] after them, so that the cross attention's output
+        projection is calibrated on the sum of its text and image branches."""
         cfg = self.cfg
         sa = self.params["blocks"]["self_attn"]
         if "w" not in sa.get("qkv", sa.get("q", {})):
@@ -90,9 +93,13 @@ class WanDiffusion:
         if context is None:
             context = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
                                   device=self.device)
+        clip_fea = None
+        if cfg.model_type == "i2v":
+            clip_fea = torch.randn((1, 257, wan_dit.CLIP_DIM), generator=gen,
+                                   device=self.device)
         if len(noisy) != len(ts):
             raise ValueError(f"{len(noisy)} noisy latents for {len(ts)} timesteps")
-        cross = self.compute_crossattn_cache(context.to(self.device, self.dtype))
+        cross = self.compute_crossattn_cache(context.to(self.device, self.dtype), clip_fea)
         # a bf16 cache whatever the params' dtype, as the JAX method's default
         kv = kvc.init_kv_cache(cfg.num_layers, 1, cache_size, cfg.num_heads, cfg.head_dim,
                                torch.bfloat16, self.device)
@@ -104,8 +111,12 @@ class WanDiffusion:
                                     act_calib=records)
         return wan_dit.calibrate_wan_act_scales(records, self.params["blocks"], cfg.num_layers)
 
-    def compute_crossattn_cache(self, prompt_embeds: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds)
+    def compute_crossattn_cache(self, prompt_embeds: torch.Tensor,
+                                clip_fea: Optional[torch.Tensor] = None
+                                ) -> Dict[str, torch.Tensor]:
+        """Per-layer text K/V, and an i2v model's image K/V from `clip_fea`."""
+        return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds,
+                                               clip_fea=clip_fea)
 
     def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
                 kv_cache: Optional[Dict] = None, current_start: int = 0, mode: str = "decode",
@@ -115,7 +126,9 @@ class WanDiffusion:
                 attn_mask: Optional[torch.Tensor] = None):
         """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
         (wan_wrapper.py:230-301). Train mode takes no cache (kv_cache None,
-        returned as None) and an optional dense `attn_mask` [L, L]."""
+        returned as None) and an optional dense `attn_mask` [L, L]. An i2v
+        model's input carries its conditioning channels after the latent's
+        out_dim; pred_x0 is of the latent's channels."""
         t = timestep.to(torch.float32)
         if max_attention_size is None:
             fsl = self.cfg.frame_seq_length(noisy.shape[-2], noisy.shape[-1])
@@ -125,7 +138,7 @@ class WanDiffusion:
             kv_cache=kv_cache, current_start=current_start,
             max_attention_size=max_attention_size, layers=self.layers,
             act_calib=act_calib, attn_mask=attn_mask)
-        x0 = (schedule or self.schedule).flow_to_x0(flow, noisy, t)
+        x0 = (schedule or self.schedule).flow_to_x0(flow, noisy[:, :, :flow.shape[2]], t)
         return flow, x0, kv
 
     def make_denoise_block_fn(self, steps: Tuple[float, ...], max_attention_size: int,

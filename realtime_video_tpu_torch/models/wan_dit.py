@@ -13,7 +13,13 @@ transformer blocks stacked on a leading layer axis, linear weights `w` as
     input (causal_model.py:305-348 + the serving recompute path);
   * "train": no cache; full attention over the input, or under a dense
     `attn_mask` on the CPU (the 50-step teacher and the bidirectional
-    samplers, text2video.py's generate).
+    samplers, text2video.py's generate; image2video.py's).
+
+An i2v model (`model_type` "i2v") adds the image branch of
+WanI2VCrossAttention (model.py:258-300): `img_emb` projects CLIP features
+[B, 257, 1280], each layer's `k_img` / `v_img` (and `norm_k_img`) turn them
+into cached K/V, and the cross attention adds attn(q, k_img, v_img) to
+attn(q, k_txt, v_txt) before its output projection.
 
 AdaLN modulation is per frame ([B, F, 6, C], causal_model.py:463-491).
 Numerics as in the JAX package: params and activations bf16, norms, RoPE and
@@ -50,6 +56,9 @@ from realtime_video_tpu_torch.ops import hopper_int8_mm
 from realtime_video_tpu_torch.ops import kv_cache as kvc
 
 Params = Dict[str, Any]
+
+#: width of the CLIP ViT-H/14 features that condition an i2v model
+CLIP_DIM = 1280
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +241,11 @@ def init_wan_params(cfg: WanModelConfig, generator: torch.Generator, device=None
                     dtype=torch.bfloat16) -> Params:
     """Random init with the structure and distributions of the JAX package's
     init_wan_params (causal_model.py:1151-1173), drawn from `generator` and
-    made directly on `device`. Only t2v models."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError(f"model_type {cfg.model_type!r}: only t2v is ported")
+    made directly on `device`. An i2v model also gets the image branch:
+    `cross_attn.k_img` / `v_img` / `norm_k_img` per layer and the top-level
+    `img_emb` (the JAX package's shapes: fc1 1280 -> dim, fc2 dim -> dim)."""
+    if cfg.model_type not in ("t2v", "i2v"):
+        raise ValueError(f"model_type {cfg.model_type!r}: 't2v' or 'i2v'")
     d, ffn, nl = cfg.dim, cfg.ffn_dim, cfg.num_layers
     pt, ph, pw = cfg.patch_size
     g, dev = generator, device
@@ -249,9 +260,12 @@ def init_wan_params(cfg: WanModelConfig, generator: torch.Generator, device=None
         return {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "o": lin(d, d),
                 "norm_q": ones(d), "norm_k": ones(d)}
 
+    cross = attn_block()
+    if cfg.model_type == "i2v":
+        cross.update(k_img=lin(d, d), v_img=lin(d, d), norm_k_img=ones(d))
     blocks = {
         "self_attn": attn_block(),
-        "cross_attn": attn_block(),
+        "cross_attn": cross,
         "ffn": {"fc1": lin(d, ffn), "fc2": lin(ffn, d)},
         "modulation": torch.randn((nl, 1, 6, d), generator=g, dtype=torch.float32,
                                   device=dev) / d**0.5,
@@ -259,7 +273,7 @@ def init_wan_params(cfg: WanModelConfig, generator: torch.Generator, device=None
     if cfg.cross_attn_norm:
         blocks["norm3"] = {"scale": torch.ones((nl, d), dtype=dtype, device=dev),
                            "bias": torch.zeros((nl, d), dtype=dtype, device=dev)}
-    return {
+    params = {
         "patch_embedding": _init_linear(g, (cfg.in_dim * pt * ph * pw, d), dtype, dev),
         "text_embedding": {
             "fc1": _init_linear(g, (cfg.text_dim, d), dtype, dev, "normal02"),
@@ -278,6 +292,16 @@ def init_wan_params(cfg: WanModelConfig, generator: torch.Generator, device=None
                                       device=dev) / d**0.5,
         },
     }
+    if cfg.model_type == "i2v":
+        def affine(n):
+            return {"scale": torch.ones((n,), dtype=dtype, device=dev),
+                    "bias": torch.zeros((n,), dtype=dtype, device=dev)}
+
+        params["img_emb"] = {"norm1": affine(CLIP_DIM),
+                             "fc1": _init_linear(g, (CLIP_DIM, d), dtype, dev),
+                             "fc2": _init_linear(g, (d, d), dtype, dev),
+                             "norm2": affine(d)}
+    return params
 
 
 def fuse_qkv_params(params: Params) -> Params:
@@ -352,29 +376,47 @@ def text_embedding(cfg: WanModelConfig, params: Params, context: torch.Tensor) -
     return linear(te["fc2"], gelu_tanh(linear(te["fc1"], context)))
 
 
-def compute_crossattn_cache(cfg: WanModelConfig, params: Params,
-                            context: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Per-layer text K/V [L, B, T, N, Dh], computed once per prompt."""
+def img_embedding(params: Params, clip_fea: torch.Tensor) -> torch.Tensor:
+    """MLPProj for i2v CLIP features [B, 257, 1280] -> [B, 257, D]
+    (model.py:503-515, in the JAX package's form: gelu_tanh between fc1 and fc2)."""
+    p = params["img_emb"]
+    x = layer_norm(clip_fea, p["norm1"]["scale"], p["norm1"]["bias"])
+    x = linear(p["fc2"], gelu_tanh(linear(p["fc1"], x)))
+    return layer_norm(x, p["norm2"]["scale"], p["norm2"]["bias"])
+
+
+def compute_crossattn_cache(cfg: WanModelConfig, params: Params, context: torch.Tensor,
+                            clip_fea: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Per-layer text K/V [L, B, T, N, Dh], computed once per prompt. An i2v
+    model given `clip_fea` [B, 257, 1280] also caches the image K/V
+    `k_img` / `v_img` [L, B, 257, N, Dh] of its projected features."""
     ctx = text_embedding(cfg, params, context)  # [B, T, D]
     ca = params["blocks"]["cross_attn"]
-    b, T, _ = ctx.shape
     n, dh, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
 
-    def project(pp):
-        """ctx @ w for every layer, a layer at a time: int8 weights are
+    def project(pp, src):
+        """src @ w for every layer, a layer at a time: int8 weights are
         dequantised for this once-per-prompt product, and a whole 14B stack
         in f32 would take 8 GB."""
         def dense_w(i):
             if "w_q" in pp:
-                return (pp["w_q"][i].float() * pp["scale"][i]).to(ctx.dtype)
-            return pp["w"][i].to(ctx.dtype)
-        y = torch.stack([torch.matmul(ctx, dense_w(i)) for i in range(nl)])
-        return y + pp["b"].to(ctx.dtype)[:, None, None, :]
+                return (pp["w_q"][i].float() * pp["scale"][i]).to(src.dtype)
+            return pp["w"][i].to(src.dtype)
+        y = torch.stack([torch.matmul(src, dense_w(i)) for i in range(nl)])
+        return y + pp["b"].to(src.dtype)[:, None, None, :]
 
-    k = rms_norm({"scale": ca["norm_k"]["scale"][:, None, None, :]}, project(ca["k"]))
-    v = project(ca["v"])
-    return {"k": k.reshape(nl, b, T, n, dh).contiguous(),
-            "v": v.reshape(nl, b, T, n, dh).contiguous()}
+    def kv(src, k_name, v_name, norm_name):
+        b, T, _ = src.shape
+        k = rms_norm({"scale": ca[norm_name]["scale"][:, None, None, :]},
+                     project(ca[k_name], src))
+        v = project(ca[v_name], src)
+        return k.reshape(nl, b, T, n, dh).contiguous(), v.reshape(nl, b, T, n, dh).contiguous()
+
+    cache = dict(zip(("k", "v"), kv(ctx, "k", "v", "norm_k")))
+    if clip_fea is not None and cfg.model_type == "i2v":
+        img_ctx = img_embedding(params, clip_fea.to(ctx.dtype))  # [B, 257, D]
+        cache["k_img"], cache["v_img"] = kv(img_ctx, "k_img", "v_img", "norm_k_img")
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +544,9 @@ def dit_forward(
         cak = crossattn_cache["k"][lid].to(qc.dtype)
         cav = crossattn_cache["v"][lid].to(qc.dtype)
         yc = attn_ops.attention(qc, cak, cav)
+        if "k_img" in crossattn_cache:  # i2v: the image tokens, before o
+            yc = yc + attn_ops.attention(qc, crossattn_cache["k_img"][lid].to(qc.dtype),
+                                         crossattn_cache["v_img"][lid].to(qc.dtype))
         tokens = tokens + lin(ca["o"], yc.reshape(b, L, cfg.dim))
 
         # ---- ffn ----

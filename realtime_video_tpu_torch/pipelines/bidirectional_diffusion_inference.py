@@ -8,8 +8,10 @@ all of the clip's tokens, with no mask and no cache (32760 tokens at 81
 frames of 832x480, each attending to all of them: the attention kernel's
 unmasked window on a card), guided as flow_u + g * (flow_c - flow_u), and
 one solver (UniPC, or DPM++ on the explicit `get_sampling_sigmas` ladder)
-steps the latents. The pipeline runs on the generator's device; the JAX
-package's sequence-parallel mesh is not ported.
+steps the latents. `WanI2V` runs its loop here too, with the CLIP
+features in both cross caches and its 20 conditioning channels beside the
+latents. The pipeline runs on the generator's device; the JAX package's
+sequence-parallel mesh is not ported.
 """
 from __future__ import annotations
 
@@ -37,33 +39,44 @@ class BidirectionalDiffusionInferencePipeline:
         self.shift = float(config.get("timestep_shift", 5.0))
         self.last_profile: Optional[dict] = None
 
-    def _forward(self, cross, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def _forward(self, cross, x: torch.Tensor, t: torch.Tensor,
+                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if y is not None:
+            x = torch.cat([x, y], dim=2)  # i2v: 16 + 20 = 36 channels
         flow, _, _ = self.generator.forward(x, cross, t, mode="train")
         return flow
 
     def inference(self, noise: torch.Tensor, text_prompts: Optional[List[str]] = None,
                   prompt_embeds: Optional[torch.Tensor] = None,
                   neg_prompt_embeds: Optional[torch.Tensor] = None,
-                  return_latents: bool = False, profile: bool = False):
+                  return_latents: bool = False, profile: bool = False,
+                  clip_fea: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                  solver=None):
         """Sample the clip `noise` [B, F, C, h, w] and decode it: video
         [B, T, 3, H, W] in [0, 1] (None without a VAE); (video, latents)
-        with `return_latents`. `profile` syncs the device after every step
+        with `return_latents`. An i2v model takes its CLIP features
+        `clip_fea` (into both cross caches) and its conditioning channels
+        `y` [B, F, 20, h, w] (beside the latents in every forward). `solver`
+        is a solver with its timesteps set, else one from the config.
+        `profile` syncs the device after the cross caches, after every step
         and after the decode and keeps the times (ms) in `last_profile`."""
         gen = self.generator
         b, f = noise.shape[:2]
+        clock = ProfileClock(gen.device, profile)
         cond, uncond = prompt_pair(self, b, text_prompts, prompt_embeds, neg_prompt_embeds)
-        cross_pos = gen.compute_crossattn_cache(cond)
-        cross_neg = gen.compute_crossattn_cache(uncond)
-        solver = make_solver(self.sample_solver, self.sampling_steps, self.shift)
+        cross_pos = gen.compute_crossattn_cache(cond, clip_fea)
+        cross_neg = gen.compute_crossattn_cache(uncond, clip_fea)
+        cross_ms = clock.lap()
+        if solver is None:
+            solver = make_solver(self.sample_solver, self.sampling_steps, self.shift)
 
         latent = noise.to(gen.device, gen.dtype)
-        clock = ProfileClock(gen.device, profile)
         step_ms = []
         for t_val in solver.timesteps:
             # one timestep for every frame (wan_wrapper.py:245-248)
             t = torch.full((b, f), float(t_val), dtype=torch.float32, device=gen.device)
-            flow_c = self._forward(cross_pos, latent, t)
-            flow_u = self._forward(cross_neg, latent, t)
+            flow_c = self._forward(cross_pos, latent, t, y)
+            flow_u = self._forward(cross_neg, latent, t, y)
             flow = flow_u + self.guidance_scale * (flow_c - flow_u)
             latent = solver.step(flow, float(t_val), latent)
             step_ms.append(clock.lap())
@@ -71,7 +84,7 @@ class BidirectionalDiffusionInferencePipeline:
         video = decode_video(self.vae, latent)
         decode_ms = clock.lap()
         if profile:
-            self.last_profile = dict(step_ms=step_ms, decode_ms=decode_ms)
+            self.last_profile = dict(cross_ms=cross_ms, step_ms=step_ms, decode_ms=decode_ms)
         if return_latents:
             return video, latent
         return video

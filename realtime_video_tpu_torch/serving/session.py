@@ -46,7 +46,6 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from realtime_video_tpu_torch.models import taehv as taehv_mod
 from realtime_video_tpu_torch.models import wan_dit
@@ -56,6 +55,7 @@ from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_
 from realtime_video_tpu_torch.serving.models import load_taehv
 from realtime_video_tpu_torch.serving.params import GenerateParams
 from realtime_video_tpu_torch.serving.video_io import load_video_as_rgb, resample_array
+from realtime_video_tpu_torch.utils.image import resize_bicubic
 from realtime_video_tpu_torch.utils.misc import AtomicCounter
 
 log = logging.getLogger(__name__)
@@ -66,15 +66,6 @@ def _ensure_taehv_params(models) -> None:
     the JAX package builds them at the first preview session)."""
     if getattr(models, "taehv_params", None) is None:
         models.taehv_params = load_taehv(models.transformer.device)
-
-
-def resize_bicubic(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """frames [T, C, H, W] f32 -> [T, C, height, width], as
-    `jax.image.resize(..., "bicubic")`: Keys' cubic with a = -0.5, widened by
-    the scale when it shrinks (antialiasing). PyTorch's antialiased bicubic is
-    that filter; its plain bicubic (a = -0.75, never widened) is not."""
-    return F.interpolate(frames, size=(height, width), mode="bicubic", align_corners=False,
-                         antialias=True)
 
 
 def encode_video_latent(vae, encode_vae_cache, resample_to: Optional[int] = 16,

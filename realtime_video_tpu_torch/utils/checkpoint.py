@@ -5,7 +5,8 @@ Handles the reference's checkpoint formats:
   * DiT safetensors or .pt with an optional "model." prefix (sweep_sample.py:7-21,
     release_server.py:160-169) and the 1.3B/14B autodetect from
     blocks.0.self_attn.k.weight (release_server.py:162-165), its self-attention
-    q/k/v split or fused as `to_qkv`;
+    q/k/v split or fused as `to_qkv`; an i2v checkpoint (Wan2.1-I2V-14B) with
+    its image cross-attention projections and `img_emb`;
   * the umt5-xxl encoder safetensors (models_t5_umt5-xxl-enc-bf16.safetensors);
   * the Wan2.1_VAE.pth torch pickle.
 
@@ -20,6 +21,7 @@ only for a .safetensors file; a .pt / .pth file needs only torch.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -56,7 +58,13 @@ def strip_prefix(sd: StateDict, prefix: str = "model.") -> StateDict:
 
 
 def detect_wan_config(sd: StateDict) -> WanModelConfig:
-    """1.3B vs 14B autodetect (release_server.py:162-165)."""
+    """1.3B vs 14B autodetect (release_server.py:162-165); a checkpoint with
+    `img_emb` is i2v-14B, its `in_dim` read from `patch_embedding.weight`
+    [dim, in_dim, 1, 2, 2]. (The JAX package's detect returns t2v-14B there,
+    and its i2v-14B config keeps in_dim 16; the port's copy repairs both.)"""
+    if "img_emb.proj.0.weight" in sd:
+        return dataclasses.replace(WAN_CONFIGS["i2v-14B"],
+                                   in_dim=int(sd["patch_embedding.weight"].shape[1]))
     w = sd.get("blocks.0.self_attn.k.weight")
     if w is not None and w.shape[0] == 1536:
         return WAN_CONFIGS["t2v-1.3B"]
@@ -103,12 +111,12 @@ class _Converter:
 
 def convert_wan_dit(sd: StateDict, cfg: WanModelConfig, dtype=torch.bfloat16,
                     device=None) -> Dict[str, Any]:
-    """A reference DiT state dict (t2v) as the port's tree with the
+    """A reference DiT state dict (t2v or i2v) as the port's tree with the
     self-attention projections fused; the time MLP and the modulation tables
-    stay f32, as in the JAX converter."""
+    stay f32, as in the JAX converter. An i2v state dict's `k_img`, `v_img`,
+    `norm_k_img` and `img_emb.proj.{0,1,3,4}` (LN, Linear, GELU, Linear, LN)
+    map as the JAX converter maps them: proj.1 -> fc1, proj.3 -> fc2."""
     sd = strip_prefix(sd, "model.")
-    if "img_emb.proj.0.weight" in sd:
-        raise NotImplementedError("i2v checkpoints: only t2v is ported")
     c = _Converter(sd, dtype, device)
 
     def qkv(base: str) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -128,6 +136,10 @@ def convert_wan_dit(sd: StateDict, cfg: WanModelConfig, dtype=torch.bfloat16,
         p["o"] = c.lin(f"{base}.o")
         p["norm_q"] = {"scale": c.t(f"{base}.norm_q.weight")}
         p["norm_k"] = {"scale": c.t(f"{base}.norm_k.weight")}
+        if f"{base}.k_img.weight" in sd:
+            p["k_img"] = c.lin(f"{base}.k_img")
+            p["v_img"] = c.lin(f"{base}.v_img")
+            p["norm_k_img"] = {"scale": c.t(f"{base}.norm_k_img.weight")}
         return p
 
     def block(i: int) -> Dict[str, Any]:
@@ -142,7 +154,7 @@ def convert_wan_dit(sd: StateDict, cfg: WanModelConfig, dtype=torch.bfloat16,
 
     pe_w = c.t("patch_embedding.weight")  # [D, C, pt, ph, pw]
     f32 = torch.float32
-    return {
+    params = {
         # flatten (C, pt*ph*pw) row-major to match patchify's token layout
         "patch_embedding": {"w": pe_w.reshape(pe_w.shape[0], -1).t().contiguous(),
                             "b": c.t("patch_embedding.bias")},
@@ -153,6 +165,14 @@ def convert_wan_dit(sd: StateDict, cfg: WanModelConfig, dtype=torch.bfloat16,
         "blocks": c.stack(cfg.num_layers, block),
         "head": {"head": c.lin("head.head"), "modulation": c.t("head.modulation", f32)},
     }
+    if "img_emb.proj.0.weight" in sd:
+        params["img_emb"] = {
+            "norm1": {"scale": c.t("img_emb.proj.0.weight"), "bias": c.t("img_emb.proj.0.bias")},
+            "fc1": c.lin("img_emb.proj.1"),
+            "fc2": c.lin("img_emb.proj.3"),
+            "norm2": {"scale": c.t("img_emb.proj.4.weight"), "bias": c.t("img_emb.proj.4.bias")},
+        }
+    return params
 
 
 def convert_t5_encoder(sd: StateDict, cfg: T5Config, dtype=torch.bfloat16,

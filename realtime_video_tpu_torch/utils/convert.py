@@ -100,6 +100,18 @@ def t5_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = No
     return out
 
 
+def clip_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_vit_params` / `convert_clip_vision` tree or an
+    `init_xlm_roberta_params` tree (numpy leaves) as the port's CLIP params
+    (`models/clip.py`, the same layout: blocks stacked, linear weights [in,
+    out]). Python scalars (the XLM-R tree's `pad_id`) stay as they are."""
+    if isinstance(tree, dict):
+        return {k: clip_params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (int, float)):
+        return tree
+    return _leaf(tree, device, dtype)
+
+
 def taehv_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """A JAX `init_taehv_params` or `convert_taehv_checkpoint` tree (numpy
     leaves, conv weights HWIO) as the port's TAEHV params (`models/taehv.py`:

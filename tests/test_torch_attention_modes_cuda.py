@@ -27,6 +27,7 @@ WINDOW_CASES = [
     ("cross", 130, 512, 0, 512, 1.0, 0.0),
     ("three_segments", 312, 2336, 100, 2336, 1.0, 2.0),
     ("large_norm", 160, 640, 64, 600, 4.0, 0.0),
+    ("image_cross_257", 130, 257, 0, 257, 1.0, 2.0),
 ]
 
 

@@ -49,13 +49,15 @@ def keys(seed, shape, offset):
 
 # (name, lq, lk, lo, hi, key offset, BK): a window with lo > 0 (one
 # segment); three segments with a diluted tail (2304 = 2 x 1024 + 256) on
-# keys that share an offset; cross-attention (one 512-row segment); and the
-# same window with BK 256, four segments
+# keys that share an offset; cross-attention (one 512-row segment); the
+# same window with BK 256, four segments; and the i2v image cross-attention
+# over 257 CLIP tokens (one 384-row segment whose mean counts 127 pad rows)
 WINDOW_CASES = [
     ("window", 200, 1024, 100, 700, 0.0, 1024),
     ("diluted_tail", 200, 2304, 300, 2304, 2.0, 1024),
     ("cross", 130, 512, 0, 512, 0.0, 1024),
     ("window_bk256", 200, 1024, 100, 700, 2.0, 256),
+    ("image_cross_257", 130, 257, 0, 257, 2.0, 1024),
 ]
 
 
@@ -138,3 +140,27 @@ def test_quantizer_segments_and_scales():
     assert q8.flatten().tolist() == [127] * 4
     assert sq.shape == (1, 1, 1) and sk.shape == (1, 1, 3)
 
+
+
+def test_image_cross_257_means_count_the_pad(int8_on):
+    """Lk 257 (the i2v image tokens): segment_rows gives 384, so the one
+    segment's mean is the sum of the 257 keys over 384, as the TPU kernel
+    means its zero-padded sub-tile; a mean over the 257 real rows alone
+    must miss the tolerance against the JAX kernel."""
+    lq, lk, n, d = 130, 257, 2, 128
+    assert hk.segment_rows(lk) == 384
+    q, k, v = rand(7, (1, lq, n, d)), keys(8, (1, lk, n, d), 2.0), rand(9, (1, lk, n, d))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pat.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               jnp.asarray(0, jnp.int32),
+                                               jnp.asarray(lk, jnp.int32)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = tattn.attention(tq, tk, tv).numpy()
+    assert rel_fro(got, want) <= REL_FRO
+    _, _, _, sk = hk.int8_qk_prepass_plain(tq, tk, 384, d ** -0.5)
+    _, _, _, sk_real = hk.int8_qk_prepass_plain(tq, tk, lk, d ** -0.5)
+    assert not torch.equal(sk, sk_real)
+    valid = hk._window_mask(lk, 0, lk, "cpu")
+    real_rows = hk.int8_qk_attention_plain(
+        *hk.int8_qk_prepass_plain(tq, tk, lk, d ** -0.5), tv, valid, tq.dtype).numpy()
+    assert rel_fro(real_rows, want) > REL_FRO, "a mean over the real rows passes"

@@ -5,9 +5,10 @@ JAX, so it runs on the GPU machine:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
-Cases: the window with lo > 0, cross-attention, unpadded lengths, the
-large-norm input that trips the running-max path, and block-causal with a
-partial block and a local window. Planted faults in the window's edges, the
+Cases: the window with lo > 0, cross-attention (over 512 text tokens, and
+over the 257 CLIP tokens of i2v: one live row in the last K tile), unpadded
+lengths, the large-norm input that trips the running-max path, and
+block-causal with a partial block and a local window. Planted faults in the window's edges, the
 end of the last block, and a ring stage filled with the previous tile must
 fail the same check.
 """
@@ -22,6 +23,7 @@ WINDOW_CASES = [
     ("cross", 130, 512, 2, 128, 0, 512, 1.0),
     ("unpadded_1560", 312, 936, 2, 128, 0, 936, 1.0),
     ("large_norm", 160, 640, 2, 128, 64, 600, 4.0),
+    ("image_cross_257", 130, 257, 2, 128, 0, 257, 1.0),
 ]
 BLOCK_CASES = [(6, 64, 3, None), (7, 64, 3, None), (7, 64, 3, 2)]
 
