@@ -4,11 +4,12 @@
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), the build of the
-     three hand-written kernel libraries from realtime_video_tpu_torch/csrc/
+     four hand-written kernel libraries from realtime_video_tpu_torch/csrc/
      (one nvcc per source, all started together; with the earlier kernels'
      sources under _archive/, those too, for the A/B times below), and, per
-     library, its counts of HGMMA / IGMMA (wgmma) and UTMALDG (TMA load)
-     instructions in `cuobjdump -sass`: every library must show them;
+     library, its counts of HGMMA / IGMMA (wgmma), UTMALDG (TMA load) and
+     HMMA (mma.sync) instructions in `cuobjdump -sass`: the wgmma libraries
+     must show the first, the attention backward the last;
   2. kernels against their plain PyTorch versions at serving shapes, with each
      error against its bound, the kernel's, the plain version's and a library
      call's CUDA-event time, and the least time the card could take
@@ -87,7 +88,22 @@ Phases, each reported on its own lines:
   3. a small DiT block step on the card against the same step on the CPU
      (plain versions), the port's own reference on a small input; the
      teacher's train-mode forward (no cache, no mask) at t2v-1.3B's full
-     width with 2 layers on 3 latent frames at 832x480 the same way;
+     width with 2 layers on 3 latent frames at 832x480 the same way; then
+     the training path (`backward_kernel_phase`, `training_phase`): the
+     attention backward (csrc/attention_bwd_sm90.cu, mma.sync) against its
+     plain version at the training shapes and two large-norm windows
+     (BWD_CASES), its dq, dk and dv each under `agreement` at `grad_atol`,
+     the forward's LSE against the plain one, timed beside its bound and
+     torch SDPA's backward, with the D term dropped, the window 16 short and
+     a 1% scale error as planted faults; DMD's generator gradient of
+     2-layer t2v-1.3B-width networks on the card in bf16 against the CPU's
+     f32 (cosine, norm ratio and relative error, the CPU's bf16 run beside
+     as the control); and train.py's path at
+     t2v-1.3B full width (`train.build` / `train_step`: three networks from
+     seeds 0 / 1 / 2, random heads, 6 latent frames of 60x104): two DMD
+     steps and one causal flow-matching step, each with its ms, peak GiB,
+     losses and gradient norms (finite, nonzero), the params moved, the
+     backward launches equal to what the code implies, none plain;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
      Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
      every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
@@ -157,7 +173,8 @@ its directory is a temporary one, removed at exit.
 
 Before its last line it prints the kernels' JSON summary, one row per TPU
 kernel of the repo (nine rows, each with `earlier_ms`: the replaced
-version's time in this run where _archive/ holds it, else null); the
+version's time in this run where _archive/ holds it, else null) and one for
+the attention backward, which replaces no TPU kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it, and so does a host without a CUDA device.
 Phase 1 also names the JPEG codec the server uses (the native libjpeg codec,
@@ -181,6 +198,7 @@ import faulthandler
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -221,12 +239,13 @@ def bound(bytes_moved: float, ops: float, kind: str, more_ops=()):
 
 
 def sass_counts(lib: Path, nvcc: str) -> dict:
-    """Counts of wgmma (HGMMA bf16, IGMMA s8) and TMA load (UTMALDG)
-    instructions in a library's SASS."""
+    """Counts of wgmma (HGMMA bf16, IGMMA s8), TMA load (UTMALDG) and
+    mma.sync (HMMA) instructions in a library's SASS."""
     tool = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "IGMMA", "UTMALDG", "HMMA")}
 
 
 def load_earlier(libs: dict):
@@ -252,8 +271,9 @@ def load_earlier(libs: dict):
 
 
 def cosine(a, b) -> float:
-    """Cosine similarity, in f32 whatever the inputs' dtype."""
-    a, b = a.flatten().float(), b.flatten().float()
+    """Cosine similarity, in f64 whatever the inputs' dtype (an f32 dot
+    product over the ~10^8 elements of a model's gradient can pass 1)."""
+    a, b = a.flatten().double(), b.flatten().double()
     return float(a @ b / (a.norm() * b.norm()))
 
 
@@ -395,6 +415,377 @@ def bits_differing(cpu_tree, gpu_tree) -> dict:
     return out
 
 
+def event_ms(fn, n: int) -> float:
+    """Mean CUDA-event time of fn over n calls, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+#: the attention backward's cases at the training shapes (t2v-1.3B, 12 heads,
+#: 6 latent frames of 60x104: 1560 tokens a frame, blocks of 4680): the
+#: rollout's decode windows (block 1 over both blocks, block 0 over itself),
+#: the critic's unmasked fake-score forward, the flow-matching step's
+#: block-causal forward, and the cross-attention over 512 text tokens; then
+#: the decode window on large-norm q and k, as the forward's large-norm
+#: case: at norm 1.5 the bound stays under STATIC_MAX_LIMIT (the static
+#: max, several times the true row maxima: a tiny row sum), at 3.0 it
+#: passes it (the running-max fallback, on logits several times larger);
+#: (name, mode, lq, lk, lo, hi or block_tokens, norm)
+BWD_CASES = (
+    ("decode_4680x9360", "window", 4680, 9360, 0, 9360, 1.0),
+    ("decode_4680x4680", "window", 4680, 4680, 0, 4680, 1.0),
+    ("unmasked_9360", "window", 9360, 9360, 0, 9360, 1.0),
+    ("block_causal_9360_4680", "block_causal", 9360, 9360, 0, 4680, 1.0),
+    ("cross_9360x512", "window", 9360, 512, 0, 512, 1.0),
+    ("large_norm_static_4680x9360", "window", 4680, 9360, 0, 9360, 1.5),
+    ("large_norm_fallback_4680x9360", "window", 4680, 9360, 0, 9360, 3.0),
+)
+
+
+def backward_kernel_phase(card: str, dev) -> dict:
+    """csrc/attention_bwd_sm90.cu against its plain version at BWD_CASES:
+    dq / dk / dv each under `hopper_attention.agreement` at `grad_atol`. The
+    kernel takes the output and LSE of the forward kernel as the training
+    path calls it (the window with the static max after the bound pre-pass,
+    or its fallback; block-causal with the running max); the plain side is
+    `kernel_backward_plain`, the plain backward of the function the kernels
+    compute (q prescaled by bf16(scale * log2 e)) on the plain forward's own
+    LSE, so a kernel that differentiates another scale, or trusts a wrong
+    LSE, fails. The forward's LSE against that plain one (2e-3). Timed with
+    CUDA events: the backward (its pre-pass, dQ and dK/dV passes), its dQ
+    pass alone (the cross-attention's form on the generator path), the plain
+    version, and torch SDPA's backward on the same q, k, v and dO (flash on
+    the window's live keys; the efficient kernel under the boolean
+    block-causal mask). Planted faults: the D term dropped, the window's hi
+    16 short (unit-norm windows), and on the large-norm cases the backward
+    at a softmax scale 1% below the forward's (its c one bf16 step lower,
+    1.5%)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+
+    heads, hd = 12, 128
+    scale = hd ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def rnd(shape, norm=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * norm).to(torch.bfloat16)
+
+    results = {}
+    for name, mode, lq, lk, lo, arg, norm in BWD_CASES:
+        q, k = rnd((1, lq, heads, hd), norm), rnd((1, lk, heads, hd), norm)
+        v, do = rnd((1, lk, heads, hd)), rnd((1, lq, heads, hd))
+        window = mode == "window"
+        mask = hk.Mask.window(lo, arg) if window else hk.Mask.block_causal(lk, arg)
+        m_bound = None
+        if norm != 1.0:
+            m_bound = float(hk.logit_bound_plain(q, k, scale)[0])
+            if (m_bound < hk.STATIC_MAX_LIMIT) != name.startswith("large_norm_static"):
+                fail(f"attention backward {name}: the logit bound {m_bound} does not reach "
+                     f"the forward's intended max (limit {hk.STATIC_MAX_LIMIT})")
+        maxima = hk.logit_bound_maxima(q, k, scale) if window else None
+        out, lse = hk._launch_sm90(q, k, v, scale, maxima, *mask.kernel_args(), with_lse=True)
+        _, lse_plain = hk.attention_forward_plain(hk.prescale(q, scale), k, v, mask,
+                                                  1.0 / hk.LOG2E)
+        lse_err = (lse - lse_plain).abs().max().item()
+        del lse_plain
+        kern = lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask)  # noqa: E731
+        plain = lambda: hk.kernel_backward_plain(q, k, v, out, do, scale, mask)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        res = {g: hk.agreement(a, b, hk.grad_atol(b))
+               for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        faults = {"drop_D": lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask,
+                                                          fault=hk.FAULT_DROP_D)}
+        if window and norm == 1.0:
+            faults["hi-16"] = lambda: hk.attention_backward(
+                q, k, v, out, do, lse, scale, hk.Mask.window(lo, arg - 16))
+        if norm != 1.0:  # a backward at another softmax scale than the forward's
+            faults["scale-1%"] = lambda: hk.attention_backward(q, k, v, out, do, lse,
+                                                               scale * 0.99, mask)
+        caught = {}
+        for fault, fn in faults.items():
+            bad = fn()
+            caught[fault] = any(not hk.agreement(a, b, hk.grad_atol(b))["within_tol"]
+                                for a, b in zip(bad, want))
+            del bad
+        del got, want
+        ms = event_ms(kern, 10)
+        dq_ms = event_ms(lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask,
+                                                       need_kv=False), 10)
+        fwd_ms = event_ms(lambda: hk._launch_sm90(q, k, v, scale, maxima, *mask.kernel_args(),
+                                                  with_lse=True), 10)
+        plain_ms = event_ms(lambda: hk.attention_backward_plain(q, k, v, out, do, lse, scale,
+                                                                mask), 1)
+        # torch SDPA's backward on the same inputs, the yardstick
+        if window:
+            ks, vs, lib_mask = k[:, lo:arg], v[:, lo:arg], None
+            backends = [SDPBackend.FLASH_ATTENTION]
+        else:
+            ks, vs, lib_mask = k, v, mask.dense(lq, lk, dev)
+            backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+        library_ms, library = None, None
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, ks, vs))
+        for backend in backends:
+            try:
+                with sdpa_kernel([backend]):
+                    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
+                                                       scale=scale)
+                    g = do.transpose(1, 2)
+                    library_ms = event_ms(lambda: torch.autograd.grad(
+                        o, (qt, kt, vt), g, retain_graph=True), 10)
+                library = f"torch SDPA {backend.name} backward"
+                break
+            except RuntimeError:
+                continue
+        del qt, kt, vt, lib_mask
+        fwd_flop = (hk.window_flops(lq, lo, arg, heads, hd) if window
+                    else hk.block_causal_flops(lq, arg, heads, hd))
+        flop = 2.5 * fwd_flop  # 5 products against the forward's 2
+        live_k = (arg - lo) if window else lk
+        io_bytes = 2.0 * heads * hd * (4 * lq + 4 * live_k) + 4.0 * heads * lq
+        bound_ms, bound_by = bound(io_bytes, flop, "bf16")
+        results[name] = dict(
+            ms=ms, dq_pass_ms=dq_ms, forward_with_lse_ms=fwd_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library=library, bound_ms=bound_ms, bound_by=bound_by,
+            tflops=flop / ms / 1e9, lse_max_abs_err=lse_err, norm=norm, logit_bound=m_bound,
+            max_abs_err=max(r["max_abs_err"] for r in res.values()),
+            rel_fro_err=max(r["rel_fro_err"] for r in res.values()),
+            **{f"{g}_{key}": r[key] for g, r in res.items()
+               for key in ("max_abs_err", "rel_fro_err", "atol")},
+            faults_caught=caught)
+        phase("kernel", kernel="attention_backward", case=name, mode=mode, lq=lq, lk=lk, lo=lo,
+              arg=arg, heads=heads, head_dim=hd, **results[name], card=card)
+        if not all(r["within_tol"] for r in res.values()):
+            fail(f"attention backward {name}: kernel outside the bounds of the plain "
+                 f"version: {res}")
+        if lse_err > 2e-3:
+            fail(f"attention backward {name}: the forward's LSE is {lse_err} off the plain one")
+        if not all(caught.values()):
+            fail(f"attention backward {name}: a planted fault passes the check: {caught}")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+class RecordingDraws:
+    """`TorchDraws` that keeps every draw, for a replay on the CPU."""
+
+    def __init__(self, draws):
+        self.draws, self.items = draws, []
+
+    def normal(self, shape, dtype, device):
+        out = self.draws.normal(shape, dtype, device)
+        self.items.append(out.float().cpu())
+        return out
+
+    def randint(self, low, high, shape):
+        out = self.draws.randint(low, high, shape)
+        self.items.append(out)
+        return out
+
+
+class ReplayDraws:
+    """The recorded draws, in order."""
+
+    def __init__(self, items):
+        self.items = list(items)
+
+    def normal(self, shape, dtype, device):
+        return self.items.pop(0).to(device=device, dtype=dtype)
+
+    def randint(self, low, high, shape):
+        return self.items.pop(0)
+
+
+#: the 2-layer generator gradient, card (bf16) against the CPU's f32: the
+#: cosine, |g_card| / |g_cpu| - 1 and |g_card - g_cpu| / |g_cpu|. A sound
+#: run reads 0.999987 / -3.5e-4 / 5.1e-3 (H100 80GB HBM3, 700 W); the CPU's
+#: own bf16 run, the control printed beside, reads 0.999989 / -6.6e-4 /
+#: 4.7e-3. The bars sit 4x and more past both, and a backward that scales
+#: every gradient by 1-2% fails the ratio and the relative error.
+GRAD_COSINE_BAR, GRAD_NORM_RATIO_BAR, GRAD_REL_FRO_BAR = 0.999, 1e-2, 2e-2
+
+
+def training_phase(card: str, dev, read_counts, kernel_mods, latent=(60, 104)) -> dict:
+    """The distillation path on the card.
+
+    First DMD's generator loss of 2-layer t2v-1.3B-width networks (6 latent
+    frames of 16x16) on the card in bf16 against the CPU's f32 on the same
+    weights and the card's draws replayed: the loss and the gradient, whose
+    cosine over every leaf must pass 0.99. Then train.py's path at full width
+    (`train.build` / `train.train_step`: three t2v-1.3B networks in bf16 from
+    seeds 0 / 1 / 2 with random heads, a seeded static text embedding, 6
+    latent frames of 60x104, steps 1000 / 750 / 500 / 250, guidance 3, every
+    DiT layer under checkpointing): two DMD generator + critic steps, then one
+    causal flow-matching step (`make_train_step`) on the generator; each
+    step's ms, peak GiB, losses and gradient norms (finite and nonzero), the
+    params moved, the launch counts against what the code implies, and no
+    plain version on a CUDA tensor."""
+    import torch
+
+    from realtime_video_tpu_torch import train as train_mod
+    from realtime_video_tpu_torch.config import WAN_CONFIGS, load_server_config
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.training import distillation, losses, train_step
+    from realtime_video_tpu_torch.training.draws import TorchDraws
+
+    out = {}
+    # -- a 2-layer full-width generator-loss gradient, card against CPU --
+    two = dataclasses.replace(WAN_CONFIGS["t2v-1.3B"], num_layers=2)
+    config = load_server_config(denoising_step_list=[1000, 750, 500, 250], guidance_scale=3.0)
+    sides = {"gpu": (dev, torch.bfloat16), "cpu": ("cpu", torch.float32),
+             "cpu_bf16": ("cpu", torch.bfloat16)}
+    nets = {side: [] for side in sides}
+    for s in range(3):
+        p = wan_dit.init_wan_params(two, torch.Generator().manual_seed(s), "cpu",
+                                    torch.bfloat16)
+        p["head"]["head"]["w"] = (torch.randn(p["head"]["head"]["w"].shape,
+                                              generator=torch.Generator().manual_seed(20 + s))
+                                  * 0.05).to(torch.bfloat16)
+        for side, (device, dtype) in sides.items():
+            nets[side].append(WanDiffusion(cfg=two, params=tree_to(p, device, dtype),
+                                           fuse_qkv=False))
+    ctx = torch.randn((1, 512, two.text_dim), generator=torch.Generator().manual_seed(3))
+    noise = torch.randn((1, 6, 16, 16, 16), generator=torch.Generator().manual_seed(4))
+    record = None
+    grads, loss_of = {}, {}
+    for side, (device, dtype) in sides.items():
+        g, r, f = nets[side]
+        with torch.no_grad():
+            cross = g.compute_crossattn_cache(ctx.to(device, dtype))
+            cross_u = g.compute_crossattn_cache(-ctx.to(device, dtype))
+        dmd = distillation.DMD(g, r, f, config)
+        params = losses.trainable(g.params)
+        draws = (RecordingDraws(TorchDraws(5, dev)) if side == "gpu"
+                 else ReplayDraws(record))
+        loss, _ = dmd.generator_loss(params, f.params, noise.to(device, dtype), cross, cross_u,
+                                     draws)
+        loss.backward()
+        if side == "gpu":
+            record = draws.items
+        loss_of[side] = float(loss.detach())
+        grads[side] = torch.cat([t.grad.double().cpu().flatten()
+                                 for t in losses.tree_leaves(params).values()
+                                 if t.grad is not None])
+
+    def against_f32(side):
+        """(cosine, norm ratio, relative Frobenius error) of a side's gradient
+        against the CPU's f32 one."""
+        got, want = grads[side], grads["cpu"]
+        return (cosine(got, want), float(got.norm() / want.norm()),
+                float((got - want).norm() / want.norm()))
+
+    cos, ratio, rel_fro = against_f32("gpu")
+    c_cos, c_ratio, c_rel_fro = against_f32("cpu_bf16")
+    rel_loss = abs(loss_of["gpu"] - loss_of["cpu"]) / abs(loss_of["cpu"])
+    out["grad_card_vs_cpu"] = dict(
+        layers=2, dim=two.dim, heads=two.num_heads, latents=[6, 16, 16],
+        loss_card=loss_of["gpu"], loss_cpu=loss_of["cpu"], loss_rel_err=rel_loss,
+        grad_cosine=cos, grad_norm_ratio=ratio, grad_rel_fro=rel_fro,
+        grad_norm_card=float(grads["gpu"].norm()), grad_norm_cpu=float(grads["cpu"].norm()),
+        control_cpu_bf16=dict(loss=loss_of["cpu_bf16"], grad_cosine=c_cos,
+                              grad_norm_ratio=c_ratio, grad_rel_fro=c_rel_fro),
+        bars=dict(grad_cosine=GRAD_COSINE_BAR, norm_ratio=GRAD_NORM_RATIO_BAR,
+                  rel_fro=GRAD_REL_FRO_BAR, loss_rel_err=5e-2))
+    phase("dmd_generator_grad_2layer_card_vs_cpu", **out["grad_card_vs_cpu"], card=card)
+    if not (cos > GRAD_COSINE_BAR and abs(ratio - 1) < GRAD_NORM_RATIO_BAR
+            and rel_fro < GRAD_REL_FRO_BAR and rel_loss < 5e-2
+            and torch.isfinite(grads["gpu"]).all()):
+        fail(f"the generator loss's gradient on the card disagrees with the CPU's: "
+             f"{out['grad_card_vs_cpu']}")
+    del nets, grads, record
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train.py's path at t2v-1.3B full width --
+    args = train_mod.parse_args([
+        "--config", train_mod.TRAIN_CONFIG, "--text-encoder", "seeded",
+        "--lr", "1e-4", "--critic-lr", "1e-4", "--steps", "2",
+        "--latent", str(latent[0]), str(latent[1]), "--device", str(dev)])
+    t0 = time.perf_counter()
+    tr = train_mod.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = tr.model.generator.cfg
+    watch = {"generator": losses.tree_leaves(tr.gen_params),
+             "fake_score": losses.tree_leaves(tr.fake_params)}
+    before = {net: {k: watch[net][k].detach().clone() for k in
+                    ("blocks/self_attn/q/w", "blocks/ffn/fc2/w", "head/head/w")}
+              for net in watch}
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    steps = []
+    for step in range(2):
+        rec = train_mod.train_step(tr, step)
+        steps.append(rec)
+        phase("train_step_dmd", model="t2v-1.3B", tier="bf16", latents=[6, *latent],
+              **rec, card=card)
+    launches_dmd, plain_dmd = read_counts()
+    moved = {net: {k: bool((watch[net][k].detach() != v).any()) for k, v in leaves.items()}
+             for net, leaves in before.items()}
+    nl, nb = cfg.num_layers, 2
+    # generator step: the two blocks' chosen steps (every layer) and block 0's
+    # refresh, whose K/V reach block 1 from every layer but whose last layer's
+    # attention outputs reach nothing; critic step: the fake score's forward
+    gen_bwd = nb * nl + (nb - 1) * (nl - 1)
+    want_dmd = {"window_bwd": 2 * (2 * gen_bwd + 2 * nl), "block_causal_bwd": 0}
+    # the flow-matching step on the generator (its own AdamW)
+    _, opt = train_step.make_train_state(tr.model.generator, learning_rate=1e-4)
+    fm_step = train_step.make_train_step(tr.model.generator, opt)
+    draws = TorchDraws(11, dev)
+    lat = draws.normal((1, 6, cfg.in_dim, *latent), torch.bfloat16, dev)
+    emb = tr.text_encoder(["a cat surfing"])["prompt_embeds"].to(dev, torch.bfloat16)
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = fm_step(tr.gen_params, lat, emb, draws)
+    torch.cuda.synchronize()
+    fm = {"loss": float(metrics["loss"]), "grad_norm": train_mod.grad_norm(tr.gen_params),
+          "ms": (time.perf_counter() - t0) * 1e3,
+          "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    launches_fm, plain_fm = read_counts()
+    want_fm = {"window_bwd": nl, "block_causal_bwd": nl}
+    phase("train_step_flow_matching", model="t2v-1.3B", tier="bf16", latents=[6, *latent],
+          **fm, launches=launches_fm, expected_backward=want_fm, card=card)
+    phase("training", model="t2v-1.3B", build_s=build_s, dmd_launches=launches_dmd,
+          expected_backward=want_dmd, plain_on_cuda={**plain_dmd, **plain_fm}, params_moved=moved,
+          card=card)
+    finite = all(math.isfinite(r[k]) and r[k] != 0 for r in steps
+                 for k in ("gen_loss", "critic_loss", "gen_grad_norm", "critic_grad_norm"))
+    finite = finite and all(math.isfinite(fm[k]) and fm[k] != 0 for k in ("loss", "grad_norm"))
+    if not finite:
+        fail(f"training: a loss or gradient norm is not finite and nonzero: {steps} {fm}")
+    if not all(all(m.values()) for m in moved.values()):
+        fail(f"training: params did not move: {moved}")
+    if any({k: launches_dmd[k] for k in want_dmd}[k] != v for k, v in want_dmd.items()) or \
+            any(launches_fm[k] != v for k, v in want_fm.items()):
+        fail(f"training: backward launches {launches_dmd} / {launches_fm}, expected "
+             f"{want_dmd} / {want_fm}")
+    if any(plain_dmd.values()) or any(plain_fm.values()):
+        fail(f"training: a plain version saw a CUDA tensor: {plain_dmd} {plain_fm}")
+    out.update(steps=steps, flow_matching=fm, launches_dmd=launches_dmd,
+               launches_flow_matching=launches_fm, build_s=build_s)
+    del tr, opt, fm_step, lat, emb, watch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -490,7 +881,7 @@ def main() -> None:
           archived_earlier_kernels=[src.name for src in archived], sass=sass,
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
           tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "IGMMA", "UTMALDG")),
+    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "IGMMA", "UTMALDG")), (hk.BWD_SOURCE, ("HMMA",)),
                      (hm.SOURCE, ("IGMMA", "UTMALDG")),
                      (hc.SOURCE, ("HGMMA", "IGMMA", "UTMALDG"))):
         counts = sass[libs[src].name]
@@ -506,16 +897,7 @@ def main() -> None:
     def rint8(shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
-    def cuda_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
+    cuda_ms = event_ms
 
     def ab_ms(new, old, n):
         """(new ms, earlier ms or None): with an earlier version, timed in
@@ -1515,6 +1897,10 @@ def main() -> None:
     del p_cpu, p_gpu, outs, cross
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the attention backward at the training shapes, then the training path
+    bwd_results = backward_kernel_phase(card, dev)
+    training = training_phase(card, dev, read_counts, kernel_mods)
 
     # CLIP ViT-H/14 at full width and depth (32 blocks, dim 1280, 16 heads;
     # i2v uses 31), random f32 weights from a seed: one 832x480 image on the
@@ -2681,6 +3067,22 @@ def main() -> None:
                "earlier_ms": mode_results["skew_staticmax_self"]["earlier_ms"],
                "fallback_max_abs_err":
                mode_results["skew_staticmax_large_norm"]["max_abs_err"]}),
+        entry("attention_backward (dq, dk, dv of K1/K2's function: D pre-pass, dQ pass, "
+              "dK/dV pass; mma.sync)", "realtime_video_tpu_torch/csrc/attention_bwd_sm90.cu",
+              "realtime_video_tpu/ops/attention.py:72",
+              sum(training[key][b] for key in ("launches_dmd", "launches_flow_matching")
+                  for b in ("window_bwd", "block_causal_bwd")),
+              bwd_results["decode_4680x9360"],
+              max(r["max_abs_err"] for r in bwd_results.values()),
+              {"case": "decode window 4680 x 9360, 12 heads (ms: the D pre-pass, dQ and dK/dV "
+                       "passes); replaces no Pallas kernel: the JAX trainer differentiates "
+                       "xla_attention",
+               "library": bwd_results["decode_4680x9360"]["library"],
+               **{f"{c}_{k}": bwd_results[c][k] for c, *_ in BWD_CASES
+                  for k in ("ms", "dq_pass_ms", "plain_ms", "library_ms", "bound_ms",
+                            "max_abs_err", "rel_fro_err")},
+               "launches_dmd_2_steps": training["launches_dmd"]["window_bwd"],
+               "launches_flow_matching_step": training["launches_flow_matching"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

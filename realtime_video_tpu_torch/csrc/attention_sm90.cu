@@ -70,6 +70,11 @@
 // score is float(s32) * (sq * sk) in f32, the product of the scales first.
 // It keeps a running max always (the int8 mode has no static max).
 //
+// For the training path's backward (csrc/attention_bwd_sm90.cu) the bf16
+// kernel can also write each row's log-sum-exp, ln 2 * (m + log2 l), from
+// the m its p were taken against (the static bound or the running max); a
+// null pointer writes nothing, so the serving calls do no more work.
+//
 // What bounds it on an H100: at the 1.3B self-attention shape one bf16 call
 // is 4 * Lq * (hi - lo) * D * N = 2.2e11 FLOP against ~40 MB of traffic,
 // compute bound on the bf16 tensor cores (989 TFLOP/s dense, 0.227 ms); the
@@ -160,8 +165,8 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_sk, __nv_bfloat16* __restrict__ o,
                       int Lq, int Lk, int N, float qscale, const float* __restrict__ maxima,
-                      const Int8Args i8, int mode, int lo, int hi, int block_tokens, int kv_len,
-                      int local_window, int fault) {
+                      float* __restrict__ lse, const Int8Args i8, int mode, int lo, int hi,
+                      int block_tokens, int kv_len, int local_window, int fault) {
   using L = Layout<INT8>;
   constexpr int NK = L::NK;
   extern __shared__ uint8_t smem_raw[];
@@ -518,6 +523,14 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = 1.0f / fmaxf(l, 1e-30f);
+      // the row's log-sum-exp for the backward, natural log, from the m the
+      // p were taken against (the static bound or the running max); a row
+      // with no live column gets +inf, so that its recomputed p are 0
+      const int row = r ? r1 : r0;
+      if (lse != nullptr && tig == 0 && row < Lq)
+        lse[((size_t)b * N + h) * Lq + row] =
+            l > 0.0f ? ((static_max ? M : m_run[r]) + log2f(l)) * 0.6931471805599453f
+                     : __int_as_float(0x7f800000);
     }
     const size_t row_stride = (size_t)N * D;
     __nv_bfloat16* ob = o + ((size_t)b * Lq * N + h) * D;
@@ -702,8 +715,8 @@ int qkv_map(CUtensorMap* map, const void* ptr, int B, int L, int N, int rows, bo
 template <bool INT8>
 int launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
            const CUtensorMap& tm_sk, void* o, int B, int Lq, int Lk, int N, float qscale,
-           const float* maxima, const Int8Args& i8, int mode, int lo, int hi, int block_tokens,
-           int kv_len, int local_window, int fault, cudaStream_t stream) {
+           const float* maxima, float* lse, const Int8Args& i8, int mode, int lo, int hi,
+           int block_tokens, int kv_len, int local_window, int fault, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(attention_kernel_sm90<INT8>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Layout<INT8>::SMEM);
@@ -711,7 +724,7 @@ int launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& 
   dim3 grid((Lq + BM - 1) / BM, N, B);
   attention_kernel_sm90<INT8><<<grid, NTHREADS, Layout<INT8>::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_sk, reinterpret_cast<__nv_bfloat16*>(o), Lq, Lk, N, qscale, maxima,
-      i8, mode, lo, hi, block_tokens, kv_len, local_window, fault);
+      lse, i8, mode, lo, hi, block_tokens, kv_len, local_window, fault);
   return (int)cudaGetLastError();
 }
 
@@ -770,12 +783,14 @@ extern "C" int rtv_int8_qk_quantize(const void* q, const void* k, void* q8, void
 // The bf16 kernel. q raw (the kernel multiplies it by qscale = bf16(scale *
 // log2 e)), k, v, o [B, L, N, D] bf16 contiguous. mode 0 = window [lo, hi),
 // with the static-max / running-max choice made on the device from maxima
-// (null: running max always); mode 1 = block-causal (running max). fault
+// (null: running max always); mode 1 = block-causal (running max). lse, when
+// not null, receives each row's log-sum-exp [B, N, Lq] f32 (natural log of
+// the scaled scores) for the backward kernel; null writes nothing. fault
 // plants a fault for the checks (0 in every real call).
 extern "C" int rtv_attention_sm90(const void* q, const void* k, const void* v, void* o, int B,
                                   int Lq, int Lk, int N, int D_, float qscale, const float* maxima,
-                                  int mode, int lo, int hi, int block_tokens, int kv_len,
-                                  int local_window, int fault, void* stream) {
+                                  float* lse, int mode, int lo, int hi, int block_tokens,
+                                  int kv_len, int local_window, int fault, void* stream) {
   if (D_ != D || B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || block_tokens <= 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -784,8 +799,8 @@ extern "C" int rtv_attention_sm90(const void* q, const void* k, const void* v, v
   if (err == 0) err = qkv_map(&tm_v, v, B, Lk, N, BN, false);
   if (err != 0) return err;
   const Int8Args none = {nullptr, nullptr, 0, 1};
-  return launch<false>(tm_q, tm_k, tm_v, tm_v, o, B, Lq, Lk, N, qscale, maxima, none, mode, lo,
-                       hi, block_tokens, kv_len, local_window, fault,
+  return launch<false>(tm_q, tm_k, tm_v, tm_v, o, B, Lq, Lk, N, qscale, maxima, lse, none, mode,
+                       lo, hi, block_tokens, kv_len, local_window, fault,
                        reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -815,7 +830,7 @@ extern "C" int rtv_attention_sm90_int8(const void* q8, const void* k8, const voi
   if (err != 0) return err;
   const Int8Args i8 = {reinterpret_cast<const float*>(q_scale),
                        reinterpret_cast<const float*>(k_scale), ks_stride, seg};
-  return launch<true>(tm_q, tm_k, tm_v, tm_sk, o, B, Lq, Lk, N, 0.0f, nullptr, i8, mode, lo, hi,
-                      block_tokens, kv_len, local_window, fault,
+  return launch<true>(tm_q, tm_k, tm_v, tm_sk, o, B, Lq, Lk, N, 0.0f, nullptr, nullptr, i8, mode,
+                      lo, hi, block_tokens, kv_len, local_window, fault,
                       reinterpret_cast<cudaStream_t>(stream));
 }

@@ -112,32 +112,38 @@ class WanDiffusion:
         return wan_dit.calibrate_wan_act_scales(records, self.params["blocks"], cfg.num_layers)
 
     def compute_crossattn_cache(self, prompt_embeds: torch.Tensor,
-                                clip_fea: Optional[torch.Tensor] = None
-                                ) -> Dict[str, torch.Tensor]:
-        """Per-layer text K/V, and an i2v model's image K/V from `clip_fea`."""
-        return wan_dit.compute_crossattn_cache(self.cfg, self.params, prompt_embeds,
-                                               clip_fea=clip_fea)
+                                clip_fea: Optional[torch.Tensor] = None,
+                                params: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """Per-layer text K/V, and an i2v model's image K/V from `clip_fea`,
+        of `params` (default `self.params`)."""
+        return wan_dit.compute_crossattn_cache(self.cfg, self.params if params is None
+                                               else params, prompt_embeds, clip_fea=clip_fea)
 
     def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
                 kv_cache: Optional[Dict] = None, current_start: int = 0, mode: str = "decode",
                 max_attention_size: Optional[int] = None,
                 schedule: Optional[FlowMatchSchedule] = None,
                 act_calib: Optional[list] = None,
-                attn_mask: Optional[torch.Tensor] = None):
+                attn_mask: Optional[torch.Tensor] = None,
+                params: Optional[Dict] = None, block_tokens: Optional[int] = None):
         """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
         (wan_wrapper.py:230-301). Train mode takes no cache (kv_cache None,
-        returned as None) and an optional dense `attn_mask` [L, L]. An i2v
-        model's input carries its conditioning channels after the latent's
-        out_dim; pred_x0 is of the latent's channels."""
+        returned as None), and `block_tokens` for block-causal attention or a
+        dense `attn_mask` [L, L] (CPU only). `params`, when given, is the tree
+        the forward runs on (the trainable one, as the JAX package's
+        `forward(params, ...)`), else `self.params`. An i2v model's input
+        carries its conditioning channels after the latent's out_dim; pred_x0
+        is of the latent's channels."""
         t = timestep.to(torch.float32)
         if max_attention_size is None:
             fsl = self.cfg.frame_seq_length(noisy.shape[-2], noisy.shape[-1])
             max_attention_size = self.cfg.max_attention_size(fsl)
         flow, kv = wan_dit.dit_forward(
-            self.cfg, self.params, noisy, t, self.rope, crossattn_cache, mode=mode,
-            kv_cache=kv_cache, current_start=current_start,
-            max_attention_size=max_attention_size, layers=self.layers,
-            act_calib=act_calib, attn_mask=attn_mask)
+            self.cfg, self.params if params is None else params, noisy, t, self.rope,
+            crossattn_cache, mode=mode, kv_cache=kv_cache, current_start=current_start,
+            max_attention_size=max_attention_size,
+            layers=self.layers if params is None else None, act_calib=act_calib,
+            attn_mask=attn_mask, block_tokens=block_tokens)
         x0 = (schedule or self.schedule).flow_to_x0(flow, noisy[:, :, :flow.shape[2]], t)
         return flow, x0, kv
 

@@ -3,17 +3,19 @@
 Parameters are a plain nested dict of tensors in the JAX package's layout:
 transformer blocks stacked on a leading layer axis, linear weights `w` as
 [in, out], so a JAX parameter tree converts leaf by leaf
-(`utils/convert.py`). The forward is a Python loop over layers; the KV cache
-(`ops/kv_cache.py`) is written in place. Attention modes:
+(`utils/convert.py`). The forward is a Python loop over layers; the serving KV cache
+(`ops/kv_cache.py`) is written in place, the training cache keeps each
+write's tensors. Attention modes:
 
   * "decode": RoPE offset current_start // fsl; K/V appended at the
     reference's local indices; attention over the window
     [local_end - max_attention_size, local_end) (causal_model.py:349-392);
   * "prefill": K/V written at [0, L), blockwise-causal attention over the
     input (causal_model.py:305-348 + the serving recompute path);
-  * "train": no cache; full attention over the input, or under a dense
-    `attn_mask` on the CPU (the 50-step teacher and the bidirectional
-    samplers, text2video.py's generate; image2video.py's).
+  * "train": no cache; full attention over the input (the 50-step teacher
+    and the bidirectional samplers, text2video.py's generate;
+    image2video.py's; DMD's score networks), block-causal attention with
+    `block_tokens` (the causal losses), or a dense `attn_mask` on the CPU.
 
 An i2v model (`model_type` "i2v") adds the image branch of
 WanI2VCrossAttention (model.py:258-300): `img_emb` projects CLIP features
@@ -40,10 +42,11 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from realtime_video_tpu_torch.config import WanModelConfig
 from realtime_video_tpu_torch.models.rope import (
@@ -319,15 +322,19 @@ def fuse_qkv_params(params: Params) -> Params:
     return dict(params, blocks=dict(params["blocks"], self_attn=new_sa))
 
 
-def _layer_views(tree, i: int):
-    """The i-th layer of a layer-stacked tree (views, no copies)."""
+def _layer_views(tree, num_layers: int) -> list:
+    """A layer-stacked tree as one tree per layer (views, no copies). Each
+    leaf is unbound once, so the gradient of every layer's view reaches the
+    stacked leaf through one stacking backward, not one full-size select
+    backward a layer."""
     if isinstance(tree, dict):
-        return {k: _layer_views(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layer_views(v, num_layers) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(num_layers)]
+    return list(tree.unbind(0))
 
 
 def layer_params(params: Params, num_layers: int) -> List[Params]:
-    return [_layer_views(params["blocks"], i) for i in range(num_layers)]
+    return _layer_views(params["blocks"], num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +431,54 @@ def compute_crossattn_cache(cfg: WanModelConfig, params: Params, context: torch.
 # ---------------------------------------------------------------------------
 
 
+def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f: int,
+           e0: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
+           cross: Tuple[torch.Tensor, ...], attend: Callable, lin: Callable):
+    """One transformer layer (causal_model.py:436-493): returns (tokens, k, v),
+    k and v the layer's roped self-attention keys and values. `attend(q, k,
+    v)` is the self-attention of the mode (it may write a cache); `cross` is
+    the layer's text K/V, and an i2v model's image K/V after them."""
+    b, L, _ = tokens.shape
+    n, dh = cfg.num_heads, cfg.head_dim
+    em = bp["modulation"][None].float() + e0  # [B, F, 6, D]
+    sh_msa, sc_msa, g_msa = em[:, :, 0], em[:, :, 1], em[:, :, 2]
+    sh_ffn, sc_ffn, g_ffn = em[:, :, 3], em[:, :, 4], em[:, :, 5]
+
+    # ---- self attention ----
+    xn = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa)
+    sa = bp["self_attn"]
+    if "qkv" in sa:
+        q, k, v = lin(sa["qkv"], xn).chunk(3, dim=-1)
+    else:
+        q, k, v = lin(sa["q"], xn), lin(sa["k"], xn), lin(sa["v"], xn)
+    q = rms_norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
+    k = rms_norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
+    v = v.reshape(b, L, n, dh)
+    q = rope_apply_fused(q, *rope)
+    k = rope_apply_fused(k, *rope)
+    y = attend(q, k, v)
+    y = lin(sa["o"], y.reshape(b, L, cfg.dim))
+    tokens = tokens + gate(y, f, g_msa)
+
+    # ---- cross attention over the cached text K/V ----
+    ca = bp["cross_attn"]
+    if cfg.cross_attn_norm:
+        xc = layer_norm(tokens, bp["norm3"]["scale"], bp["norm3"]["bias"], eps=cfg.eps)
+    else:
+        xc = tokens
+    qc = rms_norm(ca["norm_q"], lin(ca["q"], xc), eps=cfg.eps).reshape(b, L, n, dh)
+    yc = attn_ops.attention(qc, cross[0].to(qc.dtype), cross[1].to(qc.dtype))
+    if len(cross) == 4:  # i2v: the image tokens, before o
+        yc = yc + attn_ops.attention(qc, cross[2].to(qc.dtype), cross[3].to(qc.dtype))
+    tokens = tokens + lin(ca["o"], yc.reshape(b, L, cfg.dim))
+
+    # ---- ffn ----
+    xf2 = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn)
+    ff = bp["ffn"]
+    y = lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
+    return tokens + gate(y, f, g_ffn), k, v
+
+
 def dit_forward(
     cfg: WanModelConfig,
     params: Params,
@@ -441,43 +496,64 @@ def dit_forward(
     layers: Optional[List[Params]] = None,
     act_calib: Optional[list] = None,
     attn_mask: Optional[torch.Tensor] = None,
+    block_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
-    the cache updated in place (None in train mode). `layers` may carry
-    precomputed per-layer views of params["blocks"] (`layer_params`).
-    `act_calib`, when given, receives max|input| of every block linear, layer
-    by layer in `_calib_site_order`. `attn_mask` ([L, L] bool, True = attend)
-    applies in train mode only; without it train mode attends over every
-    token, through the unmasked kernel on a card."""
+    the cache updated (None in train mode). `layers` may carry precomputed
+    per-layer views of params["blocks"] (`layer_params`). `act_calib`, when
+    given, receives max|input| of every block linear, layer by layer in
+    `_calib_site_order`.
+
+    Train mode takes no cache. Its self-attention is unmasked by default
+    (K1's window over every key on a card); `block_tokens` makes it
+    block-causal (key < ends[q] | q == key, the JAX package's
+    `blockwise_causal_mask` given as structure: K2's block-causal mode);
+    `attn_mask` ([L, L] bool, True = attend) is the dense form, CPU only.
+
+    Decode mode takes the serving cache (`kv_cache.init_kv_cache`, written
+    in place, no gradient through it) or the training cache
+    (`kv_cache.init_train_kv_cache`, which keeps each write's K/V tensors and
+    attends over their concatenation, so the gradient flows into the cached
+    K/V). With grad enabled, a layer whose input carries a graph runs under
+    `torch.utils.checkpoint` (non-reentrant): the same values and gradients,
+    its activations recomputed in the backward, so that a full-width
+    training step fits one card."""
+    train_cache = kv_cache is not None and kvc.is_train_cache(kv_cache)
     if mode == "train":
         if kv_cache is not None:
             raise ValueError("train mode takes no kv_cache")
+        if attn_mask is not None and block_tokens is not None:
+            raise ValueError("give attn_mask or block_tokens, not both")
     elif kv_cache is None:
         raise ValueError(f"{mode!r} mode needs a kv_cache")
-    elif attn_mask is not None:
-        raise ValueError("a dense attn_mask applies in train mode only")
+    elif attn_mask is not None or block_tokens is not None:
+        raise ValueError("attn_mask and block_tokens apply in train mode only")
+    elif train_cache and mode != "decode":
+        raise ValueError("the training cache takes decode mode only")
     b, f, c, H, W = x.shape
     pt, ph, pw = cfg.patch_size
     grid = (f, H // ph, W // pw)
     fsl = grid[1] * grid[2]
     L = f * fsl
-    n, dh = cfg.num_heads, cfg.head_dim
     current_start = int(current_start)
 
     tokens = patchify(cfg, params, x)
     e, e0 = time_embeddings(cfg, params, t)
 
-    cache_size = kv_cache["k"].shape[2] if kv_cache is not None else 0
+    cache_size = 0 if kv_cache is None else kvc.cache_size(kv_cache)
     if mode == "decode":
         if max_attention_size is None:
             raise ValueError("decode mode needs max_attention_size")
         start_frame = current_start // fsl
-        shift, write_start, new_global_end, new_local_end = kvc.plan_kv_update(
-            kv_cache, current_start, L, cache_size, sink_tokens, rolling)
         win = min(max_attention_size, cache_size)
-        win_start = min(max(new_local_end - win, 0), cache_size - win)
-        dec_lo = max(new_local_end - max_attention_size, 0) - win_start
-        dec_hi = new_local_end - win_start
+        if train_cache:
+            new_global_end = new_local_end = current_start + L
+        else:
+            shift, write_start, new_global_end, new_local_end = kvc.plan_kv_update(
+                kv_cache, current_start, L, cache_size, sink_tokens, rolling)
+            win_start = min(max(new_local_end - win, 0), cache_size - win)
+            dec_lo = max(new_local_end - max_attention_size, 0) - win_start
+            dec_hi = new_local_end - win_start
     elif mode == "prefill":
         if prefill_block_tokens is None:
             raise ValueError("prefill mode needs prefill_block_tokens")
@@ -487,73 +563,62 @@ def dit_forward(
         start_frame = 0
     else:
         raise ValueError(f"mode {mode!r}: the port runs 'decode', 'prefill' and 'train'")
-    if mode != "train" and (write_start < 0 or write_start + L > cache_size):
+    if mode != "train" and not train_cache and (write_start < 0 or write_start + L > cache_size):
         raise ValueError(f"cache write [{write_start}, {write_start + L}) outside "
                          f"the {cache_size}-token cache")
 
-    rope_cos, rope_sin = rope_tables.fused(*grid, start_frame)
+    rope = rope_tables.fused(*grid, start_frame)
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
     lin = linear if act_calib is None else functools.partial(linear, record=act_calib)
 
+    def train_attend(q, k, v):
+        if block_tokens is not None:
+            return attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
+                                                   block_tokens)
+        mask = None if attn_mask is None else attn_mask[None, None]
+        return attn_ops.attention(q, k.contiguous(), v.contiguous(), mask=mask)
+
+    def prefix_attend(prefix_k, prefix_v, q, k, v):
+        wk = torch.cat([*prefix_k, k.to(q.dtype)], 1)
+        wv = torch.cat([*prefix_v, v.to(q.dtype)], 1)
+        return attn_ops.decode_attention(q, wk, wv, 0, wk.shape[1])
+
+    def cache_attend(lid, q, k, v):
+        if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
+            raise RuntimeError("the serving KV cache is written in place and carries no "
+                               "gradient: decode with kv_cache.init_train_kv_cache to train")
+        ck, cv = kv_cache["k"][lid], kv_cache["v"][lid]  # [B, S, N, Dh] views
+        if mode == "decode" and rolling and shift:
+            ck.copy_(kvc.shift_layer_cache(ck, shift, sink_tokens))
+            cv.copy_(kvc.shift_layer_cache(cv, shift, sink_tokens))
+        ck[:, write_start:write_start + L] = k.to(ck.dtype)
+        cv[:, write_start:write_start + L] = v.to(cv.dtype)
+        if mode == "prefill":
+            return attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
+                                                   prefill_block_tokens)
+        wk = ck[:, win_start:win_start + win].to(q.dtype).contiguous()
+        wv = cv[:, win_start:win_start + win].to(q.dtype).contiguous()
+        return attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi)
+
+    cross_names = ("k", "v") + (("k_img", "v_img") if "k_img" in crossattn_cache else ())
     for lid, bp in enumerate(layers):
-        em = bp["modulation"][None].float() + e0  # [B, F, 6, D]
-        sh_msa, sc_msa, g_msa = em[:, :, 0], em[:, :, 1], em[:, :, 2]
-        sh_ffn, sc_ffn, g_ffn = em[:, :, 3], em[:, :, 4], em[:, :, 5]
-
-        # ---- self attention ----
-        xn = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa)
-        sa = bp["self_attn"]
-        if "qkv" in sa:
-            q, k, v = lin(sa["qkv"], xn).chunk(3, dim=-1)
-        else:
-            q, k, v = lin(sa["q"], xn), lin(sa["k"], xn), lin(sa["v"], xn)
-        q = rms_norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
-        k = rms_norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
-        v = v.reshape(b, L, n, dh)
-        q = rope_apply_fused(q, rope_cos, rope_sin)
-        k = rope_apply_fused(k, rope_cos, rope_sin)
-
         if mode == "train":
-            mask = None if attn_mask is None else attn_mask[None, None]
-            y = attn_ops.attention(q, k.contiguous(), v.contiguous(), mask=mask)
+            attend = train_attend
+        elif train_cache:
+            attend = functools.partial(prefix_attend, *kvc.train_cache_prefix(
+                kv_cache, lid, current_start, win - L))
         else:
-            ck, cv = kv_cache["k"][lid], kv_cache["v"][lid]  # [B, S, N, Dh] views
-            if mode == "decode" and rolling and shift:
-                ck.copy_(kvc.shift_layer_cache(ck, shift, sink_tokens))
-                cv.copy_(kvc.shift_layer_cache(cv, shift, sink_tokens))
-            ck[:, write_start:write_start + L] = k.to(ck.dtype)
-            cv[:, write_start:write_start + L] = v.to(cv.dtype)
-        if mode == "decode":
-            wk = ck[:, win_start:win_start + win].to(q.dtype).contiguous()
-            wv = cv[:, win_start:win_start + win].to(q.dtype).contiguous()
-            y = attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi)
-        elif mode == "prefill":
-            y = attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
-                                                prefill_block_tokens)
-        y = lin(sa["o"], y.reshape(b, L, cfg.dim))
-        tokens = tokens + gate(y, f, g_msa)
-
-        # ---- cross attention over the cached text K/V ----
-        ca = bp["cross_attn"]
-        if cfg.cross_attn_norm:
-            xc = layer_norm(tokens, bp["norm3"]["scale"], bp["norm3"]["bias"], eps=cfg.eps)
+            attend = functools.partial(cache_attend, lid)
+        cross = tuple(crossattn_cache[name][lid] for name in cross_names)
+        run = functools.partial(_block, cfg, bp, f=f, e0=e0, rope=rope, cross=cross,
+                                attend=attend, lin=lin)
+        if torch.is_grad_enabled() and tokens.requires_grad:
+            tokens, k, v = torch.utils.checkpoint.checkpoint(run, tokens, use_reentrant=False)
         else:
-            xc = tokens
-        qc = rms_norm(ca["norm_q"], lin(ca["q"], xc), eps=cfg.eps).reshape(b, L, n, dh)
-        cak = crossattn_cache["k"][lid].to(qc.dtype)
-        cav = crossattn_cache["v"][lid].to(qc.dtype)
-        yc = attn_ops.attention(qc, cak, cav)
-        if "k_img" in crossattn_cache:  # i2v: the image tokens, before o
-            yc = yc + attn_ops.attention(qc, crossattn_cache["k_img"][lid].to(qc.dtype),
-                                         crossattn_cache["v_img"][lid].to(qc.dtype))
-        tokens = tokens + lin(ca["o"], yc.reshape(b, L, cfg.dim))
-
-        # ---- ffn ----
-        xf2 = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn)
-        ff = bp["ffn"]
-        y = lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
-        tokens = tokens + gate(y, f, g_ffn)
+            tokens, k, v = run(tokens)
+        if train_cache:
+            kvc.train_cache_write(kv_cache, lid, current_start, k, v, win)
 
     if kv_cache is not None:
         kv_cache["global_end"] = new_global_end

@@ -51,15 +51,31 @@ the kernel or the call raises. The source is compiled with nvcc for sm_90a
 into a shared library with a plain C interface at first use
 (`ops/cuda_build.py`), and bound with ctypes.
 
+The gradient. When q, k or v requires grad, `window_attention` (the
+`window` route) and `block_causal_attention` (the `block_causal` route) go
+through `KernelAttention`, a `torch.autograd.Function`: its forward is the
+same bf16 launch, which then also writes each row's log-sum-exp (f32 [B, N,
+Lq]; a null pointer writes nothing, so the serving calls are unchanged), and
+its backward is `csrc/attention_bwd_sm90.cu` (mma.sync; see its header),
+which recomputes P from that LSE. On the CPU both are plain versions
+(`attention_forward_plain`, `attention_backward_plain`). The int8 and skew
+routes have no backward and raise when a gradient is needed. The JAX package
+has no such kernel: its Pallas attention cannot be differentiated, and its
+trainer differentiates the dense XLA attention, whose gradient the plain
+backward computes.
+
 `LAUNCHES` counts kernel launches per route (one int8 call = its pre-pass
-and its main kernel), `PREPASS_LAUNCHES["logit_bound"]` those of the
-logit-bound pre-pass; nothing else touches them. `PLAIN_ON_CUDA` counts calls
-of a plain version on a CUDA tensor, which the serving path never makes
-(only a comparison against the kernel does).
+and its main kernel; one backward = its D pre-pass and its dQ and dK/dV
+passes, under `window_bwd` / `block_causal_bwd`),
+`PREPASS_LAUNCHES["logit_bound"]` those of the logit-bound pre-pass; nothing
+else touches them. `PLAIN_ON_CUDA` counts calls of a plain version on a CUDA
+tensor (a plain backward under its forward's key), which the serving and
+training paths never make (only a comparison against the kernel does).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os as _os
 import threading
@@ -89,19 +105,23 @@ _MODE_BLOCK_CAUSAL = 1
 #: planted faults for the checks that must catch them (kernel argument)
 FAULT_K_SCALE_SHIFT = 2  # int8: the last segment's columns take the next row's k scale
 FAULT_STALE_RING_STAGE = 3  # the last K and V ring stages hold the previous tile
+FAULT_DROP_D = 1  # backward: dS = P * dP, the rowsum(dO * O) term dropped
 
 SM90_SOURCE = cuda_build.CSRC / "attention_sm90.cu"
-SOURCES = (SM90_SOURCE,)
+BWD_SOURCE = cuda_build.CSRC / "attention_bwd_sm90.cu"
+SOURCES = (SM90_SOURCE, BWD_SOURCE)
 
 WINDOW_ROUTES = ("window", "window_int8qk", "window_skew", "window_skew_staticmax")
 BLOCK_CAUSAL_ROUTES = ("block_causal", "block_causal_int8qk")
+BACKWARD_KEYS = ("window_bwd", "block_causal_bwd")
 #: kernel launches per route (plain-version calls are not counted)
-LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES}
+LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES + BACKWARD_KEYS}
 #: launches of the logit-bound pre-pass kernel (part of the `window` route)
 PREPASS_LAUNCHES: Dict[str, int] = {"logit_bound": 0}
 PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0}
 
 _lib = None
+_bwd_lib = None
 _lib_lock = threading.Lock()
 
 
@@ -143,8 +163,8 @@ def block_causal_route() -> str:
 
 
 def build() -> Dict[Path, Path]:
-    """Compile the source if its content-keyed library is missing; return
-    {source: library path}."""
+    """Compile the sources whose content-keyed libraries are missing (both
+    nvcc runs at once); return {source: library path}."""
     return cuda_build.build_all(SOURCES)
 
 
@@ -156,7 +176,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()[SM90_SOURCE]))
             p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-            lib.rtv_attention_sm90.argtypes = [p] * 4 + [i] * 5 + [f, p] + [i] * 7 + [p]
+            lib.rtv_attention_sm90.argtypes = [p] * 4 + [i] * 5 + [f, p, p] + [i] * 7 + [p]
             lib.rtv_attention_sm90.restype = i
             lib.rtv_attention_sm90_int8.argtypes = [p] * 6 + [i] * 14 + [p]
             lib.rtv_attention_sm90_int8.restype = i
@@ -166,6 +186,19 @@ def _load():
             lib.rtv_int8_qk_quantize.restype = i
             _lib = lib
     return _lib
+
+
+def _load_bwd():
+    """The backward library (csrc/attention_bwd_sm90.cu)."""
+    global _bwd_lib
+    with _lib_lock:
+        if _bwd_lib is None:
+            lib = ctypes.CDLL(str(build()[BWD_SOURCE]))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.rtv_attention_bwd_sm90.argtypes = [p] * 11 + [i] * 5 + [f] + [i] * 8 + [p]
+            lib.rtv_attention_bwd_sm90.restype = i
+            _bwd_lib = lib
+    return _bwd_lib
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +253,110 @@ def block_causal_attention_plain(q, k, v, block_tokens: int,
     valid = block_causal_mask(q.shape[1], k.shape[1], block_tokens, k.shape[1],
                               local_window, q.device)
     return _masked_softmax_attention(q, k, v, valid, scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mask:
+    """The keys a call attends to: the window [lo, hi) (mode 0; unmasked is
+    [0, Lk)) or block-causal (mode 1: key < min(ends[q], kv_len), optionally
+    key >= ends[q] - local_window, and the diagonal)."""
+    mode: int
+    lo: int = 0
+    hi: int = 0
+    block_tokens: int = 1
+    kv_len: int = 0
+    local_window: Optional[int] = None
+
+    @classmethod
+    def window(cls, lo: int, hi: int) -> "Mask":
+        return cls(_MODE_WINDOW, lo, hi)
+
+    @classmethod
+    def block_causal(cls, lk: int, block_tokens: int,
+                     local_window: Optional[int] = None) -> "Mask":
+        return cls(_MODE_BLOCK_CAUSAL, 0, lk, block_tokens, lk, local_window)
+
+    @property
+    def key(self) -> str:
+        """The route name the call counts under."""
+        return "window" if self.mode == _MODE_WINDOW else "block_causal"
+
+    def dense(self, lq: int, lk: int, device) -> torch.Tensor:
+        """[Lq, Lk] bool, True = attend."""
+        if self.mode == _MODE_WINDOW:
+            return _window_mask(lk, self.lo, self.hi, device).expand(lq, lk)
+        return block_causal_mask(lq, lk, self.block_tokens, self.kv_len, self.local_window,
+                                 device)
+
+    def kernel_args(self) -> Tuple[int, int, int, int, int, int]:
+        """(mode, lo, hi, block_tokens, kv_len, local_window or -1) of a launch."""
+        return (self.mode, self.lo, self.hi, self.block_tokens, self.kv_len,
+                -1 if self.local_window is None else self.local_window)
+
+
+def attention_forward_plain(q, k, v, mask: Mask, scale: float):
+    """(out, lse): the plain forward and each row's log-sum-exp of the scaled,
+    masked scores (f32 [B, N, Lq], natural log; NEG_INF masking, so a row
+    with no live key has lse ~ NEG_INF)."""
+    if q.is_cuda:
+        PLAIN_ON_CUDA[mask.key] += 1
+    valid = mask.dense(q.shape[1], k.shape[1], q.device)
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(torch.where(valid, logits, torch.full_like(logits, NEG_INF)), -1)
+    return _masked_softmax_attention(q, k, v, valid, scale), lse
+
+
+def attention_backward_plain(q, k, v, o, do, lse, scale: float, mask: Mask,
+                             heads_per_chunk: int = 4):
+    """(dq, dk, dv) by the recompute formulas of the backward kernel, dense,
+    in f32: S = scale q k^T, P = exp(S - lse), dP = dO v^T, D = rowsum(dO *
+    o), dS = P (dP - D) on live pairs, dv = P^T dO, dk = scale dS^T q, dq =
+    scale dS k. A row with no live key is uniform under NEG_INF masking, as
+    the dense softmax makes it (its dS is 0, its P^T dO is not); the kernel
+    gives it zero gradients, and no such row occurs on the training path.
+    Heads go in chunks so the [Lq, Lk] temporaries stay small at training
+    shapes."""
+    if q.is_cuda:
+        PLAIN_ON_CUDA[mask.key] += 1
+    lq, lk = q.shape[1], k.shape[1]
+    valid = mask.dense(lq, lk, q.device)
+    row_live = valid.any(-1, keepdim=True)
+    dof, of = do.float(), o.float()
+    delta = (dof * of).sum(-1).transpose(1, 2)  # [B, N, Lq]
+    dq, dk, dv = [], [], []
+    for h0 in range(0, q.shape[2], heads_per_chunk):
+        hs = slice(h0, h0 + heads_per_chunk)
+        qf, kf, vf = q[:, :, hs].float(), k[:, :, hs].float(), v[:, :, hs].float()
+        dofh = dof[:, :, hs]
+        s = torch.einsum("bqnd,bknd->bnqk", qf, kf) * scale
+        p = torch.exp(torch.where(valid, s, torch.full_like(s, NEG_INF)) - lse[:, hs, :, None])
+        p = torch.where(row_live, p, torch.full_like(p, 1.0 / lk))
+        dp = torch.einsum("bqnd,bknd->bnqk", dofh, vf)
+        ds = torch.where(valid, p * (dp - delta[:, hs, :, None]), torch.zeros_like(p))
+        dv.append(torch.einsum("bnqk,bqnd->bknd", p, dofh))
+        dk.append(torch.einsum("bnqk,bqnd->bknd", ds, qf) * scale)
+        dq.append(torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale)
+        del s, p, dp, ds
+    return (torch.cat(dq, 2).to(q.dtype), torch.cat(dk, 2).to(k.dtype),
+            torch.cat(dv, 2).to(v.dtype))
+
+
+def kernel_backward_plain(q, k, v, o, do, scale: float, mask: Mask):
+    """(dq, dk, dv) of the function the kernels compute, by the plain
+    versions alone: the forward scores bf16(q * c) k^T in log2 units, c =
+    qscale(scale) (0.32% above scale * log2 e at head dim 128), so this runs
+    the plain forward and backward on q prescaled as the kernel rounds it,
+    at scale 1 / log2 e, with the plain forward's own lse, and carries dq
+    through the prescale (times c, in q's dtype as `prescale` rounds it:
+    qscale(scale) for bf16, so f32 inputs give the exact-scale gradient).
+    The reference for the backward kernel, given the kernel's o (its D
+    term) and nothing else of the kernel's."""
+    qc = prescale(q, scale)
+    inv = 1.0 / LOG2E
+    _, lse = attention_forward_plain(qc, k, v, mask, inv)
+    dqc, dk, dv = attention_backward_plain(qc, k, v, o, do, lse, inv, mask)
+    c = float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    return (dqc.float() * c).to(q.dtype), dk, dv
 
 
 def prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -372,20 +509,22 @@ def _check(q, k, v) -> None:
 
 
 def _launch_sm90(q, k, v, scale: float, maxima, mode, lo, hi, block_tokens, kv_len,
-                 local_window, fault: int = 0) -> torch.Tensor:
+                 local_window, fault: int = 0, with_lse: bool = False):
     """One launch of the bf16 wgmma kernel on raw q. With `maxima` (the bound
-    pre-pass's [2] f32) a window call takes the static max while M < 64."""
+    pre-pass's [2] f32) a window call takes the static max while M < 64.
+    Returns out, or (out, lse [B, N, Lq] f32) with `with_lse`."""
     lib = _load()
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=v.device) if with_lse else None
     err = lib.rtv_attention_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1], n, d,
-        qscale(scale), None if maxima is None else maxima.data_ptr(), mode, lo, hi,
-        block_tokens, kv_len, local_window, fault,
-        torch.cuda.current_stream(v.device).cuda_stream)
+        qscale(scale), None if maxima is None else maxima.data_ptr(),
+        None if lse is None else lse.data_ptr(), mode, lo, hi, block_tokens, kv_len,
+        local_window, fault, torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_attention_sm90 launch failed: cudaError {err}")
-    return out
+    return (out, lse) if with_lse else out
 
 
 def logit_bound_maxima(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -458,6 +597,74 @@ def _launch_int8(q, k, v, scale: float, mode, lo, hi, block_tokens, kv_len, loca
     return out
 
 
+def attention_backward(q, k, v, o, do, lse, scale: float, mask: Mask, need_kv: bool = True,
+                       fault: int = 0):
+    """(dq, dk, dv) of attention under `mask`: the backward kernel for CUDA
+    tensors (dk and dv None when not `need_kv`: only the dQ pass runs),
+    `attention_backward_plain` on the CPU. The kernel differentiates the
+    function the forward kernel computes, whose scores are bf16(q * c) k^T
+    with c = qscale(scale) (see `kernel_backward_plain`), against the lse
+    that forward wrote."""
+    if not q.is_cuda:
+        return attention_backward_plain(q, k, v, o, do, lse, scale, mask)
+    _check(q, k, v)
+    _check(o, do, do)
+    if o.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"o {tuple(o.shape)} / lse {tuple(lse.shape)} {lse.dtype} do not "
+                         f"match q {tuple(q.shape)}")
+    lib = _load_bwd()
+    b, lq, n, d = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k) if need_kv else None
+    dv = torch.empty_like(v) if need_kv else None
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    qc = torch.empty_like(q)
+    err = lib.rtv_attention_bwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), qc.data_ptr(), dq.data_ptr(), None if dk is None else dk.data_ptr(),
+        None if dv is None else dv.data_ptr(), b, lq, k.shape[1], n, d, qscale(scale),
+        *mask.kernel_args(), int(need_kv), fault, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rtv_attention_bwd_sm90 launch failed: cudaError {err}")
+    LAUNCHES[f"{mask.key}_bwd"] += 1
+    return dq, dk, dv
+
+
+class KernelAttention(torch.autograd.Function):
+    """Attention under a `Mask` with its gradient. On a CUDA tensor the
+    forward is the bf16 kernel writing the row LSE (the window with the
+    static max when `static`, after the bound pre-pass; block-causal with the
+    running max), counted under the route as any call, and the backward is
+    the backward kernel; on the CPU both are the plain versions, so CPU
+    autograd equals the dense softmax's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask: Mask, scale: float, static: bool):
+        if q.is_cuda:
+            _check(q, k, v)
+            maxima = _maxima_launch(q, k, scale) if static else None
+            out, lse = _launch_sm90(q, k, v, scale, maxima, *mask.kernel_args(), with_lse=True)
+            LAUNCHES[mask.key] += 1
+        else:
+            out, lse = attention_forward_plain(q, k, v, mask, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask, ctx.scale = mask, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_kv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq, dk, dv = attention_backward(q, k, v, out, do.contiguous(), lse, ctx.scale, ctx.mask,
+                                        need_kv=need_kv)
+        return dq, dk, dv, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
                      route: Optional[str] = None) -> torch.Tensor:
     """Attend q to KV positions [lo, hi) (host ints), by `route` (one of
@@ -470,6 +677,12 @@ def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
     if route not in WINDOW_ROUTES:
         raise ValueError(f"window route {route!r} not in {WINDOW_ROUTES}")
     int8 = route == "window_int8qk"
+    if _needs_grad(q, k, v):
+        if route != "window":
+            raise NotImplementedError(
+                f"the {route!r} attention route has no backward kernel: a gradient needs the "
+                "bf16 'window' route (RTV_ATTN_INT8, _SKEW and _SKEW2 off)")
+        return KernelAttention.apply(q, k, v, Mask.window(lo, hi), scale, static_max(route))
     if not q.is_cuda:
         if int8:
             return window_attention_int8qk_plain(q, k, v, lo, hi, scale)
@@ -499,6 +712,15 @@ def block_causal_attention(q, k, v, block_tokens: int,
     if route not in BLOCK_CAUSAL_ROUTES:
         raise ValueError(f"block-causal route {route!r} not in {BLOCK_CAUSAL_ROUTES}")
     int8 = route == "block_causal_int8qk"
+    if _needs_grad(q, k, v):
+        if route != "block_causal":
+            raise NotImplementedError(
+                f"the {route!r} attention route has no backward kernel: a gradient needs the "
+                "bf16 'block_causal' route (RTV_ATTN_INT8 off)")
+        if q.shape[1] != k.shape[1]:
+            raise ValueError("block-causal attention needs Lq == Lk")
+        return KernelAttention.apply(q, k, v, Mask.block_causal(k.shape[1], block_tokens,
+                                                                local_window), scale, False)
     if not q.is_cuda:
         if int8:
             return block_causal_attention_int8qk_plain(q, k, v, block_tokens, local_window,
@@ -558,6 +780,16 @@ ATOL, RTOL, REL_FRO = 2e-3, 1.6e-2, 1e-2
 def sharp_atol(v: torch.Tensor) -> float:
     """Elementwise bound of the two P roundings when the softmax is sharp."""
     return 2.0 ** -7 * v.float().abs().max().item()
+
+
+def grad_atol(want: torch.Tensor) -> float:
+    """Elementwise bound of the backward kernel against its plain version:
+    the kernel rounds P and dS to bf16 before its products, which moves a
+    sum by up to 2^-9 of the sum of its terms' magnitudes, and rounds its
+    outputs to bf16; a gradient element that cancels is small against its
+    terms, so the bound is 2^-7 of the tensor's largest element. The
+    relative Frobenius bound REL_FRO holds as for the forward."""
+    return 2.0 ** -7 * want.float().abs().max().item()
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor,

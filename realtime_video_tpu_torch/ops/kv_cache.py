@@ -9,10 +9,25 @@ The JAX package threads the cache functionally through a jitted scan with
 donated buffers; here the buffers are written in place by slice assignment
 and the end indices are Python ints computed on the host, so planning a write
 never waits on the device. Eviction semantics mirror causal_model.py:358-392.
+
+Training needs the gradient through the cached K/V (the JAX rollout's cache
+refresh carries the parameter gradient into the next block), which in-place
+writes into one buffer cannot give: each denoise step overwrites the rows a
+saved tensor aliases, and every layer's write would chain through the one
+[L, B, S, N, Dh] buffer. The training cache (`init_train_kv_cache`) keeps,
+per layer, the K/V tensors each write made, keyed by their start:
+
+    kv = {"blocks": [[(start, k [B, n, N, Dh], v), ...] per layer],
+          "cache_size": int, "global_end": int, "local_end": int}
+
+A write at `start` replaces the entries at or after it (a re-denoise of the
+same block overwrites, as the buffer's rows are), and the attention window
+is the concatenation of the last min(max_attention_size, cache_size)
+tokens, the JAX package's window and eviction when blocks tile the cache.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -75,3 +90,55 @@ def shift_layer_cache(buf: torch.Tensor, shift: int, sink_tokens: int) -> torch.
     idx = torch.arange(S, device=buf.device)
     src = torch.where(idx >= sink_tokens, torch.clamp(idx + shift, max=S - 1), idx)
     return buf.index_select(1, src)
+
+
+def init_train_kv_cache(num_layers: int, cache_size: int) -> Dict:
+    """An empty training cache of `cache_size` tokens (see the module note)."""
+    return {"blocks": [[] for _ in range(num_layers)], "cache_size": int(cache_size),
+            "global_end": 0, "local_end": 0}
+
+
+def is_train_cache(kv: Dict) -> bool:
+    return "blocks" in kv
+
+
+def cache_size(kv: Dict) -> int:
+    """Tokens the cache holds at most."""
+    return kv["cache_size"] if is_train_cache(kv) else kv["k"].shape[2]
+
+
+def _entries_before(kv: Dict, lid: int, start: int) -> list:
+    """Layer `lid`'s entries before `start`, which must end exactly there."""
+    entries = [e for e in kv["blocks"][lid] if e[0] < start]
+    end = entries[-1][0] + entries[-1][1].shape[1] if entries else 0
+    if end != start:
+        raise ValueError(f"training cache: a write at {start} after K/V that end at {end}")
+    return entries
+
+
+def train_cache_prefix(kv: Dict, lid: int, start: int,
+                       keep: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The cached K and V of layer `lid` for the `keep` positions before
+    `start`, as lists of tensors in position order (views of the entries)."""
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    need = keep
+    for _, k, v in reversed(_entries_before(kv, lid, start)):
+        if need <= 0:
+            break
+        if k.shape[1] > need:
+            k, v = k[:, k.shape[1] - need:], v[:, v.shape[1] - need:]
+        ks.insert(0, k)
+        vs.insert(0, v)
+        need -= k.shape[1]
+    return ks, vs
+
+
+def train_cache_write(kv: Dict, lid: int, start: int, k: torch.Tensor, v: torch.Tensor,
+                      window: int) -> None:
+    """Record layer `lid`'s K/V of positions [start, start + n), dropping the
+    entries at or after `start` and those wholly before the last `window`
+    positions."""
+    entries = _entries_before(kv, lid, start) + [(start, k, v)]
+    end = start + k.shape[1]
+    kv["blocks"][lid] = [e for e in entries if e[0] + e[1].shape[1] > end - window]

@@ -82,6 +82,21 @@ class FlowMatchSchedule:
         out = xt.float() - sigma * flow_pred.float()
         return out.to(flow_pred.dtype)
 
+    def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
+                        timestep: torch.Tensor) -> torch.Tensor:
+        """Flow-matching target v = noise - x0 (scheduler.py:178-180)."""
+        del timestep
+        return noise - sample
+
+    def training_weight(self, timestep: torch.Tensor) -> torch.Tensor:
+        """Gaussian-bell step weights at the nearest schedule step
+        (scheduler.py:134-141, training=True), f32."""
+        n = self.timesteps.shape[0]
+        y = torch.exp(-2.0 * ((self.timesteps - n / 2) / n) ** 2)
+        y_shifted = y - y.min()
+        weights = y_shifted * (n / y_shifted.sum())
+        return weights[self.timestep_id(timestep.to(self.timesteps.device))]
+
     def zero_padded_timesteps(self) -> torch.Tensor:
         """Timesteps with a trailing 0, for the denoising-schedule lookup."""
         return torch.cat([self.timesteps, self.timesteps.new_zeros(1)])

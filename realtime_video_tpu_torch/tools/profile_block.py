@@ -63,6 +63,19 @@ cuBLAS and the elementwise ops apart, and the busy share of the range's
 span. `--clip-steps N` then times one whole `WanT2V.generate` of N UniPC
 steps with the Wan 2.1 VAE's decode (bf16), each step and the decode ended
 by a sync. Writes profile_teacher_<model>.json and .txt.
+
+With `--train` it profiles train.py's distillation step instead
+(`train.build` / `train.train_step` on configs/train_dmd_t2v_1.3B.yaml:
+three t2v-1.3B bf16 networks from seeds 0 / 1 / 2 with random heads, the
+seeded text embedding, 6 latent frames of 60x104, steps 1000 / 750 / 500
+/ 250, guidance 3, every DiT layer under checkpointing). Step 0 warms up; step 1
+runs unprofiled (the generator and critic updates' host walls with a sync at
+each end, the peak memory, the launch counts), then step 2 under
+torch.profiler with each update (its loss, backward and optimizer step,
+ended by a sync) in its own range, `generator_step` and `critic_step`:
+device time by kernel and by category (the attention backward kernel
+apart), and the busy share of each range's span. Writes
+profile_train_<model>.json and .txt.
 """
 from __future__ import annotations
 
@@ -80,7 +93,7 @@ import torch
 
 BLOCKS = 5
 CATEGORIES = ("attention_kernel", "attention_bound_prepass", "attention_int8_prepass",
-              "int8_linear_kernel",
+              "attention_backward_kernel", "int8_linear_kernel",
               "conv3x3_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
 #: the H100 SXM data-sheet rates the bounds use (chip_smoke.py's)
 HBM_BYTES_PER_S = 3.35e12
@@ -93,10 +106,12 @@ TIER_FLAGS = {"bf16": {},
 def category(kernel_name: str) -> str:
     """Bucket a device kernel by its name: the port's hand-written kernels
     (the attention kernels, the logit-bound pre-pass, the int8 QK^T
-    pre-pass, the int8 linear with its quantise pre-pass, the conv with
+    pre-pass, the attention backward, the int8 linear with its quantise pre-pass, the conv with
     its quantise pre-pass), then
     library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
+    if "attn_bwd_" in n:
+        return "attention_backward_kernel"  # its D pre-pass, dQ and dK/dV passes
     if "attn_logit_bound" in n:
         return "attention_bound_prepass"
     if "attention_kernel" in n:
@@ -201,12 +216,15 @@ class PhaseTimer:
 
 
 def device_events(prof, range_name: str):
-    """(the host range's event, the device kernels and copies); the range's
-    own annotation on the GPU timeline is left out."""
+    """(the host range's event, the device kernels and copies that start
+    inside its span); the ranges' own annotations on the GPU timeline are
+    left out."""
     events = prof.events()
     span = next(e for e in events if e.name == range_name)
+    start, end = span.time_range.start, span.time_range.end
     return span, [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name != range_name]
+                  and e.name != range_name and not getattr(e, "is_user_annotation", False)
+                  and start <= e.time_range.start < end]
 
 
 def device_summary(prof, range_name: str) -> dict:
@@ -373,6 +391,37 @@ def teacher(args, card: str) -> None:
     print(json.dumps({k: v for k, v in summary.items() if k != "top_kernels"}), flush=True)
 
 
+def train(args, card: str) -> None:
+    """The --train profile (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from realtime_video_tpu_torch import train as train_mod
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+
+    tr = train_mod.build(train_mod.parse_args([
+        "--config", train_mod.TRAIN_CONFIG, "--text-encoder", "seeded",
+        "--lr", "1e-4", "--critic-lr", "1e-4"]))
+    model = tr.config.model_name
+    train_mod.train_step(tr, 0)
+    hk.reset_launch_counts()
+    unprofiled = train_mod.train_step(tr, 1)
+    launches = dict(hk.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = train_mod.train_step(tr, 2, span=record_function)
+    summary = {"card": card, "model": model, "tier": "bf16", "latents": [6, 60, 104],
+               "unprofiled_step": unprofiled, "profiled_step": profiled,
+               "launches_per_step": launches,
+               **{name: device_summary(prof, name) for name in train_mod.SPANS}}
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    stem = f"profile_train_{model}"
+    (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
+    (out / f"{stem}.txt").write_text(op_table([prof]))
+    print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "top_kernels"}
+                          if k in train_mod.SPANS else v) for k, v in summary.items()}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("t2v-1.3B", "t2v-14B"), default="t2v-1.3B",
@@ -393,6 +442,9 @@ def main() -> None:
     ap.add_argument("--teacher", action="store_true",
                     help="profile one CFG step of the bf16 teacher over an 81-frame clip "
                          "instead of a serving block")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one step of train.py's DMD distillation at full width "
+                         "instead of a serving block")
     ap.add_argument("--clip-steps", type=int, default=0,
                     help="with --teacher: then time one WanT2V.generate of this many steps")
     ap.add_argument("--out", default="profile_out", help="directory for the reports")
@@ -405,6 +457,8 @@ def main() -> None:
     print(card, flush=True)
     if args.teacher:
         return teacher(args, card)
+    if args.train:
+        return train(args, card)
     if args.umt5:
         os.environ.pop("USE_STATIC_ENCODER_COND_DICT", None)
     else:

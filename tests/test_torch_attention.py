@@ -118,9 +118,11 @@ def test_plain_versions_count_no_cuda_calls_on_cpu():
     q = torch.from_numpy(rand(7, (1, 8, 2, 64)))
     tattn.decode_attention(q, q, q, 0, 8)
     tattn.block_causal_attention(q, q, q, 4)
-    assert hk.LAUNCHES == {r: 0 for r in hk.WINDOW_ROUTES + hk.BLOCK_CAUSAL_ROUTES}
+    assert hk.LAUNCHES == {r: 0 for r in
+                           hk.WINDOW_ROUTES + hk.BLOCK_CAUSAL_ROUTES + hk.BACKWARD_KEYS}
     assert set(hk.LAUNCHES) == {"window", "block_causal", "window_int8qk",
-                                "block_causal_int8qk", "window_skew", "window_skew_staticmax"}
+                                "block_causal_int8qk", "window_skew", "window_skew_staticmax",
+                                "window_bwd", "block_causal_bwd"}
     assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0}
 
 

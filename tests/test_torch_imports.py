@@ -1,8 +1,9 @@
 """The PyTorch port imports no JAX: a fresh interpreter imports the package,
 its serving stack, TAEHV, the quantised-tree cache, the offline sampler, the
 solvers, the teacher pipelines, `WanT2V` and `WanI2V`, the CLIP towers, the
-image and prompt-extension utilities and every other module of it, and
-`jax` stays out of sys.modules. Also holds
+image and prompt-extension utilities, the training stack (`train`,
+`training/`, the self-forcing rollout, the datasets) and every other module
+of it, and `jax` stays out of sys.modules. Also holds
 that the port's kernel wrappers take a CUDA tensor only to their kernels (on
 a CPU-only host they must raise, not fall back), and that its entry points
 (TAEHV's init and `sample_videos` among them) build on the card unless
@@ -35,7 +36,15 @@ def test_port_imports_no_jax():
             "realtime_video_tpu_torch.pipelines.bidirectional_inference",
             "realtime_video_tpu_torch.models.clip", "realtime_video_tpu_torch.utils.image",
             "realtime_video_tpu_torch.utils.prompt_extend",
-            "realtime_video_tpu_torch.utils.qwen_vl"} <= set(mods)
+            "realtime_video_tpu_torch.utils.qwen_vl",
+            "realtime_video_tpu_torch.train", "realtime_video_tpu_torch.training.losses",
+            "realtime_video_tpu_torch.training.distillation",
+            "realtime_video_tpu_torch.training.base", "realtime_video_tpu_torch.training.ema",
+            "realtime_video_tpu_torch.training.train_step",
+            "realtime_video_tpu_torch.training.draws",
+            "realtime_video_tpu_torch.pipelines.self_forcing_training",
+            "realtime_video_tpu_torch.utils.dataset",
+            "realtime_video_tpu_torch.utils.lmdb_io"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -63,6 +72,12 @@ def test_kernel_wrapper_never_falls_back_for_cuda_tensors(monkeypatch):
         hk.window_attention(q, q, q, 0, 4)
     with pytest.raises(RuntimeError, match="no nvcc"):
         hk.block_causal_attention(q, q, q, 2)
+    # the gradient path too: its forward and its backward kernel
+    qg = q.float().requires_grad_().to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        hk.window_attention(qg, q, q, 0, 4)
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        hk.attention_backward(q, q, q, q, q, torch.zeros(1, 2, 4), 0.1, hk.Mask.window(0, 4))
     assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0}
 
 

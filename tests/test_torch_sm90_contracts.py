@@ -152,8 +152,9 @@ def test_port_sources_hash_the_shared_header():
     for src in (hm.SOURCE, hc.SOURCE):  # the int8 pre-passes share one quantiser
         assert cuda_build.CSRC / "quantize.cuh" in cuda_build.local_headers(src)
     assert cuda_build.local_headers(cuda_build.CSRC / "quantize.cuh") == []
+    assert cuda_build.local_headers(hk.BWD_SOURCE) == []  # the mma.sync backward stands alone
     assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == [
-        "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
+        "attention_bwd_sm90.cu", "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
 
 
 @pytest.mark.parametrize("name, want", [
