@@ -8,8 +8,10 @@ Phases, each reported on its own lines:
      (one nvcc per source, all started together; with the earlier kernels'
      sources under _archive/, those too, for the A/B times below), and, per
      library, its counts of HGMMA / IGMMA (wgmma), UTMALDG (TMA load) and
-     HMMA (mma.sync) instructions in `cuobjdump -sass`: the wgmma libraries
-     must show the first, the attention backward the last;
+     HMMA (mma.sync) instructions in `cuobjdump -sass`: every library must
+     show wgmma, the wgmma/TMA ones TMA loads, and the attention backward no
+     mma.sync; and ptxas's registers and spills of the backward's kernels
+     (`-Xptxas=-v`), which must spill nothing;
   2. kernels against their plain PyTorch versions at serving shapes, with each
      error against its bound, the kernel's, the plain version's and a library
      call's CUDA-event time, and the least time the card could take
@@ -90,12 +92,15 @@ Phases, each reported on its own lines:
      teacher's train-mode forward (no cache, no mask) at t2v-1.3B's full
      width with 2 layers on 3 latent frames at 832x480 the same way; then
      the training path (`backward_kernel_phase`, `training_phase`): the
-     attention backward (csrc/attention_bwd_sm90.cu, mma.sync) against its
-     plain version at the training shapes and two large-norm windows
-     (BWD_CASES), its dq, dk and dv each under `agreement` at `grad_atol`,
-     the forward's LSE against the plain one, timed beside its bound and
-     torch SDPA's backward, with the D term dropped, the window 16 short and
-     a 1% scale error as planted faults; DMD's generator gradient of
+     attention backward (csrc/attention_bwd_sm90.cu: wgmma, TMA, warp
+     specialisation) against its plain version at the training shapes, two
+     large-norm windows and the two again with near-parallel keys
+     (BWD_CASES), its dq, dk and dv each under `agreement` at `grad_atol`
+     (dq at near-parallel keys at bars set from SDPA flash's error there),
+     bit-equal over two launches, the forward's LSE against the plain one,
+     timed beside its bound, torch SDPA's backward and (with _archive/) its
+     first form, with the D term dropped, the window 16 short and a 1%
+     scale error as planted faults; DMD's generator gradient of
      2-layer t2v-1.3B-width networks on the card in bf16 against the CPU's
      f32 (cosine, norm ratio and relative error, the CPU's bf16 run beside
      as the control); and train.py's path at
@@ -174,7 +179,8 @@ its directory is a temporary one, removed at exit.
 Before its last line it prints the kernels' JSON summary, one row per TPU
 kernel of the repo (nine rows, each with `earlier_ms`: the replaced
 version's time in this run where _archive/ holds it, else null) and one for
-the attention backward, which replaces no TPU kernel; the
+the attention backward, which replaces no TPU kernel (its `earlier_ms` the
+first, mma.sync form's); the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it, and so does a host without a CUDA device.
 Phase 1 also names the JPEG codec the server uses (the native libjpeg codec,
@@ -219,6 +225,8 @@ _T0 = time.perf_counter()
 ARCHIVE = Path(__file__).resolve().parent / "_archive"
 EARLIER_SOURCES = (ARCHIVE / "attention_sm90_earlier.cu", ARCHIVE / "attention_mma_earlier.cu",
                    ARCHIVE / "conv3x3_earlier.cu")
+#: the attention backward's first form (mma.sync, cp.async), for its A/B
+BWD_EARLIER = ARCHIVE / "attention_bwd_sm90_earlier.cu"
 
 
 def fail(msg: str) -> None:
@@ -439,36 +447,59 @@ def event_ms(fn, n: int) -> float:
 #: case: at norm 1.5 the bound stays under STATIC_MAX_LIMIT (the static
 #: max, several times the true row maxima: a tiny row sum), at 3.0 it
 #: passes it (the running-max fallback, on logits several times larger);
-#: (name, mode, lq, lk, lo, hi or block_tokens, norm)
+#: and both again with near-parallel keys, k = [q; 0.97 q], where dq is held
+#: at `NEAR_PARALLEL_DQ_*` (bf16's own error there: see hopper_attention);
+#: (name, mode, lq, lk, lo, hi or block_tokens, norm, near-parallel keys)
 BWD_CASES = (
-    ("decode_4680x9360", "window", 4680, 9360, 0, 9360, 1.0),
-    ("decode_4680x4680", "window", 4680, 4680, 0, 4680, 1.0),
-    ("unmasked_9360", "window", 9360, 9360, 0, 9360, 1.0),
-    ("block_causal_9360_4680", "block_causal", 9360, 9360, 0, 4680, 1.0),
-    ("cross_9360x512", "window", 9360, 512, 0, 512, 1.0),
-    ("large_norm_static_4680x9360", "window", 4680, 9360, 0, 9360, 1.5),
-    ("large_norm_fallback_4680x9360", "window", 4680, 9360, 0, 9360, 3.0),
+    ("decode_4680x9360", "window", 4680, 9360, 0, 9360, 1.0, False),
+    ("decode_4680x4680", "window", 4680, 4680, 0, 4680, 1.0, False),
+    ("unmasked_9360", "window", 9360, 9360, 0, 9360, 1.0, False),
+    ("block_causal_9360_4680", "block_causal", 9360, 9360, 0, 4680, 1.0, False),
+    ("cross_9360x512", "window", 9360, 512, 0, 512, 1.0, False),
+    ("large_norm_static_4680x9360", "window", 4680, 9360, 0, 9360, 1.5, False),
+    ("large_norm_fallback_4680x9360", "window", 4680, 9360, 0, 9360, 3.0, False),
+    ("near_parallel_static_4680x9360", "window", 4680, 9360, 0, 9360, 1.5, True),
+    ("near_parallel_fallback_4680x9360", "window", 4680, 9360, 0, 9360, 3.0, True),
 )
 
 
-def backward_kernel_phase(card: str, dev) -> dict:
+def load_earlier_backward(libs: dict):
+    """The attention backward's first form (mma.sync, cp.async), bound as its
+    source declares it, or None without _archive/."""
+    if BWD_EARLIER not in libs:
+        return None
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = ctypes.CDLL(str(libs[BWD_EARLIER]))
+    lib.rtv_attention_bwd_sm90.argtypes = [p] * 11 + [i] * 5 + [f] + [i] * 8 + [p]
+    lib.rtv_attention_bwd_sm90.restype = i
+    return lib
+
+
+def backward_kernel_phase(card: str, dev, earlier=None) -> dict:
     """csrc/attention_bwd_sm90.cu against its plain version at BWD_CASES:
-    dq / dk / dv each under `hopper_attention.agreement` at `grad_atol`. The
-    kernel takes the output and LSE of the forward kernel as the training
-    path calls it (the window with the static max after the bound pre-pass,
-    or its fallback; block-causal with the running max); the plain side is
+    dq / dk / dv each under `hopper_attention.agreement` at `grad_atol` (dq
+    of the near-parallel cases at `near_parallel_dq_agreement`). The kernel
+    takes the output and LSE of the forward kernel as the training path calls
+    it (the window with the static max after the bound pre-pass, or its
+    fallback; block-causal with the running max); the plain side is
     `kernel_backward_plain`, the plain backward of the function the kernels
     compute (q prescaled by bf16(scale * log2 e)) on the plain forward's own
     LSE, so a kernel that differentiates another scale, or trusts a wrong
-    LSE, fails. The forward's LSE against that plain one (2e-3). Timed with
-    CUDA events: the backward (its pre-pass, dQ and dK/dV passes), its dQ
-    pass alone (the cross-attention's form on the generator path), the plain
-    version, and torch SDPA's backward on the same q, k, v and dO (flash on
-    the window's live keys; the efficient kernel under the boolean
-    block-causal mask). Planted faults: the D term dropped, the window's hi
-    16 short (unit-norm windows), and on the large-norm cases the backward
-    at a softmax scale 1% below the forward's (its c one bf16 step lower,
-    1.5%)."""
+    LSE, fails. The forward's LSE against that plain one (2e-3). Two
+    launches on the same inputs must give bit-equal dq, dk and dv. Timed
+    with CUDA events: the backward (its pre-pass, dQ and dK/dV passes), in
+    turns with its first form from _archive/ where present (earlier, new,
+    new, earlier: `earlier_ms`), its dQ pass alone (the cross-attention's
+    form on the generator path), the plain version, and torch SDPA's
+    backward on the same q, k, v and dO (flash on the window's live keys;
+    the efficient kernel under the boolean block-causal mask). On the
+    near-parallel cases SDPA flash's backward also runs the kernels'
+    function (prescaled q at scale 1 / log2 e) and its dq, dk, dv are held
+    against the plain backward on its own output: the error bf16 gives
+    there, which the dq bar rests on. Planted faults: the D term dropped,
+    the window's hi 16 short (unit-norm windows), and on the large-norm
+    cases the backward at a softmax scale 1% below the forward's (its c one
+    bf16 step lower, 1.5%)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -482,16 +513,38 @@ def backward_kernel_phase(card: str, dev) -> dict:
     def rnd(shape, norm=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * norm).to(torch.bfloat16)
 
+    def earlier_backward(q, k, v, out, do, lse, mask):
+        """dq, dk, dv by the first form (its D scratch [B, N, Lq])."""
+        b, lq, n, d = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+        qc = torch.empty_like(q)
+        err = earlier.rtv_attention_bwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), qc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, lq, k.shape[1], n, d, hk.qscale(scale), *mask.kernel_args(), 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the earlier attention backward launch failed: cudaError {err}")
+        return dq, dk, dv
+
+    def sdpa(qt, kt, vt, lib_mask, sc):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask, scale=sc)
+
     results = {}
-    for name, mode, lq, lk, lo, arg, norm in BWD_CASES:
-        q, k = rnd((1, lq, heads, hd), norm), rnd((1, lk, heads, hd), norm)
+    for name, mode, lq, lk, lo, arg, norm, near_parallel in BWD_CASES:
+        q = rnd((1, lq, heads, hd), norm)
+        if near_parallel:  # keys q and 0.97 q
+            k = torch.cat([q, (q.float() * 0.97).to(torch.bfloat16)], 1)
+        else:
+            k = rnd((1, lk, heads, hd), norm)
         v, do = rnd((1, lk, heads, hd)), rnd((1, lq, heads, hd))
         window = mode == "window"
         mask = hk.Mask.window(lo, arg) if window else hk.Mask.block_causal(lk, arg)
         m_bound = None
         if norm != 1.0:
             m_bound = float(hk.logit_bound_plain(q, k, scale)[0])
-            if (m_bound < hk.STATIC_MAX_LIMIT) != name.startswith("large_norm_static"):
+            if (m_bound < hk.STATIC_MAX_LIMIT) != ("_static_" in name):
                 fail(f"attention backward {name}: the logit bound {m_bound} does not reach "
                      f"the forward's intended max (limit {hk.STATIC_MAX_LIMIT})")
         maxima = hk.logit_bound_maxima(q, k, scale) if window else None
@@ -503,9 +556,23 @@ def backward_kernel_phase(card: str, dev) -> dict:
         kern = lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask)  # noqa: E731
         plain = lambda: hk.kernel_backward_plain(q, k, v, out, do, scale, mask)  # noqa: E731
         got, want = kern(), plain()
+        again = kern()
         torch.cuda.synchronize()
-        res = {g: hk.agreement(a, b, hk.grad_atol(b))
-               for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+
+        def check(grads, ref):
+            return {g: (hk.near_parallel_dq_agreement(a, b) if near_parallel and g == "dq"
+                        else hk.agreement(a, b, hk.grad_atol(b)))
+                    for g, a, b in zip(("dq", "dk", "dv"), grads, ref)}
+
+        res = check(got, want)
+        extra = {}
+        if earlier is not None:
+            res_e = check(earlier_backward(q, k, v, out, do, lse, mask), want)
+            extra["earlier_errors"] = {g: {key: r[key] for key in ("max_abs_err", "rel_fro_err",
+                                                                   "within_tol")}
+                                       for g, r in res_e.items()}
         faults = {"drop_D": lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask,
                                                           fault=hk.FAULT_DROP_D)}
         if window and norm == 1.0:
@@ -516,12 +583,15 @@ def backward_kernel_phase(card: str, dev) -> dict:
                                                                scale * 0.99, mask)
         caught = {}
         for fault, fn in faults.items():
-            bad = fn()
-            caught[fault] = any(not hk.agreement(a, b, hk.grad_atol(b))["within_tol"]
-                                for a, b in zip(bad, want))
-            del bad
+            caught[fault] = any(not r["within_tol"] for r in check(fn(), want).values())
         del got, want
-        ms = event_ms(kern, 10)
+        if earlier is not None:
+            e_kern = lambda: earlier_backward(q, k, v, out, do, lse, mask)  # noqa: E731
+            t = [event_ms(e_kern, 10), event_ms(kern, 10), event_ms(kern, 10),
+                 event_ms(e_kern, 10)]
+            ms, earlier_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        else:
+            ms, earlier_ms = event_ms(kern, 10), None
         dq_ms = event_ms(lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask,
                                                        need_kv=False), 10)
         fwd_ms = event_ms(lambda: hk._launch_sm90(q, k, v, scale, maxima, *mask.kernel_args(),
@@ -537,18 +607,36 @@ def backward_kernel_phase(card: str, dev) -> dict:
             backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
         library_ms, library = None, None
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, ks, vs))
+        g = do.transpose(1, 2)
         for backend in backends:
             try:
                 with sdpa_kernel([backend]):
-                    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
-                                                       scale=scale)
-                    g = do.transpose(1, 2)
+                    o = sdpa(qt, kt, vt, lib_mask, scale)
                     library_ms = event_ms(lambda: torch.autograd.grad(
                         o, (qt, kt, vt), g, retain_graph=True), 10)
                 library = f"torch SDPA {backend.name} backward"
                 break
             except RuntimeError:
                 continue
+        if near_parallel:  # SDPA flash's backward of the kernels' function, and its error
+            qc = hk.prescale(q, scale).transpose(1, 2).detach().requires_grad_()
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                o = sdpa(qc, kt, vt, None, 1.0 / hk.LOG2E)
+                dqc, dks, dvs = torch.autograd.grad(o, (qc, kt, vt), g)
+            c = hk.qscale(scale)
+            lib_grads = ((dqc.float() * c).to(q.dtype).transpose(1, 2), dks.transpose(1, 2),
+                         dvs.transpose(1, 2))
+            want_lib = hk.kernel_backward_plain(q, k, v, o.detach().transpose(1, 2).contiguous(),
+                                                do, scale, mask)
+            extra["library_errors"] = {
+                name_: {"max_abs_err_of_max": r["max_abs_err"] / w.float().abs().max().item(),
+                        "rel_fro_err": r["rel_fro_err"]}
+                for name_, r, w in zip(("dq", "dk", "dv"),
+                                       (hk.agreement(a, b) for a, b in zip(lib_grads, want_lib)),
+                                       want_lib)}
+            extra["dq_bar"] = {"rel_fro": hk.NEAR_PARALLEL_DQ_REL_FRO,
+                               "atol_of_max": hk.NEAR_PARALLEL_DQ_ATOL}
+            del qc, o, dqc, dks, dvs, lib_grads, want_lib
         del qt, kt, vt, lib_mask
         fwd_flop = (hk.window_flops(lq, lo, arg, heads, hd) if window
                     else hk.block_causal_flops(lq, arg, heads, hd))
@@ -557,14 +645,15 @@ def backward_kernel_phase(card: str, dev) -> dict:
         io_bytes = 2.0 * heads * hd * (4 * lq + 4 * live_k) + 4.0 * heads * lq
         bound_ms, bound_by = bound(io_bytes, flop, "bf16")
         results[name] = dict(
-            ms=ms, dq_pass_ms=dq_ms, forward_with_lse_ms=fwd_ms, plain_ms=plain_ms,
-            library_ms=library_ms, library=library, bound_ms=bound_ms, bound_by=bound_by,
-            tflops=flop / ms / 1e9, lse_max_abs_err=lse_err, norm=norm, logit_bound=m_bound,
+            ms=ms, earlier_ms=earlier_ms, dq_pass_ms=dq_ms, forward_with_lse_ms=fwd_ms,
+            plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bound_ms,
+            bound_by=bound_by, tflops=flop / ms / 1e9, lse_max_abs_err=lse_err, norm=norm,
+            near_parallel_keys=near_parallel, logit_bound=m_bound,
             max_abs_err=max(r["max_abs_err"] for r in res.values()),
             rel_fro_err=max(r["rel_fro_err"] for r in res.values()),
             **{f"{g}_{key}": r[key] for g, r in res.items()
                for key in ("max_abs_err", "rel_fro_err", "atol")},
-            faults_caught=caught)
+            deterministic=deterministic, faults_caught=caught, **extra)
         phase("kernel", kernel="attention_backward", case=name, mode=mode, lq=lq, lk=lk, lo=lo,
               arg=arg, heads=heads, head_dim=hd, **results[name], card=card)
         if not all(r["within_tol"] for r in res.values()):
@@ -574,6 +663,8 @@ def backward_kernel_phase(card: str, dev) -> dict:
             fail(f"attention backward {name}: the forward's LSE is {lse_err} off the plain one")
         if not all(caught.values()):
             fail(f"attention backward {name}: a planted fault passes the check: {caught}")
+        if not deterministic:
+            fail(f"attention backward {name}: two launches on the same inputs differ")
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return results
@@ -866,12 +957,16 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
     sources = [*hk.SOURCES, hm.SOURCE, hc.SOURCE]
-    archived = [src for src in EARLIER_SOURCES if src.exists()]
+    archived = [src for src in (*EARLIER_SOURCES, BWD_EARLIER) if src.exists()]
     t0 = time.perf_counter()
     libs = cuda_build.build_all(sources + archived)
     build_s = time.perf_counter() - t0
     earlier = load_earlier(libs)
+    earlier_bwd = load_earlier_backward(libs)
     sass = {libs[src].name: sass_counts(libs[src], cuda_build.nvcc()) for src in sources}
+    bwd_log = cuda_build.log_path(libs[hk.BWD_SOURCE])
+    bwd_ptxas = ({name: use for name, use in cuda_build.ptxas_usage(bwd_log.read_text()).items()
+                  if "attn_bwd_" in name} if bwd_log.exists() else None)
     jpeg_codec = "native libjpeg (native/frame_codec.cpp)" if native.available() else "PIL"
     print(f"JPEG codec: {jpeg_codec}", flush=True)
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
@@ -879,14 +974,25 @@ def main() -> None:
           cuda=torch.version.cuda, kernel_build_s=build_s, jpeg_codec=jpeg_codec,
           libraries=[libs[src].name for src in sources],
           archived_earlier_kernels=[src.name for src in archived], sass=sass,
+          backward_ptxas=bwd_ptxas,
           tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
           tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "IGMMA", "UTMALDG")), (hk.BWD_SOURCE, ("HMMA",)),
+    for src, ops in ((hk.SM90_SOURCE, ("HGMMA", "IGMMA", "UTMALDG")),
+                     (hk.BWD_SOURCE, ("HGMMA", "UTMALDG")),
                      (hm.SOURCE, ("IGMMA", "UTMALDG")),
                      (hc.SOURCE, ("HGMMA", "IGMMA", "UTMALDG"))):
         counts = sass[libs[src].name]
         if not all(counts[op] > 0 for op in ops):
             fail(f"{src.name}: no {ops} in its SASS: {counts}")
+    if sass[libs[hk.BWD_SOURCE].name]["HMMA"]:
+        fail(f"{hk.BWD_SOURCE.name}: mma.sync (HMMA) in its SASS: "
+             f"{sass[libs[hk.BWD_SOURCE].name]}")
+    # the backward's three kernels, each with 0 spill bytes (a build that was
+    # reused has no report: then nothing is read)
+    if bwd_ptxas is not None and (len(bwd_ptxas) != 3 or any(
+            use.get("spill_store_bytes", 1) or use.get("spill_load_bytes", 1)
+            for use in bwd_ptxas.values())):
+        fail(f"{hk.BWD_SOURCE.name}: ptxas reports spills or a missing kernel: {bwd_ptxas}")
 
     # ---- phase 2: kernels against their plain versions ----
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1899,7 +2005,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the attention backward at the training shapes, then the training path
-    bwd_results = backward_kernel_phase(card, dev)
+    bwd_results = backward_kernel_phase(card, dev, earlier_bwd)
     training = training_phase(card, dev, read_counts, kernel_mods)
 
     # CLIP ViT-H/14 at full width and depth (32 blocks, dim 1280, 16 heads;
@@ -3068,7 +3174,8 @@ def main() -> None:
                "fallback_max_abs_err":
                mode_results["skew_staticmax_large_norm"]["max_abs_err"]}),
         entry("attention_backward (dq, dk, dv of K1/K2's function: D pre-pass, dQ pass, "
-              "dK/dV pass; mma.sync)", "realtime_video_tpu_torch/csrc/attention_bwd_sm90.cu",
+              "dK/dV pass; wgmma, TMA, warp-specialised)",
+              "realtime_video_tpu_torch/csrc/attention_bwd_sm90.cu",
               "realtime_video_tpu/ops/attention.py:72",
               sum(training[key][b] for key in ("launches_dmd", "launches_flow_matching")
                   for b in ("window_bwd", "block_causal_bwd")),
@@ -3078,9 +3185,14 @@ def main() -> None:
                        "passes); replaces no Pallas kernel: the JAX trainer differentiates "
                        "xla_attention",
                "library": bwd_results["decode_4680x9360"]["library"],
+               "earlier_ms": bwd_results["decode_4680x9360"]["earlier_ms"],
+               "deterministic": all(r["deterministic"] for r in bwd_results.values()),
+               "ptxas": bwd_ptxas, "sass": sass[libs[hk.BWD_SOURCE].name],
                **{f"{c}_{k}": bwd_results[c][k] for c, *_ in BWD_CASES
-                  for k in ("ms", "dq_pass_ms", "plain_ms", "library_ms", "bound_ms",
-                            "max_abs_err", "rel_fro_err")},
+                  for k in ("ms", "earlier_ms", "dq_pass_ms", "plain_ms", "library_ms",
+                            "bound_ms", "max_abs_err", "rel_fro_err")},
+               **{f"{c}_library_errors": bwd_results[c]["library_errors"]
+                  for c, *rest in BWD_CASES if rest[-1]},
                "launches_dmd_2_steps": training["launches_dmd"]["window_bwd"],
                "launches_flow_matching_step": training["launches_flow_matching"]}),
     ]

@@ -1,6 +1,6 @@
-// Backward of the decode-window and block-causal attention for Hopper (sm_90a),
-// with mma.sync tensor-core products: dq, dk, dv of the function that
-// csrc/attention_sm90.cu computes forward.
+// Backward of the decode-window and block-causal attention for Hopper (sm_90a)
+// with wgmma, TMA and warp-specialised pipelines: dq, dk, dv of the function
+// that csrc/attention_sm90.cu computes forward.
 //
 // It replaces no TPU kernel. The JAX package cannot differentiate its Pallas
 // attention (realtime_video_tpu/ops/pallas_attention.py: no custom_vjp), so
@@ -25,57 +25,99 @@
 // = 0, hi = Lk), or block-causal: key < min(ends[q], kv_len), ends[q] = (q /
 // block_tokens + 1) * block_tokens, optionally key >= ends[q] - local_window,
 // and the diagonal. A masked (query, key) pair has P = 0; a row with no live
-// key (never on the training path) gets zero gradients.
+// key (never on the training path) gets zero gradients, and so does a key
+// that no query sees.
 //
 // Three launches on the caller's stream, no atomics, deterministic:
-//   1. attn_bwd_prepass: D = rowsum(dO * O), f32 [B, N, Lq], and Qc;
-//   2. attn_bwd_dq: one block per 64 query rows of one (batch, head); it walks
-//      the live key tiles (the forward's range) and accumulates dQ in
-//      registers: 3 products a tile (S, dP, dS K);
-//   3. attn_bwd_dkdv: one block per 64 key rows; it walks the query tiles
-//      that can see them and accumulates dK and dV in registers: 4 products
-//      a tile (S^T, dP^T, P^T dO, dS^T Q). Skipped when the caller needs no
-//      dK / dV (cross-attention over a constant text cache).
+//   1. attn_bwd_prepass: Qc = bf16(q * c), and per (batch, head) two f32 rows
+//      of the scratch `stats` [B, N, 2, Lqp]: lse * log2 e and D =
+//      rowsum(dO * O). Lqp = Lq rounded up to 4, so each row starts 16 bytes
+//      apart, as a TMA tensor map needs (Lq itself may be any length);
+//   2. attn_bwd_dq_sm90: one block per 128 query rows of one (batch, head); it
+//      walks the live key tiles (the forward's range) and accumulates dQ in
+//      registers: 3 products a tile (S, dP, dS K), Qc and dO loaded once;
+//   3. attn_bwd_dkdv_sm90: one block per 128 key rows; it walks the query
+//      tiles that can see them and accumulates dK and dV in registers: 4
+//      products a tile (S^T, dP^T, P^T dO, dS^T Qc), K and V loaded once.
+//      Skipped when the caller needs no dK / dV (cross-attention over a
+//      constant text cache).
 // The second pass for dQ costs 3 products where f32 atomics would cost
-// none, 7 in all against FlashAttention-2's 5; it keeps the result
+// none, 7 in all against FlashAttention's 5; it keeps the result
 // bit-reproducible and needs no f32 scratch, memset or conversion pass.
 //
-// Each block has 4 warps; a warp owns 16 rows of the block's tile and all
-// 64 rows of the walked tile. Tiles of 64 x 128 bf16 sit in shared memory
-// with rows 272 bytes apart (8 ldmatrix rows land in distinct banks);
-// operands come in by ldmatrix (.trans for the B operands whose reduction
-// runs over rows: dO and Q in the dK/dV pass, K in the dQ pass); products by
-// mma.sync.m16n8k16 bf16 -> f32. P and dS go to bf16 in registers, where
-// the accumulator fragment of one product is the A fragment of the next.
-// The walked tiles come in by cp.async into two stages: the next tile's
-// copy is in flight while this one's products run (105 KB of shared memory
-// and at most 255 registers a thread: two blocks an SM).
+// Each pass is the forward kernel's skeleton: three warpgroups, of which
+// warpgroup 2 is the producer (one thread issues every TMA load; it hands
+// its registers to the consumers with setmaxnreg) and warpgroups 0 and 1 the
+// consumers, 64 owned rows each. The owned tiles (BM = 128 rows) come in
+// once; the walked tiles (BN = 64 rows) through a ring of NS stages with
+// full and empty mbarriers. Global tensors are 4-D tensor maps (D, N, L, B)
+// with a box of 64 bf16 columns (128 bytes, the 128-byte swizzle) by 1 head
+// by the tile's rows, so a row arrives as two boxes and rows past L fill
+// with zeros; the stats rows are a 2-D f32 map whose box (BN columns, both
+// rows) rides on the walked query tile's barrier.
+//   * dQ pass: S = Qc K^T and dP = dO V^T by wgmma m64n64k16, both operands
+//     K-major in shared memory (the forward's QK^T); P and dS on the
+//     accumulator fragment, the mask on edge tiles only; dQ += dS K by wgmma
+//     m64n128k16 with dS packed to bf16 in registers as the A operand and
+//     the K tile read as an MN-major B (the forward's PV). Each iteration
+//     issues S of tile j, dP of tile j and dS K of tile j - 1 as three
+//     groups, runs tile j's P once S has landed (while dP and dS K (j - 1)
+//     are computed) and its dS once dP has (the forward's QK^T(j) /
+//     PV(j - 1) overlap).
+//   * dK/dV pass: S^T = K Qc^T and dP^T = V dO^T by m64n64k16 (the owned K
+//     and V rows are A, the walked Qc and dO tiles B, K-major); the columns
+//     are queries here, so each thread reads lse and D by column from the
+//     stage's stats box; then dV += P^T dO and dK += dS^T Qc by m64n128k16
+//     with P^T and dS^T from registers. The two 64 x 128 f32 accumulators
+//     take 128 registers a thread, so a second tile's S^T cannot be in
+//     flight beside them (tried: ptxas spills, and the pass runs 2x
+//     slower); the overlap is within the tile: P^T's exp2 runs while dP^T is
+//     computed, dS^T while P^T dO is, and the two consumer warpgroups fill
+//     each other's elementwise work.
 //
 // What bounds it on an H100: 5 products of 2 * Lq * Lk_live * 128 FLOP per
 // head are the work of the gradient (7 here, with the dQ pass), e.g. 0.680 ms
 // at the decode window 4680 x 9360 with 12 heads against ~0.1 ms of bytes:
-// compute bound on the bf16 tensor cores (989 TFLOP/s dense). mma.sync runs
-// at a fraction of the wgmma rate; the wgmma/TMA form is later work.
+// compute bound on the bf16 tensor cores (989 TFLOP/s dense), which only
+// wgmma reaches.
 
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int D = 128;
-constexpr int BT = 64;            // rows of every tile (owned and walked)
-constexpr int NT = 128;           // 4 warps
-constexpr int LD = D + 8;         // shared-memory row pitch in bf16 elements (272 bytes)
-constexpr int TILE = BT * LD;     // elements of one tile
-// the owned tile(s), two stages of the walked tile(s), two stages of the
-// walked rows' lse and D (f32)
-constexpr int SMEM = 6 * TILE * 2 + 2 * 2 * BT * 4;
-constexpr int MODE_WINDOW = 0;    // mode 1: block-causal
+constexpr int BM = 128;  // owned rows per block: two consumer warpgroups of 64
+constexpr int BN = 64;   // rows of a walked tile
+constexpr int NTHREADS = 384;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int ROW_BYTES = 128;              // one swizzled TMA box row: 64 bf16 columns
+constexpr int OWN_HALF = BM * ROW_BYTES;    // 16 KB: 64 columns of an owned tile
+constexpr int WALK_HALF = BN * ROW_BYTES;   // 8 KB: 64 columns of a walked tile
+constexpr int OWN_TILE = 2 * OWN_HALF;
+constexpr int WALK_TILE = 2 * WALK_HALF;
+constexpr int NS = 4;                       // ring stages
+constexpr int STATS = 2 * BN * 4;           // a query tile's lse * log2 e and D (f32)
+constexpr int MODE_WINDOW = 0;              // mode 1: block-causal
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // planted fault for the checks that must catch it (kernel argument)
-constexpr int FAULT_DROP_D = 1;   // dS = P * dP: the rowsum(dO * O) term dropped
+constexpr int FAULT_DROP_D = 1;  // dS = P * dP: the rowsum(dO * O) term dropped
+
+// Shared memory of each pass: the owned tiles (two, 32 KB each), the ring of
+// walked stages (two 16 KB tiles each; the dK/dV pass also has each stage's
+// stats box), the barriers, and room to align the base to 1 KB.
+constexpr int OFF_RING = 2 * OWN_TILE;
+constexpr int OFF_STATS = OFF_RING + NS * 2 * WALK_TILE;
+constexpr int OFF_BAR = OFF_STATS + NS * STATS;
+constexpr int SMEM = OFF_BAR + 256 + 1024;
+
+struct Barriers {
+  uint64_t own_full;
+  uint64_t full[NS], empty[NS];
+};
 
 struct Mask {
   int mode, lo, hi, block_tokens, kv_len, local_window, Lq, Lk;
@@ -87,16 +129,24 @@ struct Mask {
     if (local_window > 0) v = v && k >= end - local_window;
     return v || k == q;
   }
-  // every pair of query rows [q0, q0 + BT) and keys [k0, k0 + BT) is live, so
+  // every pair of query rows [q0, q0 + nq) and keys [k0, k0 + nk) is live, so
   // the tile needs no per-element mask (whose block-causal form divides)
-  __device__ __forceinline__ bool full(int q0, int k0) const {
-    if (q0 + BT > Lq || k0 + BT > Lk) return false;
-    if (mode == MODE_WINDOW) return k0 >= lo && k0 + BT <= hi;
+  __device__ __forceinline__ bool full(int q0, int nq, int k0, int nk) const {
+    if (q0 + nq > Lq || k0 + nk > Lk) return false;
+    if (mode == MODE_WINDOW) return k0 >= lo && k0 + nk <= hi;
     const int end_first = (q0 / block_tokens + 1) * block_tokens;
-    const int end_last = ((q0 + BT - 1) / block_tokens + 1) * block_tokens;
-    return k0 + BT <= min(end_first, kv_len) &&
+    const int end_last = ((q0 + nq - 1) / block_tokens + 1) * block_tokens;
+    return k0 + nk <= min(end_first, kv_len) &&
            (local_window <= 0 || k0 >= end_last - local_window);
   }
+};
+
+struct Params {
+  __nv_bfloat16 *out_a, *out_b;  // dQ pass: dq; dK/dV pass: dk, dv
+  const float* stats;            // [B, N, 2, Lqp]: lse * log2 e, D
+  int N, Lqp;
+  float c;  // the forward's bf16(scale * log2 e)
+  Mask m;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -110,149 +160,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a b, m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Where lane l points ldmatrix for a 16x16 block at (row, col) of a tile:
-//   * as an A operand (rows = M, cols = K): matrices (r, c), (r + 8, c),
-//     (r, c + 8), (r + 8, c + 8) give a0..a3;
-//   * with .trans, as the B operands of two n8 tiles whose reduction runs
-//     over the tile's rows (rows = K, cols = N): b0, b1 of cols [c, c + 8),
-//     then b0, b1 of [c + 8, c + 16).
-__device__ __forceinline__ const __nv_bfloat16* at_a(const __nv_bfloat16* tile, int row, int col,
-                                                     int lane) {
-  return tile + (row + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col + (lane >> 4) * 8;
-}
-
-// ... and as the B operands of two n8 tiles whose reduction runs over the
-// tile's columns (rows = N, cols = K): b0, b1 of rows [r, r + 8), then of
-// [r + 8, r + 16).
-__device__ __forceinline__ const __nv_bfloat16* at_b(const __nv_bfloat16* tile, int row, int col,
-                                                     int lane) {
-  return tile + (row + (lane & 7) + (lane >> 4) * 8) * LD + col + ((lane >> 3) & 1) * 8;
-}
-
-// cp.async: `bytes` (16: .cg, through L2 only; 4: .ca) from global memory
-// into shared memory, zero-filled when `valid` is false (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `pending` of this thread's newest commit groups are in flight
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
-// start copying rows [r0, r0 + 64) of x [B, L, N, D] at (b, h) into a tile;
-// rows past L become zeros
-__device__ __forceinline__ void fetch_tile(__nv_bfloat16* tile, const __nv_bfloat16* __restrict__ x,
-                                           int b, int h, int r0, int L, int N) {
-  for (int i = threadIdx.x; i < BT * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    const bool ok = r0 + r < L;
-    cp_async16(tile + r * LD + c * 8, x + (((size_t)b * L + (ok ? r0 + r : 0)) * N + h) * D + c * 8,
-               ok);
+// a [64 x 64] f32 accumulator fragment as the bf16 A fragments of 4 k16 steps
+__device__ __forceinline__ void to_a(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[4 * kk + 0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[4 * kk + 1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[4 * kk + 2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[4 * kk + 3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// S (or S^T) and dP (or dP^T) of a warp's 16 owned rows against the 64 walked
-// rows: s = own_a . walk_a^T, dp = own_b . walk_b^T, each [16 x 64] as 8 n8
-// accumulator fragments.
-__device__ __forceinline__ void two_products(float (&s)[8][4], float (&dp)[8][4],
-                                             const __nv_bfloat16* own_a,
-                                             const __nv_bfloat16* walk_a,
-                                             const __nv_bfloat16* own_b,
-                                             const __nv_bfloat16* walk_b, int row0, int lane) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+// acc[64 x 64] = own[64 rows] . walk[64 rows]^T over D = 128: 8 k16 steps of
+// wgmma m64n64k16, both tiles K-major (two 64-column halves each)
+__device__ __forceinline__ void product_nt(float (&acc)[32], const uint8_t* own,
+                                           const uint8_t* walk) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4], c[4];
-    ldsm_x4(a, at_a(own_a, row0, kk * 16, lane));
-    ldsm_x4(c, at_a(own_b, row0, kk * 16, lane));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t w[4];
-      ldsm_x4(w, at_b(walk_a, np * 16, kk * 16, lane));
-      mma(s[2 * np], a, w[0], w[1]);
-      mma(s[2 * np + 1], a, w[2], w[3]);
-      ldsm_x4(w, at_b(walk_b, np * 16, kk * 16, lane));
-      mma(dp[2 * np], c, w[0], w[1]);
-      mma(dp[2 * np + 1], c, w[2], w[3]);
-    }
+    const int half = kk / 4, off = (kk % 4) * 32;
+    sm90::Wgmma<64>::bf16(acc, sm90::desc_b128(own + half * OWN_HALF + off, 16, 1024),
+                          sm90::desc_b128(walk + half * WALK_HALF + off, 16, 1024), kk > 0);
   }
 }
 
-// pack [16 x 64] f32 fragments into the bf16 A fragments of 4 k16 steps
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[8][4]) {
+// acc[64 x 128] += a[64 x 64] . walk[64 x 128]: the reduction over the
+// walked tile's rows, 4 k16 steps of wgmma m64n128k16, walk MN-major
+__device__ __forceinline__ void product_rows(float (&acc)[64], const uint32_t (&a)[16],
+                                             const uint8_t* walk) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
+  for (int kk = 0; kk < BN / 16; ++kk)
+    sm90::wgmma_m64n128k16_rs_tb(acc, &a[4 * kk],
+                                 sm90::desc_b128(walk + kk * 16 * ROW_BYTES, WALK_HALF, 1024));
 }
 
-// acc[16 x 128] += a[16 x 64] . tile[64 x 128] (the reduction over the tile's rows)
-__device__ __forceinline__ void product_rows(float (&acc)[16][4], const uint32_t (&a)[4][4],
-                                             const __nv_bfloat16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t w[4];
-      ldsm_x4_t(w, at_a(tile, kk * 16, np * 16, lane));
-      mma(acc[2 * np], a[kk], w[0], w[1]);
-      mma(acc[2 * np + 1], a[kk], w[2], w[3]);
-    }
-  }
-}
-
-// rows r and r + 8 of a warp's [16 x 128] f32 accumulator, times `mul`, as
-// bf16 into x [B, L, N, D] at (b, h)
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x, const float (&acc)[16][4],
+// rows r and r + 8 of a warpgroup's [64 x 128] f32 accumulator, times `mul`,
+// as bf16 into x [B, L, N, D] at (b, h)
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x, const float (&acc)[64],
                                            float mul, int b, int h, int r, int L, int N, int tig) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -260,19 +203,20 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x, const 
     if (row >= L) continue;
     __nv_bfloat16* dst = x + (((size_t)b * L + row) * N + h) * D;
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8 + tig * 2) =
-          pack_bf16(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(dst + j * 8 + tig * 2) =
+          pack_bf16(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
   }
 }
 
-// D = rowsum(dO * O) over rows of D = 128 values, half a warp per row, into
-// [B, N, L] f32, and qc = bf16(q * c), the forward's rounding of its scores'
-// operand, into [B, L, N, D]
+// Qc = bf16(q * c), the forward's rounding of its scores' operand, into [B,
+// L, N, D]; and per row lse * log2 e and D = rowsum(dO * O) into stats [B, N,
+// 2, Lqp]. Rows of D = 128 values, half a warp per row.
 __global__ void __launch_bounds__(256)
 attn_bwd_prepass(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                 const __nv_bfloat16* __restrict__ q, float c, float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ qc, int rows, int L, int N) {
+                 const __nv_bfloat16* __restrict__ q, const float* __restrict__ lse, float c,
+                 float* __restrict__ stats, __nv_bfloat16* __restrict__ qc, int rows, int L, int N,
+                 int Lqp, int fault) {
   const int lane = threadIdx.x % 32, half = lane / 16, sub = lane % 16;
   const int row = (blockIdx.x * 8 + threadIdx.x / 32) * 2 + half;
   uint4 a = make_uint4(0u, 0u, 0u, 0u), d = a, x = a;
@@ -296,183 +240,337 @@ attn_bwd_prepass(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __res
     reinterpret_cast<uint4*>(qc + (size_t)row * D)[sub] = x;
     if (sub == 0) {
       const int h = row % N, l = (row / N) % L, b = row / (N * L);
-      delta[((size_t)b * N + h) * L + l] = sum;
+      float* st = stats + ((size_t)b * N + h) * 2 * Lqp + l;
+      st[0] = __ldg(lse + ((size_t)b * N + h) * L + l) * LOG2E;
+      st[Lqp] = fault == FAULT_DROP_D ? 0.0f : sum;
     }
   }
 }
 
-struct Args {
-  const __nv_bfloat16 *qc, *k, *v, *dout;  // qc = bf16(q * c), as the forward scores it
-  const float *lse, *delta;
-  __nv_bfloat16 *dq, *dk, *dv;
-  int N;
-  float c;  // the forward's bf16(scale * log2 e)
-  Mask m;
-  int fault;
-};
+__device__ __forceinline__ void init_barriers(Barriers& bars) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars.own_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&bars.full[s], 1);
+      sm90::mbar_init(&bars.empty[s], CONSUMER_WARPS);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+}
 
-// dQ of 64 query rows: the key tiles of the forward's live range, each
-// fetched by cp.async into one of two stages while the other is used
-__global__ void __launch_bounds__(NT, 2) attn_bwd_dq(const Args a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sO = sQ + TILE;      // dO
-  __nv_bfloat16* sK = sO + TILE;      // two stages
-  __nv_bfloat16* sV = sK + 2 * TILE;  // two stages
-  const Mask& m = a.m;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+// both 64-column halves of rows [r0, r0 + box rows) of one head into dst
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int half_bytes, int h, int r0, int b) {
+  sm90::tma_load_4d(dst, map, bar, 0, h, r0, b);
+  sm90::tma_load_4d(dst + half_bytes, map, bar, 64, h, r0, b);
+}
+
+// dQ of 128 query rows: the key tiles of the forward's live range
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                 const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Barriers& bars = *reinterpret_cast<Barriers*>(smem + OFF_BAR);
+  const Mask& m = p.m;
+  const int q_base = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
 
   int kv_begin, kv_end;
   if (m.mode == MODE_WINDOW) {
     kv_begin = m.lo;
     kv_end = m.hi;
   } else {
-    const int q_last = min(q0 + BT, m.Lq) - 1;
+    const int q_last = min(q_base + BM, m.Lq) - 1;
     kv_end = max(min((q_last / m.block_tokens + 1) * m.block_tokens, m.kv_len), q_last + 1);
     kv_begin = 0;
     if (m.local_window > 0)
-      kv_begin = min(max((q0 / m.block_tokens + 1) * m.block_tokens - m.local_window, 0), q0);
+      kv_begin = min(max((q_base / m.block_tokens + 1) * m.block_tokens - m.local_window, 0),
+                     q_base);
   }
   kv_end = min(kv_end, m.Lk);
-  kv_begin = (max(kv_begin, 0) / BT) * BT;
+  kv_begin = (max(kv_begin, 0) / BN) * BN;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
 
-  fetch_tile(sQ, a.qc, b, h, q0, m.Lq, a.N);
-  fetch_tile(sO, a.dout, b, h, q0, m.Lq, a.N);
-  if (kv_begin < kv_end) {
-    fetch_tile(sK, a.k, b, h, kv_begin, m.Lk, a.N);
-    fetch_tile(sV, a.v, b, h, kv_begin, m.Lk, a.N);
+  init_barriers(bars);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ======== producer: Qc and dO once, then the K and V tiles ========
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      sm90::prefetch_tensormap(&tm_k);
+      sm90::prefetch_tensormap(&tm_v);
+      sm90::mbar_arrive_expect_tx(&bars.own_full, 2 * OWN_TILE);
+      load_rows(smem, &tm_qc, &bars.own_full, OWN_HALF, h, q_base, b);
+      load_rows(smem + OWN_TILE, &tm_do, &bars.own_full, OWN_HALF, h, q_base, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS, kv0 = kv_begin + it * BN;
+        uint8_t* stage = smem + OFF_RING + s * 2 * WALK_TILE;
+        sm90::mbar_wait(&bars.empty[s], ((it / NS) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars.full[s], 2 * WALK_TILE);
+        load_rows(stage, &tm_k, &bars.full[s], WALK_HALF, h, kv0, b);
+        load_rows(stage + WALK_TILE, &tm_v, &bars.full[s], WALK_HALF, h, kv0, b);
+      }
+    }
+    return;
   }
-  cp_async_commit();
+  // ======== consumers: 64 query rows each ========
+  sm90::reg_alloc<240>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, g = lane / 4, tig = lane % 4;
+  const int q0 = q_base + wg * 64;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+
+  // live keys of row r: [lim_lo, lim_hi), plus the diagonal in block-causal
+  // mode, never past Lk; lse * log2 e and D of the row
+  int lim_lo[2], lim_hi[2], diag[2];
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    const size_t i = ((size_t)b * a.N + h) * m.Lq + row;
-    lse2[r] = row < m.Lq ? __ldg(a.lse + i) * LOG2E : 0.0f;
-    dl[r] = row < m.Lq && a.fault != FAULT_DROP_D ? __ldg(a.delta + i) : 0.0f;
-  }
-
-  float acc[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  for (int k0 = kv_begin, st = 0; k0 < kv_end; k0 += BT, st ^= 1) {
-    if (k0 + BT < kv_end) {  // the next tile into the other stage
-      fetch_tile(sK + (st ^ 1) * TILE, a.k, b, h, k0 + BT, m.Lk, a.N);
-      fetch_tile(sV + (st ^ 1) * TILE, a.v, b, h, k0 + BT, m.Lk, a.N);
+    if (m.mode == MODE_WINDOW) {
+      lim_lo[r] = m.lo;
+      lim_hi[r] = m.hi;
+      diag[r] = -1;
+    } else {
+      const int end = (row / m.block_tokens + 1) * m.block_tokens;
+      lim_lo[r] = m.local_window > 0 ? end - m.local_window : 0;
+      lim_hi[r] = min(end, m.kv_len);
+      diag[r] = row;
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies (and Q, dO) have landed
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + st * TILE;
-    const bool full = m.full(q0, k0);
-    float s[8][4], dp[8][4];
-    two_products(s, dp, sQ, tK, sO, sV + st * TILE, warp * 16, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = k0 + n * 8 + tig * 2 + (e & 1);
-        const bool live = full || m.live(r0 + 8 * r, key);
-        const float p = live ? ex2(s[n][e] - lse2[r]) : 0.0f;
-        dp[n][e] = p * (dp[n][e] - dl[r]);
-      }
-    uint32_t ds[4][4];
-    to_a(ds, dp);
-    product_rows(acc, ds, tK, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    if (row >= m.Lq) lim_hi[r] = lim_lo[r], diag[r] = -1;  // a pad row: nothing live
+    lim_hi[r] = min(lim_hi[r], m.Lk);
+    const float* st = p.stats + ((size_t)b * p.N + h) * 2 * p.Lqp + min(row, m.Lq - 1);
+    lse2[r] = __ldg(st);
+    dl[r] = __ldg(st + p.Lqp);
   }
-  store_rows(a.dq, acc, a.c * LN2, b, h, r0, m.Lq, a.N, tig);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float s[32], dp[32];  // S and dP of the current tile, then its P and dS
+  uint32_t dsf[16];     // dS of the previous tile, bf16 A fragments
+  const uint8_t* q_rows = smem + wg * 64 * ROW_BYTES;
+  const uint8_t* o_rows = smem + OWN_TILE + wg * 64 * ROW_BYTES;
+  auto stage = [&](int it) { return smem + OFF_RING + (it % NS) * 2 * WALK_TILE; };
+
+  // S, then dP, of tile `it` (two wgmma groups)
+  auto issue_sdp = [&](int it) {
+    sm90::mbar_wait(&bars.full[it % NS], (it / NS) & 1);
+    const uint8_t* ks = stage(it);
+    sm90::wgmma_fence();
+    product_nt(s, q_rows, ks);
+    sm90::wgmma_commit();
+    product_nt(dp, o_rows, ks + WALK_TILE);
+    sm90::wgmma_commit();
+  };
+  // dQ += dS K of tile `it` (one wgmma group), dS from dsf
+  auto issue_dq = [&](int it) {
+    sm90::fence_regs(acc);
+    sm90::fence_regs(dsf);
+    sm90::wgmma_fence();
+    product_rows(acc, dsf, stage(it));
+    sm90::wgmma_commit();
+  };
+  // P of tile `it` on the fragment once S has landed, the mask on edge tiles
+  // only
+  auto probabilities = [&](int it) {
+    sm90::fence_regs(s);
+    const int kv0 = kv_begin + it * BN;
+    if (m.full(q0, 64, kv0, BN)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = ex2(s[i] - lse2[(i >> 1) & 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1, col = kv0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        const bool live = (col >= lim_lo[r] && col < lim_hi[r]) || (col == diag[r] && col < m.Lk);
+        s[i] = live ? ex2(s[i] - lse2[r]) : 0.0f;
+      }
+    }
+  };
+  // dS = P (dP - D) once dP has landed
+  auto scores_grad = [&]() {
+    sm90::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+  };
+  // after the dS K group of tile `it` has completed: its stage goes back
+  auto release = [&](int it) {
+    sm90::fence_regs(acc);
+    sm90::fence_regs(dsf);
+    if (lane == 0) sm90::mbar_arrive(&bars.empty[it % NS]);
+  };
+
+  if (n_tiles > 0) {
+    sm90::mbar_wait(&bars.own_full, 0);
+    issue_sdp(0);
+    sm90::wgmma_wait<1>();
+    probabilities(0);
+    sm90::wgmma_wait<0>();
+    scores_grad();
+    to_a(dsf, dp);
+    // tile it: S and dP, then dS K of tile it - 1, in flight together; P
+    // runs while dP and dS K (it - 1) are computed, dS while dS K (it - 1) is
+    for (int it = 1; it < n_tiles; ++it) {
+      issue_sdp(it);
+      issue_dq(it - 1);
+      sm90::wgmma_wait<2>();
+      probabilities(it);
+      sm90::wgmma_wait<1>();
+      scores_grad();
+      sm90::wgmma_wait<0>();
+      release(it - 1);
+      to_a(dsf, dp);
+    }
+    issue_dq(n_tiles - 1);
+    sm90::wgmma_wait<0>();
+    release(n_tiles - 1);
+  }
+  store_rows(p.out_a, acc, p.c * LN2, b, h, r0, m.Lq, p.N, tig);
 }
 
-// dK and dV of 64 key rows: the query tiles that can see them, each (with
-// its lse and D) fetched by cp.async into one of two stages while the other
-// is used
-__global__ void __launch_bounds__(NT, 2) attn_bwd_dkdv(const Args a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + TILE;
-  __nv_bfloat16* sQ = sV + TILE;      // two stages
-  __nv_bfloat16* sO = sQ + 2 * TILE;  // dO, two stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // the query tile's lse, two stages
-  float* sD = sL + 2 * BT;                               // its D, two stages
-  const Mask& m = a.m;
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
-  const int r0 = k0 + warp * 16 + g;  // this thread's key rows r0 and r0 + 8
-  const int k1 = min(k0 + BT, m.Lk);
+// dK and dV of 128 key rows: the query tiles that can see them, each with
+// its stats box
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_qc,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_stats, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Barriers& bars = *reinterpret_cast<Barriers*>(smem + OFF_BAR);
+  const Mask& m = p.m;
+  const int k_base = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int k_end = min(k_base + BM, m.Lk);
 
   int q_begin, q_end;
   if (m.mode == MODE_WINDOW) {
     q_begin = 0;
-    q_end = (k0 < m.hi && k1 > m.lo) ? m.Lq : 0;
+    q_end = (k_base < m.hi && k_end > m.lo) ? m.Lq : 0;
   } else {
-    // ends[q] > k0 from the block of k0 on; the diagonal from k0 on
-    q_begin = k0 < m.kv_len ? (k0 / m.block_tokens) * m.block_tokens : k0;
+    // ends[q] > k_base from the block of k_base on; the diagonal from k_base on
+    q_begin = k_base < m.kv_len ? (k_base / m.block_tokens) * m.block_tokens : k_base;
     q_end = m.Lq;
-    if (m.local_window > 0)  // ends[q] - local_window <= k1 - 1, or the diagonal
-      q_end = min(m.Lq, max(((k1 - 1 + m.local_window) / m.block_tokens) * m.block_tokens, k1));
+    if (m.local_window > 0)  // ends[q] - local_window <= k_end - 1, or the diagonal
+      q_end = min(m.Lq,
+                  max(((k_end - 1 + m.local_window) / m.block_tokens) * m.block_tokens, k_end));
   }
-  q_begin = (q_begin / BT) * BT;
+  q_begin = (q_begin / BN) * BN;
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0;
 
-  // the query tile at q0 (rows, then its lse and D) into stage st
-  auto fetch_q = [&](int q0, int st) {
-    fetch_tile(sQ + st * TILE, a.qc, b, h, q0, m.Lq, a.N);
-    fetch_tile(sO + st * TILE, a.dout, b, h, q0, m.Lq, a.N);
-    if (threadIdx.x < BT) {
-      const int row = q0 + threadIdx.x;
-      const bool ok = row < m.Lq;
-      const size_t i = ((size_t)b * a.N + h) * m.Lq + (ok ? row : 0);
-      cp_async4(sL + st * BT + threadIdx.x, a.lse + i, ok);
-      cp_async4(sD + st * BT + threadIdx.x, a.delta + i, ok && a.fault != FAULT_DROP_D);
+  init_barriers(bars);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ======== producer: K and V once, then the Qc and dO tiles ========
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      sm90::prefetch_tensormap(&tm_qc);
+      sm90::prefetch_tensormap(&tm_do);
+      sm90::prefetch_tensormap(&tm_stats);
+      sm90::mbar_arrive_expect_tx(&bars.own_full, 2 * OWN_TILE);
+      load_rows(smem, &tm_k, &bars.own_full, OWN_HALF, h, k_base, b);
+      load_rows(smem + OWN_TILE, &tm_v, &bars.own_full, OWN_HALF, h, k_base, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS, q0 = q_begin + it * BN;
+        uint8_t* stage = smem + OFF_RING + s * 2 * WALK_TILE;
+        sm90::mbar_wait(&bars.empty[s], ((it / NS) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars.full[s], 2 * WALK_TILE + STATS);
+        load_rows(stage, &tm_qc, &bars.full[s], WALK_HALF, h, q0, b);
+        load_rows(stage + WALK_TILE, &tm_do, &bars.full[s], WALK_HALF, h, q0, b);
+        sm90::tma_load_2d(smem + OFF_STATS + s * STATS, &tm_stats, &bars.full[s], q0,
+                          (b * p.N + h) * 2);
+      }
     }
-  };
-  fetch_tile(sK, a.k, b, h, k0, m.Lk, a.N);
-  fetch_tile(sV, a.v, b, h, k0, m.Lk, a.N);
-  if (q_begin < q_end) fetch_q(q_begin, 0);
-  cp_async_commit();
+    return;
+  }
+  // ======== consumers: 64 key rows each ========
+  sm90::reg_alloc<240>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, g = lane / 4, tig = lane % 4;
+  const int k0 = k_base + wg * 64;
+  const int r0 = k0 + warp * 16 + g;  // this thread's key rows r0 and r0 + 8
 
-  float dk[16][4], dv[16][4];
+  float dk[64], dv[64];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.0f;
+  const uint8_t* k_rows = smem + wg * 64 * ROW_BYTES;
+  const uint8_t* v_rows = smem + OWN_TILE + wg * 64 * ROW_BYTES;
 
-  for (int q0 = q_begin, st = 0; q0 < q_end; q0 += BT, st ^= 1) {
-    if (q0 + BT < q_end) fetch_q(q0 + BT, st ^ 1);  // the next tile into the other stage
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies (and K, V) have landed
-    __syncthreads();
-    const __nv_bfloat16* tQ = sQ + st * TILE;
-    const __nv_bfloat16* tO = sO + st * TILE;
-    const float* tL = sL + st * BT;
-    const float* tD = sD + st * BT;
-    const bool full = m.full(q0, k0);
-    float s[8][4], dp[8][4];  // S^T and dP^T: rows = keys, columns = queries
-    two_products(s, dp, sK, tQ, sV, tO, warp * 16, lane);
+  if (n_tiles > 0) sm90::mbar_wait(&bars.own_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % NS, q0 = q_begin + it * BN;
+    sm90::mbar_wait(&bars.full[s], (it / NS) & 1);
+    const uint8_t* qs = smem + OFF_RING + s * 2 * WALK_TILE;
+    const uint8_t* os = qs + WALK_TILE;
+    const float* lse2 = reinterpret_cast<const float*>(smem + OFF_STATS + s * STATS);
+    const float* dl = lse2 + BN;
+    float st[32], dpt[32];  // S^T and dP^T: rows = keys, columns = queries
+    uint32_t pf[16], dsf[16];
+    sm90::wgmma_fence();
+    product_nt(st, k_rows, qs);
+    sm90::wgmma_commit();
+    product_nt(dpt, v_rows, os);
+    sm90::wgmma_commit();
+    // P^T while dP^T is in flight
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(st);
+    const bool full = m.full(q0, BN, k0, 64);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + j * 8 + tig * 2);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + tig * 2 + (e & 1);
-        const bool live = full || m.live(q0 + col, r0 + 8 * (e >> 1));
-        const float p = live ? ex2(s[n][e] - tL[col] * LOG2E) : 0.0f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - tD[col]);
+        const int i = 4 * j + e;
+        const bool live = full || m.live(q0 + j * 8 + tig * 2 + (e & 1), r0 + 8 * (e >> 1));
+        st[i] = live ? ex2(st[i] - ((e & 1) ? l2.y : l2.x)) : 0.0f;
       }
-    uint32_t pa[4][4], da[4][4];
-    to_a(pa, s);
-    to_a(da, dp);
-    product_rows(dv, pa, tO, lane);
-    product_rows(dk, da, tQ, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+    to_a(pf, st);
+    // dV += P^T dO, and dS^T while it is in flight
+    sm90::fence_regs(dv);
+    sm90::fence_regs(pf);
+    sm90::wgmma_fence();
+    product_rows(dv, pf, os);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + j * 8 + tig * 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    to_a(dsf, dpt);
+    // dK += dS^T Qc
+    sm90::fence_regs(dk);
+    sm90::fence_regs(dsf);
+    sm90::wgmma_fence();
+    product_rows(dk, dsf, qs);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(pf);
+    sm90::fence_regs(dsf);
+    if (lane == 0) sm90::mbar_arrive(&bars.empty[s]);
   }
-  store_rows(a.dk, dk, LN2, b, h, r0, m.Lk, a.N, tig);
-  store_rows(a.dv, dv, 1.0f, b, h, r0, m.Lk, a.N, tig);
+  store_rows(p.out_a, dk, LN2, b, h, r0, m.Lk, p.N, tig);
+  store_rows(p.out_b, dv, 1.0f, b, h, r0, m.Lk, p.N, tig);
+}
+
+// [B, L, N, D] bf16 as a 4-D tensor map with a box of 64 columns (128 bytes)
+// x 1 head x `rows` rows.
+int rows_map(CUtensorMap* map, const void* ptr, int B, int L, int N, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
+                                 (cuuint64_t)L * N * D * 2};
+  const cuuint32_t box[4] = {ROW_BYTES / 2, 1, (cuuint32_t)rows, 1};
+  return sm90::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box);
 }
 
 }  // namespace
@@ -480,13 +578,13 @@ __global__ void __launch_bounds__(NT, 2) attn_bwd_dkdv(const Args a) {
 // Plain C entry point, bound with ctypes; returns a cudaError_t (0 = launched).
 // q, o, dout, dq [B, Lq, N, 128] and k, v, dk, dv [B, Lk, N, 128] bf16
 // contiguous; lse [B, N, Lq] f32 (natural log, as the forward kernel writes
-// it); c = bf16(scale * log2 e), the factor the forward took; delta [B, N,
-// Lq] f32 and qc [B, Lq, N, 128] bf16 scratch. mode 0 = window [lo, hi),
-// mode 1 = block-causal (block_tokens, kv_len, local_window <= 0 for none).
-// With need_kv = 0 only dq is written. fault plants a fault for the checks
-// (0 in every real call).
+// it); c = bf16(scale * log2 e), the factor the forward took; stats [B, N, 2,
+// Lqp] f32 scratch with Lqp = Lq rounded up to a multiple of 4, and qc [B,
+// Lq, N, 128] bf16 scratch. mode 0 = window [lo, hi), mode 1 = block-causal
+// (block_tokens, kv_len, local_window <= 0 for none). With need_kv = 0 only
+// dq is written. fault plants a fault for the checks (0 in every real call).
 extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* v, const void* o,
-                                      const void* dout, const void* lse, void* delta, void* qc,
+                                      const void* dout, const void* lse, void* stats, void* qc,
                                       void* dq, void* dk, void* dv, int B, int Lq, int Lk, int N,
                                       int D_, float c, int mode, int lo, int hi,
                                       int block_tokens, int kv_len, int local_window,
@@ -494,33 +592,52 @@ extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* 
   if (D_ != D || B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || block_tokens <= 0 || c <= 0.0f)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int Lqp = (Lq + 3) / 4 * 4;
+  // the pre-pass first: autograd runs the backward on a thread of its own,
+  // where encoding a tensor map failed (cudaError 1) until a launch had made
+  // the device's context current there
   const int rows = B * Lq * N;
   attn_bwd_prepass<<<(rows + 15) / 16, 256, 0, s>>>(
       reinterpret_cast<const __nv_bfloat16*>(o), reinterpret_cast<const __nv_bfloat16*>(dout),
-      reinterpret_cast<const __nv_bfloat16*>(q), c, reinterpret_cast<float*>(delta),
-      reinterpret_cast<__nv_bfloat16*>(qc), rows, Lq, N);
+      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const float*>(lse), c,
+      reinterpret_cast<float*>(stats), reinterpret_cast<__nv_bfloat16*>(qc), rows, Lq, N, Lqp,
+      fault);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const Args a = {reinterpret_cast<const __nv_bfloat16*>(qc),
-                  reinterpret_cast<const __nv_bfloat16*>(k),
-                  reinterpret_cast<const __nv_bfloat16*>(v),
-                  reinterpret_cast<const __nv_bfloat16*>(dout),
-                  reinterpret_cast<const float*>(lse),
-                  reinterpret_cast<const float*>(delta),
-                  reinterpret_cast<__nv_bfloat16*>(dq),
-                  reinterpret_cast<__nv_bfloat16*>(dk),
-                  reinterpret_cast<__nv_bfloat16*>(dv),
-                  N,
-                  c,
-                  {mode, lo, hi, block_tokens, kv_len, local_window, Lq, Lk},
-                  fault};
-  e = cudaFuncSetAttribute(attn_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  CUtensorMap tm_qc_own, tm_do_own, tm_k_walk, tm_v_walk;
+  int err = rows_map(&tm_qc_own, qc, B, Lq, N, BM);
+  if (err == 0) err = rows_map(&tm_do_own, dout, B, Lq, N, BM);
+  if (err == 0) err = rows_map(&tm_k_walk, k, B, Lk, N, BN);
+  if (err == 0) err = rows_map(&tm_v_walk, v, B, Lk, N, BN);
+  if (err != 0) return err;
+  Params prm = {reinterpret_cast<__nv_bfloat16*>(dq), nullptr,
+                reinterpret_cast<const float*>(stats), N, Lqp, c,
+                {mode, lo, hi, block_tokens, kv_len, local_window, Lq, Lk}};
+  e = cudaFuncSetAttribute(attn_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq<<<dim3((Lq + BT - 1) / BT, N, B), NT, SMEM, s>>>(a);
+  attn_bwd_dq_sm90<<<dim3((Lq + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(
+      tm_qc_own, tm_do_own, tm_k_walk, tm_v_walk, prm);
   e = cudaGetLastError();
   if (e != cudaSuccess || !need_kv) return (int)e;
-  e = cudaFuncSetAttribute(attn_bwd_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+
+  CUtensorMap tm_k_own, tm_v_own, tm_qc_walk, tm_do_walk, tm_stats;
+  err = rows_map(&tm_k_own, k, B, Lk, N, BM);
+  if (err == 0) err = rows_map(&tm_v_own, v, B, Lk, N, BM);
+  if (err == 0) err = rows_map(&tm_qc_walk, qc, B, Lq, N, BN);
+  if (err == 0) err = rows_map(&tm_do_walk, dout, B, Lq, N, BN);
+  if (err == 0) {  // stats: [B * N * 2, Lq] f32 rows Lqp apart, a box of BN columns x 2 rows
+    const cuuint64_t dims[2] = {(cuuint64_t)Lq, (cuuint64_t)B * N * 2};
+    const cuuint64_t strides[1] = {(cuuint64_t)Lqp * 4};
+    const cuuint32_t box[2] = {BN, 2};
+    err = sm90::make_tensor_map(&tm_stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, stats, dims,
+                                strides, box, nullptr, false);
+  }
+  if (err != 0) return err;
+  prm.out_a = reinterpret_cast<__nv_bfloat16*>(dk);
+  prm.out_b = reinterpret_cast<__nv_bfloat16*>(dv);
+  e = cudaFuncSetAttribute(attn_bwd_dkdv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dkdv<<<dim3((Lk + BT - 1) / BT, N, B), NT, SMEM, s>>>(a);
+  attn_bwd_dkdv_sm90<<<dim3((Lk + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(
+      tm_k_own, tm_v_own, tm_qc_walk, tm_do_walk, tm_stats, prm);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ of every header it includes with `#include "..."` (`csrc/sm90.cuh`), and of
 the flags, so a stale build is never loaded; a present one is reused.
 `build_all` starts one nvcc per missing library at once and waits for all of
 them, so the kernels of a run build in parallel. The wrappers load the
-result with ctypes.
+result with ctypes. ptxas reports each kernel's registers and spills
+(`-Xptxas=-v`); the report goes to a `.log` beside the library, which
+`ptxas_usage` reads.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def nvcc() -> str:
@@ -86,6 +88,7 @@ def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:
                 if proc.returncode != 0:
                     errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
                 else:
+                    log_path(lib).write_text(err)
                     os.replace(tmp, lib)
         finally:
             for _, _, _, proc in procs:
@@ -95,6 +98,39 @@ def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:
         if errors:
             raise RuntimeError("\n".join(errors))
     return libs
+
+
+def log_path(lib: Path) -> Path:
+    """The compiler's report of a library's build (ptxas's resource usage)."""
+    return lib.with_suffix(".log")
+
+
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(report: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes}} from the text ptxas prints under -v."""
+    usage: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in report.splitlines():
+        entry = _PTXAS_ENTRY.search(line)
+        if entry:
+            current = usage.setdefault(entry.group(1), {})
+            continue
+        if current is None:
+            continue
+        spill = _PTXAS_SPILL.search(line)
+        if spill:
+            current.update(stack_bytes=int(spill.group(1)), spill_store_bytes=int(spill.group(2)),
+                           spill_load_bytes=int(spill.group(3)))
+        regs = _PTXAS_REGS.search(line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    return usage
 
 
 def build(source: Path) -> Path:

@@ -56,13 +56,13 @@ The gradient. When q, k or v requires grad, `window_attention` (the
 through `KernelAttention`, a `torch.autograd.Function`: its forward is the
 same bf16 launch, which then also writes each row's log-sum-exp (f32 [B, N,
 Lq]; a null pointer writes nothing, so the serving calls are unchanged), and
-its backward is `csrc/attention_bwd_sm90.cu` (mma.sync; see its header),
-which recomputes P from that LSE. On the CPU both are plain versions
-(`attention_forward_plain`, `attention_backward_plain`). The int8 and skew
-routes have no backward and raise when a gradient is needed. The JAX package
-has no such kernel: its Pallas attention cannot be differentiated, and its
-trainer differentiates the dense XLA attention, whose gradient the plain
-backward computes.
+its backward is `csrc/attention_bwd_sm90.cu` (wgmma, TMA, warp-specialised;
+see its header), which recomputes P from that LSE. On the CPU both are
+plain versions (`attention_forward_plain`, `attention_backward_plain`). The
+int8 and skew routes have no backward and raise when a gradient is needed.
+The JAX package has no such kernel: its Pallas attention cannot be
+differentiated, and its trainer differentiates the dense XLA attention,
+whose gradient the plain backward computes.
 
 `LAUNCHES` counts kernel launches per route (one int8 call = its pre-pass
 and its main kernel; one backward = its D pre-pass and its dQ and dK/dV
@@ -618,11 +618,12 @@ def attention_backward(q, k, v, o, do, lse, scale: float, mask: Mask, need_kv: b
     dq = torch.empty_like(q)
     dk = torch.empty_like(k) if need_kv else None
     dv = torch.empty_like(v) if need_kv else None
-    delta = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    # per row lse * log2 e and D = rowsum(dO * o), rows padded to 16 bytes for TMA
+    stats = torch.empty((b, n, 2, _round_up(lq, 4)), dtype=torch.float32, device=q.device)
     qc = torch.empty_like(q)
     err = lib.rtv_attention_bwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), qc.data_ptr(), dq.data_ptr(), None if dk is None else dk.data_ptr(),
+        stats.data_ptr(), qc.data_ptr(), dq.data_ptr(), None if dk is None else dk.data_ptr(),
         None if dv is None else dv.data_ptr(), b, lq, k.shape[1], n, d, qscale(scale),
         *mask.kernel_args(), int(need_kv), fault, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -792,8 +793,30 @@ def grad_atol(want: torch.Tensor) -> float:
     return 2.0 ** -7 * want.float().abs().max().item()
 
 
+#: dq where keys are near-parallel (the decode window with k = [q; 0.97 q] at
+#: large norm: chip_smoke.py's and the CUDA test's near-parallel cases). A
+#: row's two top keys' dS nearly cancel in dQ = sum dS k; O is stored in
+#: bf16, so their magnitudes differ by a fraction of an ulp, and rounding dS
+#: to bf16 for the dQ product, as the kernel and torch SDPA's flash backward
+#: both do, moves dq by 5-7% there
+#: (tests/test_torch_attention_bwd_precision.py). The bars for dq in those
+#: cases: relative Frobenius NEAR_PARALLEL_DQ_REL_FRO and elementwise
+#: NEAR_PARALLEL_DQ_ATOL times the largest |dq|, each about 1.5x the error
+#: of SDPA flash's backward at the same input on the card (7.4e-2 and 6.0e-2
+#: relative Frobenius, 0.142 and 0.144 of the largest |dq|, at norm 1.5 and
+#: 3.0; H100 80GB HBM3, 700 W; the kernel: 7.5e-2 and 6.0e-2); dk and dv
+#: keep the unit bars.
+NEAR_PARALLEL_DQ_REL_FRO, NEAR_PARALLEL_DQ_ATOL = 0.11, 0.22
+
+
+def near_parallel_dq_agreement(got: torch.Tensor, want: torch.Tensor) -> Dict[str, object]:
+    """`agreement` of dq at the near-parallel bars."""
+    return agreement(got, want, NEAR_PARALLEL_DQ_ATOL * want.float().abs().max().item(),
+                     NEAR_PARALLEL_DQ_REL_FRO)
+
+
 def agreement(got: torch.Tensor, want: torch.Tensor,
-              atol: float = ATOL) -> Dict[str, object]:
+              atol: float = ATOL, rel_fro_bar: float = REL_FRO) -> Dict[str, object]:
     """Compare a kernel output with its plain version under the bounds above."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -801,7 +824,7 @@ def agreement(got: torch.Tensor, want: torch.Tensor,
     elementwise = bool((diff <= atol + RTOL * want.abs()).all())
     return {"max_abs_err": diff.max().item(), "rel_fro_err": rel_fro, "atol": atol,
             "within_tol": bool(torch.isfinite(got).all()) and elementwise
-            and rel_fro <= REL_FRO}
+            and rel_fro <= rel_fro_bar}
 
 
 def quanta_agreement(got, want) -> Dict[str, object]:

@@ -9,10 +9,13 @@ only on a card: tests/test_torch_kernels_cuda.py, test_torch_int8_kernels_cuda.p
     (1, K), K * N bytes a layer) with the JAX quanta, the plain version gives
     the same output on either layout, and the wrapper's layout check refuses
     an N-contiguous w_q;
-  * the build keys a library on the headers its source includes, and the
-    port's sources are the three wgmma libraries (the mma.sync ones are gone);
+  * the build keys a library on the headers its source includes, the port's
+    sources are the four wgmma libraries, the attention backward's among
+    them (the mma.sync ones are gone), and ptxas's report of registers and
+    spills is read from the build's log;
   * the block profiler's buckets for the new kernels' names (the conv with
-    its quantise pre-pass in one bucket, the VAE convs).
+    its quantise pre-pass in one bucket, the VAE convs, the backward's
+    three kernels).
 """
 import jax
 import jax.numpy as jnp
@@ -147,12 +150,13 @@ def test_library_path_follows_included_headers(tmp_path):
 
 
 def test_port_sources_hash_the_shared_header():
-    for src in (hk.SM90_SOURCE, hm.SOURCE, hc.SOURCE):
+    for src in (hk.SM90_SOURCE, hk.BWD_SOURCE, hm.SOURCE, hc.SOURCE):
         assert cuda_build.CSRC / "sm90.cuh" in cuda_build.local_headers(src)
     for src in (hm.SOURCE, hc.SOURCE):  # the int8 pre-passes share one quantiser
         assert cuda_build.CSRC / "quantize.cuh" in cuda_build.local_headers(src)
     assert cuda_build.local_headers(cuda_build.CSRC / "quantize.cuh") == []
-    assert cuda_build.local_headers(hk.BWD_SOURCE) == []  # the mma.sync backward stands alone
+    # the wgmma backward takes the shared header alone
+    assert cuda_build.local_headers(hk.BWD_SOURCE) == [cuda_build.CSRC / "sm90.cuh"]
     assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == [
         "attention_bwd_sm90.cu", "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
 
@@ -175,7 +179,38 @@ def test_port_sources_hash_the_shared_header():
      "(anonymous namespace)::Geo, float const*)", "conv3x3_kernel"),
     ("(anonymous namespace)::conv_quantize_kernel(__nv_bfloat16 const*, signed char*, "
      "float const*, long long, int, int)", "conv3x3_kernel"),
+    ("(anonymous namespace)::attn_bwd_prepass(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, float, float*, __nv_bfloat16*, int, int, int, int, "
+     "int)", "attention_backward_kernel"),
+    ("(anonymous namespace)::attn_bwd_dq_sm90(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::Params)", "attention_backward_kernel"),
+    ("(anonymous namespace)::attn_bwd_dkdv_sm90(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
+     "attention_backward_kernel"),
 ])
 def test_profile_buckets_the_new_kernels(name, want):
     assert pb.category(name) == want
     assert want in pb.CATEGORIES
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    report = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116attn_bwd_dq_sm90E' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116attn_bwd_dq_sm90E\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 896 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116attn_bwd_prepassE' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116attn_bwd_prepassE\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers, 424 bytes cmem[0]\n")
+    assert cuda_build.ptxas_usage(report) == {
+        "_ZN12_GLOBAL__N_116attn_bwd_dq_sm90E": {
+            "registers": 168, "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0},
+        "_ZN12_GLOBAL__N_116attn_bwd_prepassE": {
+            "registers": 40, "stack_bytes": 8, "spill_store_bytes": 12, "spill_load_bytes": 4}}
+    assert "-Xptxas=-v" in cuda_build.NVCC_FLAGS
+    lib = cuda_build.BUILD_DIR / "libx_0123.so"
+    assert cuda_build.log_path(lib) == cuda_build.BUILD_DIR / "libx_0123.log"
