@@ -108,7 +108,19 @@ Phases, each reported on its own lines:
      seeds 0 / 1 / 2, random heads, 6 latent frames of 60x104): two DMD
      steps and one causal flow-matching step, each with its ms, peak GiB,
      losses and gradient norms (finite, nonzero), the params moved, the
-     backward launches equal to what the code implies, none plain;
+     backward launches equal to what the code implies, none plain; then GAN
+     distillation (`gan_phases`): the generator and critic losses (with a
+     real latent, R1 and R2, relativistic off and on) of 2-layer
+     t2v-1.3B-width networks, card against the CPU's f32 at DMD's bars, and
+     at train.py's full shape two generator and two critic updates with the
+     GAN head (taps 13 / 21 / 29), their ms, peak GiB, finite nonzero losses
+     and gradient norms (the head's too) and exactly the K1 and backward
+     launches the code implies; the register token's attention (Lq 1 over
+     9360 keys) in torch ops beside K1's route, for the record; then the
+     ODE-pair path (`ode_pairs_phase`): `generate_ode_pairs` on t2v-1.3B at
+     21 latents of 832x480 (2 prompts, 4 steps in place of 48), its shard
+     through `create_shards` and read back bit for bit, and one
+     `ode_regression_loss` update on the trajectory;
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
      Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
      every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
@@ -172,7 +184,12 @@ Phases, each reported on its own lines:
          against off, on the same model (> 0.99); one teacher step with CFG
          (two train-mode forwards over the 21 latents) with the int8 QK^T
          attention, then with K1 in bf16 (`teacher_14b`): the two routes'
-         latents and conditional flows at cosine > 0.99.
+         latents and conditional flows at cosine > 0.99;
+       - the server warm-up (`server_warmup_phase`): two fresh server
+         processes at 1.3B int8, without and with DO_COMPILE=1, each's
+         warm-up record (library builds, seconds per shape) and first
+         session's TTFF at the client; the warm-up must run under DO_COMPILE
+         and not without it.
 The quantised-tree cache is off (RTV_QUANT_CACHE=0) outside its phase, and
 its directory is a temporary one, removed at exit.
 
@@ -208,6 +225,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -874,6 +892,581 @@ def training_phase(card: str, dev, read_counts, kernel_mods, latent=(60, 104)) -
     del tr, opt, fm_step, lat, emb, watch, before
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+#: the GAN phase's adversarial weights: 1, not the default 1e-2, so that the
+#: classify branch carries a large share of each gradient held below
+GAN_SMOKE_CONFIG = dict(gan_g_weight=1.0, gan_d_weight=1.0, r1_weight=1.0, r2_weight=1.0)
+
+
+def _classify_counter(read_counts, record):
+    """Wrap `wan_dit.dit_classify` so that each call appends the K1 launches
+    (and bound pre-passes) it made; returns the restore function."""
+    from realtime_video_tpu_torch.models import wan_dit
+
+    real = wan_dit.dit_classify
+
+    def counted(*a, **k):
+        before = read_counts()[0]
+        out = real(*a, **k)
+        after = read_counts()[0]
+        record.append({key: after[key] - before[key] for key in ("window", "logit_bound")})
+        return out
+
+    wan_dit.dit_classify = counted
+    return lambda: setattr(wan_dit, "dit_classify", real)
+
+
+def gan_phases(card: str, dev, read_counts, kernel_mods, latent=(60, 104)) -> dict:
+    """GAN distillation on the card (`training/gan.py`).
+
+    First the generator loss and the critic loss (with a real latent, R1 and
+    R2, relativistic off and on) of 2-layer t2v-1.3B-width networks (taps 0
+    and 1, 6 latent frames of 16x16) on the card in bf16 against the CPU's
+    f32 on the same weights and head, the card's draws replayed: each
+    gradient over every trainable leaf (the critic's: the fake score and the
+    head) held at DMD's bars, the CPU's bf16 run beside as the control. Then
+    train.py's shape at full width (`train.build`'s three t2v-1.3B networks,
+    random heads, a seeded static text embedding, 6 latent frames of 60x104)
+    with a GAN head from its seed (taps 13 / 21 / 29) and a seeded real
+    latent: two generator and two critic updates (AdamW; the critic's params
+    are the fake score's and the head's), each with its ms, peak GiB, losses
+    and gradient norms (finite and nonzero, the head's gradient too), and
+    the launches the code implies: each classify forward 30 self + 30 cross
+    K1 launches (and as many bound pre-passes); each forward with a graph
+    (every classify forward, the rollout's chosen steps and block 0's
+    refresh, the critic's fake-score forward) as many again when layer
+    checkpointing reruns it in the backward; the backward kernel once per
+    attention whose output reaches the loss. No plain version may see a CUDA
+    tensor."""
+    import torch
+
+    from realtime_video_tpu_torch import train as train_mod
+    from realtime_video_tpu_torch.config import WAN_CONFIGS, load_server_config
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.training import gan as gan_mod
+    from realtime_video_tpu_torch.training import losses
+    from realtime_video_tpu_torch.training.draws import TorchDraws
+    from realtime_video_tpu_torch.training.train_step import adamw
+
+    out = {}
+    t_phase = time.perf_counter()
+    # -- 2-layer full-width losses and gradients, card against CPU --
+    two = dataclasses.replace(WAN_CONFIGS["t2v-1.3B"], num_layers=2)
+    base = dict(denoising_step_list=[1000, 750, 500, 250], guidance_scale=3.0,
+                gan_taps=[0, 1], **GAN_SMOKE_CONFIG)
+    sides = {"gpu": (dev, torch.bfloat16), "cpu": ("cpu", torch.float32),
+             "cpu_bf16": ("cpu", torch.bfloat16)}
+    nets = {side: [] for side in sides}
+    for s in range(3):
+        p = wan_dit.init_wan_params(two, torch.Generator().manual_seed(s), "cpu",
+                                    torch.bfloat16)
+        p["head"]["head"]["w"] = (torch.randn(p["head"]["head"]["w"].shape,
+                                              generator=torch.Generator().manual_seed(20 + s))
+                                  * 0.05).to(torch.bfloat16)
+        for side, (device, dtype) in sides.items():
+            nets[side].append(WanDiffusion(cfg=two, params=tree_to(p, device, dtype),
+                                           fuse_qkv=False))
+    head = gan_mod.init_gan_head_params(torch.Generator().manual_seed(gan_mod.GAN_HEAD_SEED),
+                                        two, num_registers=2)
+    ctx = torch.randn((1, 512, two.text_dim), generator=torch.Generator().manual_seed(3))
+    noise = torch.randn((1, 6, 16, 16, 16), generator=torch.Generator().manual_seed(4))
+    real = torch.randn((1, 6, 16, 16, 16), generator=torch.Generator().manual_seed(6))
+    cases = {"generator": {}, "critic_standard": {"relativistic_discriminator": False},
+             "critic_relativistic": {"relativistic_discriminator": True}}
+    grads = {case: {} for case in cases}
+    loss_of = {case: {} for case in cases}
+    for case, extra in cases.items():
+        record = None
+        for side, (device, dtype) in sides.items():
+            g, r, f = nets[side]
+            with torch.no_grad():
+                cross = g.compute_crossattn_cache(ctx.to(device, dtype))
+                cross_u = g.compute_crossattn_cache(-ctx.to(device, dtype))
+            model = gan_mod.GAN(g, r, f, load_server_config(**base, **extra),
+                                gan_params=tree_to(head, device))
+            draws = (RecordingDraws(TorchDraws(5, dev)) if side == "gpu"
+                     else ReplayDraws(record))
+            if case == "generator":
+                params = losses.trainable(g.params)
+                loss, _ = model.generator_loss(params, f.params, noise.to(device, dtype),
+                                               cross, cross_u, draws)
+            else:
+                params = (losses.trainable(f.params), losses.trainable(model.gan_params))
+                loss, _ = model.critic_loss(params, g.params, noise.to(device, dtype), cross,
+                                            draws, real_latent=real.to(device, dtype))
+            loss.backward()
+            if side == "gpu":
+                record = draws.items
+            loss_of[case][side] = float(loss.detach())
+            leaves = losses.tree_leaves(params)
+            grads[case][side] = torch.cat([t.grad.double().cpu().flatten()
+                                           for t in leaves.values() if t.grad is not None])
+            if case != "generator" and side == "gpu":
+                head_grad = sum(float(t.grad.abs().sum()) for k, t in leaves.items()
+                                if k.startswith("1/") and t.grad is not None)
+                if not head_grad > 0:
+                    fail(f"gan {case}: the GAN head got no gradient on the card")
+            for t in leaves.values():
+                t.grad = None
+                t.requires_grad_(False)
+
+    def against_f32(case, side):
+        got, want = grads[case][side], grads[case]["cpu"]
+        return (cosine(got, want), float(got.norm() / want.norm()),
+                float((got - want).norm() / want.norm()))
+
+    out["grad_card_vs_cpu"] = {}
+    for case in cases:
+        cos, ratio, rel_fro = against_f32(case, "gpu")
+        c_cos, c_ratio, c_rel_fro = against_f32(case, "cpu_bf16")
+        rel_loss = abs(loss_of[case]["gpu"] - loss_of[case]["cpu"]) / abs(loss_of[case]["cpu"])
+        out["grad_card_vs_cpu"][case] = dict(
+            loss_card=loss_of[case]["gpu"], loss_cpu=loss_of[case]["cpu"],
+            loss_rel_err=rel_loss, grad_cosine=cos, grad_norm_ratio=ratio, grad_rel_fro=rel_fro,
+            grad_norm_card=float(grads[case]["gpu"].norm()),
+            grad_norm_cpu=float(grads[case]["cpu"].norm()),
+            control_cpu_bf16=dict(loss=loss_of[case]["cpu_bf16"], grad_cosine=c_cos,
+                                  grad_norm_ratio=c_ratio, grad_rel_fro=c_rel_fro))
+    phase("gan_grad_2layer_card_vs_cpu", layers=2, dim=two.dim, heads=two.num_heads,
+          latents=[6, 16, 16], taps=[0, 1], weights=GAN_SMOKE_CONFIG, real_latent=True,
+          **out["grad_card_vs_cpu"],
+          bars=dict(grad_cosine=GRAD_COSINE_BAR, norm_ratio=GRAD_NORM_RATIO_BAR,
+                    rel_fro=GRAD_REL_FRO_BAR, loss_rel_err=5e-2),
+          phase_s=time.perf_counter() - t_phase, card=card)
+    for case, res in out["grad_card_vs_cpu"].items():
+        if not (res["grad_cosine"] > GRAD_COSINE_BAR
+                and abs(res["grad_norm_ratio"] - 1) < GRAD_NORM_RATIO_BAR
+                and res["grad_rel_fro"] < GRAD_REL_FRO_BAR and res["loss_rel_err"] < 5e-2
+                and torch.isfinite(grads[case]["gpu"]).all()):
+            fail(f"gan {case}: the gradient on the card disagrees with the CPU's: {res}")
+    del nets, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train.py's shape at t2v-1.3B full width, with the GAN head --
+    t_phase = time.perf_counter()
+    args = train_mod.parse_args([
+        "--config", train_mod.TRAIN_CONFIG, "--text-encoder", "seeded",
+        "--lr", "1e-4", "--critic-lr", "1e-4", "--latent", str(latent[0]), str(latent[1]),
+        "--device", str(dev)])
+    tr = train_mod.build(args)
+    config = load_server_config(train_mod.TRAIN_CONFIG, **GAN_SMOKE_CONFIG)
+    m = tr.model
+    model = gan_mod.GAN(m.generator, m.real_score, m.fake_score, config)
+    cfg = m.generator.cfg
+    nl, nb = cfg.num_layers, args.num_frames // model.num_frame_per_block
+    if model.taps != (13, 21, 29):
+        fail(f"train_step_gan: taps {model.taps}")
+    gan_params = losses.trainable(model.gan_params)
+    critic_opt = adamw((tr.fake_params, gan_params), args.critic_lr, 0.01)
+    real = torch.randn((1, args.num_frames, cfg.in_dim, *latent),
+                       generator=torch.Generator(device=dev).manual_seed(100), device=dev,
+                       dtype=torch.float32).to(torch.bfloat16)
+    # backward kernels: the rollout's (DMD's 2 x (nb nl + (nb - 1)(nl - 1)):
+    # every layer of the chosen steps, block 0's refresh but for its last
+    # layer's attention outputs) and 2 nl per classify forward with a graph
+    # (1 in a generator update; fake, real and the R1 / R2 perturbed inputs
+    # in a critic update) and per fake-score forward (the critic's base loss);
+    # K1 launches rerun by checkpointing: 2 nl per forward with a graph
+    want = {"generator": {"window_bwd": 2 * (nb * nl + (nb - 1) * (nl - 1)) + 2 * nl,
+                          "recompute_window": 2 * nl * (2 * nb - 1) + 2 * nl,
+                          "classify_calls": 1},
+            "critic": {"window_bwd": 5 * 2 * nl, "recompute_window": 5 * 2 * nl,
+                       "classify_calls": 4}}
+    steps, plain = [], {}
+    for step in range(2):
+        draws = TorchDraws(tr.seed * 1_000_003 + step, dev)
+        with torch.no_grad():
+            embeds = tr.text_encoder([tr.prompts[0]])["prompt_embeds"].to(dev, torch.bfloat16)
+            neg = tr.text_encoder([train_mod.SAMPLE_NEG_PROMPT])["prompt_embeds"].to(
+                dev, torch.bfloat16)
+            cross = m.generator.compute_crossattn_cache(embeds, params=tr.gen_params)
+            cross_u = m.generator.compute_crossattn_cache(neg, params=tr.gen_params)
+        noise = draws.normal((1, args.num_frames, cfg.in_dim, *latent), torch.bfloat16, dev)
+        for update in ("generator", "critic"):
+            opt = tr.gen_opt if update == "generator" else critic_opt
+            params = tr.gen_params if update == "generator" else (tr.fake_params, gan_params)
+            calls = []
+            restore = _classify_counter(read_counts, calls)
+            for km in kernel_mods:
+                km.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                opt.zero_grad(set_to_none=True)
+                if update == "generator":
+                    loss, aux = model.generator_loss(tr.gen_params, tr.fake_params, noise,
+                                                     cross, cross_u, draws)
+                else:
+                    loss, aux = model.critic_loss(params, tr.gen_params, noise, cross, draws,
+                                                  real_latent=real)
+                fwd_counts = read_counts()[0]
+                loss.backward()
+                norm = train_mod.grad_norm(params)
+                opt.step()
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches, plain_u = read_counts()
+            plain = {k: plain.get(k, 0) + v for k, v in plain_u.items()}
+            rec = dict(step=step, update=update, ms=ms,
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                       loss=float(loss.detach()),
+                       **{k: float(v.detach()) for k, v in aux.items()}, grad_norm=norm,
+                       launches=launches, classify_launches=calls,
+                       recompute_window=launches["window"] - fwd_counts["window"])
+            if update == "critic":
+                rec["head_grad_norm"] = train_mod.grad_norm(gan_params)
+            got = {"window_bwd": launches["window_bwd"],
+                   "recompute_window": rec["recompute_window"], "classify_calls": len(calls)}
+            phase("train_step_gan", model="t2v-1.3B", tier="bf16", latents=[6, *latent],
+                  taps=list(model.taps), weights=GAN_SMOKE_CONFIG, **rec,
+                  expected=want[update], card=card)
+            steps.append(rec)
+            finite = all(math.isfinite(rec[k]) and rec[k] != 0
+                         for k in ("loss", "grad_norm", "gan_g_loss" if update == "generator"
+                                   else "gan_d_loss"))
+            if not finite or (update == "critic" and not rec["head_grad_norm"] > 0):
+                fail(f"train_step_gan: a loss or gradient norm is not finite and nonzero: {rec}")
+            if got != want[update] or launches["block_causal_bwd"] or any(
+                    c != {"window": 2 * nl, "logit_bound": 2 * nl} for c in calls):
+                fail(f"train_step_gan {update}: launches {got}, classify {calls}, expected "
+                     f"{want[update]} and {2 * nl} K1 launches a classify forward")
+    if any(plain.values()):
+        fail(f"train_step_gan: a plain version saw a CUDA tensor: {plain}")
+    out.update(steps=steps, expected=want, phase_s=time.perf_counter() - t_phase)
+    del tr, model, m, critic_opt, gan_params, real, cross, cross_u, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["register_attention"] = register_attention_phase(card, dev)
+    return out
+
+
+def register_attention_phase(card: str, dev, lk: int = 9360, heads: int = 12) -> dict:
+    """The GAN register token's attention (Lq = 1 over a layer's 9360
+    tokens, 12 heads of 128, bf16): `wan_dit.register_attention`'s torch ops
+    against K1's route (`window_attention`, bound pre-pass + kernel; its
+    backward kernel under a gradient), forward and forward + backward, CUDA
+    events in turns, beside the bound (K and V read once). For the record:
+    the route stays torch ops, as no TPU kernel stands behind it."""
+    import torch
+
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(1, 1, heads, 128), rnd(1, lk, heads, 128), rnd(1, lk, heads, 128)
+    do = rnd(1, 1, heads, 128)
+    forms = {"torch_ops": wan_dit.register_attention,
+             "k1_route": lambda q_, k_, v_: hk.window_attention(q_, k_, v_, 0, lk)}
+    outs, grads = {}, {}
+    for name, fn in forms.items():
+        outs[name] = fn(q, k, v).float()
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        fn(qg, kg, vg).backward(do)
+        grads[name] = [t.grad.float() for t in (qg, kg, vg)]
+
+    def fwd_bwd(fn):
+        def run():
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            fn(qg, kg, vg).backward(do)
+        return run
+
+    times = {f"{name}_{kind}_ms": [] for name in forms for kind in ("fwd", "fwd_bwd")}
+    for name in ("torch_ops", "k1_route", "k1_route", "torch_ops"):
+        with torch.no_grad():
+            times[f"{name}_fwd_ms"].append(event_ms(lambda: forms[name](q, k, v), 50))
+        times[f"{name}_fwd_bwd_ms"].append(event_ms(fwd_bwd(forms[name]), 20))
+    times = {key: sum(vals) / len(vals) for key, vals in times.items()}
+    bytes_kv = 2 * lk * heads * 128 * 2
+    bound_ms, bound_by = bound(bytes_kv + 2 * heads * 128 * 2, 4 * lk * heads * 128, "bf16")
+    agree = {"out": hk.agreement(outs["k1_route"], outs["torch_ops"])}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        want = grads["torch_ops"][i]
+        agree[name] = hk.agreement(grads["k1_route"][i], want, atol=hk.grad_atol(want))
+    res = dict(lq=1, lk=lk, heads=heads, head_dim=128, **times, bound_ms=bound_ms,
+               bound_by=bound_by, kv_bytes=bytes_kv, agreement=agree,
+               route="torch ops (no TPU kernel behind it)")
+    phase("gan_register_attention", **res, phase_s=time.perf_counter() - t_phase, card=card)
+    if not all(a["within_tol"] for a in agree.values()):
+        fail(f"gan_register_attention: K1's route and the torch ops disagree: {agree}")
+    return res
+
+
+def ode_pairs_phase(card: str, dev, read_counts, kernel_mods, steps: int = 4) -> dict:
+    """The ODE-pair data path at full size: `generate_ode_pairs` (the CLI's
+    `main`) on t2v-1.3B in bf16 with a random head, 2 prompts, 21 latents of
+    60x104 (832x480; 32760 tokens, each attending to all: K1 unmasked),
+    `steps` UniPC steps in place of the default 48 (the cut), each forward
+    timed with CUDA events; its K1 launches must be 2 x 30 a forward (with as
+    many bound pre-passes) and no plain version may see a CUDA tensor. Then
+    `create_shards` repacks the shard, `ODERegressionNpzDataset` must read
+    back the arrays and prompts bit for bit, and one `ode_regression_loss`
+    update (backward and AdamW) of a t2v-1.3B generator (seed 0, random
+    head) regresses the trajectory's end from its step-1 point: its ms, peak
+    GiB, finite nonzero loss and gradient norm, and the launches of one
+    block-causal train-mode forward (30 block-causal + 30 cross K1/K2
+    launches, again in the checkpointed backward, and 30 + 30 backward
+    kernels)."""
+    import numpy as np
+    import torch
+
+    from realtime_video_tpu_torch import train as train_mod
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.scripts import create_shards, generate_ode_pairs
+    from realtime_video_tpu_torch.solvers import FlowUniPCMultistep
+    from realtime_video_tpu_torch.training import distillation, losses
+    from realtime_video_tpu_torch.training.train_step import adamw
+    from realtime_video_tpu_torch.utils.dataset import ODERegressionNpzDataset
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="rtv_ode_"))
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    prompts = ["a red fox running through snow", "a cat surfing a wave at sunset"]
+    (work / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    (work / "teacher.yaml").write_text("model_name: t2v-1.3B\ntimestep_shift: 5.0\n"
+                                       "random_heads: true\n")
+    events, forward = [], WanDiffusion.forward
+
+    def timed(self, *a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = forward(self, *a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    WanDiffusion.forward = timed
+    static = os.environ.get("USE_STATIC_ENCODER_COND_DICT")
+    os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"  # no umT5-xxl build here
+    t0 = time.perf_counter()
+    try:
+        written = generate_ode_pairs.main([
+            "--prompts", str(work / "prompts.txt"), "--out", str(work / "dumps"),
+            "--steps", str(steps), "--num-frames", "21", "--config", str(work / "teacher.yaml"),
+            "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        WanDiffusion.forward = forward
+        if static is None:
+            os.environ.pop("USE_STATIC_ENCODER_COND_DICT")
+        else:
+            os.environ["USE_STATIC_ENCODER_COND_DICT"] = static
+    wall_s = time.perf_counter() - t0
+    launches, plain = read_counts()
+    forward_ms = [a.elapsed_time(b) for a, b in events]
+    with np.load(written[0]) as shard:
+        dumped = {key: shard[key] for key in shard.files}
+    trajs = [dumped[f"ode_latent_{i}"] for i in range(len(prompts))]
+    shapes = {key: [list(a.shape), str(a.dtype)] for key, a in dumped.items()}
+    want_k1 = 2 * 30 * steps * len(prompts)
+    res = dict(model="t2v-1.3B", tier="bf16", prompts=len(prompts), steps=steps,
+               cut="--steps 4 in place of 48", latents=[21, 60, 104], tokens=21 * 1560,
+               wall_s=wall_s, forward_ms=forward_ms,
+               forward_ms_mean=float(np.mean(forward_ms)), shard_files=len(written),
+               shard=shapes, peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               launches=launches, k1_launches_expected=want_k1, plain_on_cuda=plain,
+               trajectory_moves=[float(np.abs(t[-1].astype(np.float32)
+                                              - t[0].astype(np.float32)).mean())
+                                 for t in trajs])
+    ok = (len(written) == 1 and len(forward_ms) == steps * len(prompts)
+          and all(t.shape == (steps + 1, 1, 21, 16, 60, 104) and t.dtype == np.float16
+                  and np.isfinite(t).all() for t in trajs)
+          and all(m_ > 0 for m_ in res["trajectory_moves"]))
+    if not ok or launches["window"] != want_k1 or launches["logit_bound"] != want_k1 \
+            or any(plain.values()):
+        phase("ode_pairs", **res, card=card)
+        fail(f"ode_pairs: the teacher's shard or launches are wrong: {res}")
+
+    # repack, read back
+    n_shards = create_shards.main(["--src", str(work / "dumps"), "--out", str(work / "shards"),
+                                   "--shard-size", "2"])
+    ds = ODERegressionNpzDataset(str(work / "shards"))
+    readback = n_shards == 1 and len(ds) == len(prompts) and all(
+        ds[i]["prompts"] == prompts[i] and ds[i]["ode_latent"].dtype == np.float16
+        and np.array_equal(ds[i]["ode_latent"], trajs[i]) for i in range(len(prompts)))
+    res["readback_equal"] = readback
+    if not readback:
+        phase("ode_pairs", **res, card=card)
+        fail("ode_pairs: create_shards / ODERegressionNpzDataset do not give the dumps back")
+
+    # one ODE-regression generator update on the trajectory
+    gen = WanDiffusion(model_name="t2v-1.3B", device=dev, seed=0, fuse_qkv=False)
+    train_mod.random_head(gen, 20)
+    params = losses.trainable(gen.params)
+    opt = adamw(params, 1e-4, 0.01)
+    traj = torch.from_numpy(np.asarray(ds[0]["ode_latent"]))
+    solver = FlowUniPCMultistep(shift=5.0)
+    solver.set_timesteps(steps)
+    t_1 = torch.full((1, 21), float(solver.timesteps[1]), device=dev)
+    emb = torch.randn((1, 512, gen.cfg.text_dim), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        cross = gen.compute_crossattn_cache(emb.to(dev, torch.bfloat16))
+    noisy, target = (traj[i].to(dev, torch.bfloat16) for i in (1, -1))
+    for m in kernel_mods:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = distillation.ode_regression_loss(gen, params, noisy, target, t_1, cross)
+    loss.backward()
+    norm = train_mod.grad_norm(params)
+    opt.step()
+    torch.cuda.synchronize()
+    upd = dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(loss.detach()),
+               grad_norm=norm, peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    launches_u, plain_u = read_counts()
+    want_u = {"block_causal": 60, "window": 60, "block_causal_bwd": 30, "window_bwd": 30}
+    res.update(ode_regression_update=upd, update_launches=launches_u,
+               update_launches_expected=want_u, phase_s=time.perf_counter() - t_phase)
+    phase("ode_pairs", **res, card=card)
+    if not all(math.isfinite(upd[k]) and upd[k] != 0 for k in ("loss", "grad_norm")):
+        fail(f"ode_pairs: the regression update's loss or gradient is not finite and "
+             f"nonzero: {upd}")
+    if any(launches_u[k] != v for k, v in want_u.items()) or any(plain_u.values()):
+        fail(f"ode_pairs: update launches {launches_u}, expected {want_u}; plain {plain_u}")
+    del gen, params, opt, loss, cross, noisy, target
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the server the warm-up phase starts in a fresh process: `create_app` as
+#: the entry point builds it (CONFIG, DEVICE and DO_COMPILE from the
+#: environment), its warm-up record on one stdout line, then serving on
+#: 127.0.0.1:PORT
+WARMUP_SERVER = """
+import json, logging, os, sys, time
+t0 = time.perf_counter()
+logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+from aiohttp import web
+from realtime_video_tpu_torch.serving import server
+app = server.create_app()
+print(json.dumps({"create_app_s": time.perf_counter() - t0,
+                  "warmup": app.get("warmup")}), flush=True)
+web.run_app(app, host="127.0.0.1", port=int(os.environ["PORT"]), print=None)
+"""
+
+
+def _json_or_none(line: str):
+    try:
+        return json.loads(line)
+    except ValueError:
+        return None
+
+
+def server_warmup_phase(card: str, request: dict) -> dict:
+    """Two fresh server processes on the 1.3B int8 tier (static text
+    embedding, the kernel libraries already built in _build/), one without
+    DO_COMPILE and one with DO_COMPILE=1: the warm-up's record (library
+    builds and loads; seconds per shape of COMPILE_SHAPES), `create_app`'s
+    seconds, and the first session's TTFF and block times at the client
+    (2 blocks of `request`). The warm-up must run under DO_COMPILE and not
+    without it, and each session must send its 18 frames."""
+    import aiohttp
+    from msgpack import packb
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="rtv_warmup_"))
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    config = work / "server.yaml"
+    config.write_text("model_name: t2v-1.3B\nenable_int8: true\nenable_int8_dit: true\n"
+                      "int8_static_scales: true\n")
+    req = dict(request, num_blocks=2)
+
+    async def first_session(base):
+        async with aiohttp.ClientSession() as client:
+            async with client.ws_connect(f"{base.replace('http', 'ws')}/session/warm",
+                                         max_msg_size=0) as ws:
+                ready = await ws.receive_json(timeout=60)
+                if ready.get("status") != "ready":
+                    fail(f"server_warmup: no ready message: {ready}")
+                stamps = []
+                t_send = time.perf_counter()
+                await ws.send_bytes(packb(req))
+                while True:
+                    msg = await ws.receive(timeout=600)
+                    if msg.type == aiohttp.WSMsgType.BINARY:
+                        stamps.append(time.perf_counter())
+                    elif msg.type == aiohttp.WSMsgType.TEXT:
+                        final = msg.json()
+                        break
+                    else:
+                        fail(f"server_warmup: socket closed before completion ({msg.type})")
+        if final.get("status") != "completed" or len(stamps) != 18:
+            fail(f"server_warmup: {len(stamps)} frames, final {final}")
+        return dict(ttff_ms=(stamps[0] - t_send) * 1e3,
+                    block_ms=[(stamps[5] - t_send) * 1e3, (stamps[17] - stamps[5]) * 1e3])
+
+    async def wait_healthy(base, proc, deadline):
+        async with aiohttp.ClientSession() as client:
+            while time.perf_counter() < deadline:
+                if proc.poll() is not None:
+                    return False
+                try:
+                    async with client.get(f"{base}/health") as r:
+                        if r.status == 200:
+                            return True
+                except aiohttp.ClientError:
+                    pass
+                await asyncio.sleep(0.5)
+        return False
+
+    out = {}
+    for label, do_compile in (("cold", None), ("do_compile", "1")):
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        env = dict(os.environ, CONFIG=str(config), PORT=str(port), DEVICE="cuda",
+                   USE_STATIC_ENCODER_COND_DICT="1", RTV_QUANT_CACHE="0")
+        env.pop("DO_COMPILE", None)
+        if do_compile:
+            env["DO_COMPILE"] = do_compile
+        log_path = work / f"{label}.log"
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-c", WARMUP_SERVER], env=env,
+                                    cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                    stderr=log, text=True)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        base = f"http://127.0.0.1:{port}"
+        try:
+            if not asyncio.run(wait_healthy(base, proc, t0 + 600)):
+                fail(f"server_warmup {label}: the server did not come up: "
+                     f"{log_path.read_text()[-4000:]}")
+            ready_s = time.perf_counter() - t0
+            # the record line (a library may print before it)
+            record = next(rec for rec in map(_json_or_none, proc.stdout)
+                          if isinstance(rec, dict) and "create_app_s" in rec)
+            session = asyncio.run(first_session(base))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        out[label] = dict(do_compile=do_compile, process_ready_s=ready_s, **record,
+                          first_session=session)
+        phase("server_warmup", process=label, model="t2v-1.3B", tier="int8",
+              **out[label], card=card)
+        if (record["warmup"] is not None) != bool(do_compile):
+            fail(f"server_warmup {label}: the warm-up ran {record['warmup'] is not None}, "
+                 f"DO_COMPILE {do_compile}")
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2007,6 +2600,8 @@ def main() -> None:
     # the attention backward at the training shapes, then the training path
     bwd_results = backward_kernel_phase(card, dev, earlier_bwd)
     training = training_phase(card, dev, read_counts, kernel_mods)
+    gan = gan_phases(card, dev, read_counts, kernel_mods)
+    ode = ode_pairs_phase(card, dev, read_counts, kernel_mods)
 
     # CLIP ViT-H/14 at full width and depth (32 blocks, dim 1280, 16 heads;
     # i2v uses 31), random f32 weights from a seed: one 832x480 image on the
@@ -3012,6 +3607,7 @@ def main() -> None:
         return out
 
     i2v14 = i2v_14b()
+    server_warmup_phase(card, request)
 
     def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3065,6 +3661,12 @@ def main() -> None:
                   for k in ("ms", "route_ms", "plain_ms_rows_1024", "library_ms", "bound_ms",
                             "bound_by", "max_abs_err", "rel_fro_err")},
                "launches_i2v_14b_bf16_2_steps": i2v14["window"]["launches"]["window"],
+               **{f"launches_gan_{r['update']}_update_{r['step']}": r["launches"]["window"]
+                  for r in gan["steps"]},
+               "launches_ode_pairs_teacher_2x4_steps": ode["launches"]["window"],
+               **{f"gan_register_attention_{k}": gan["register_attention"][k]
+                  for k in ("torch_ops_fwd_ms", "k1_route_fwd_ms", "torch_ops_fwd_bwd_ms",
+                            "k1_route_fwd_bwd_ms", "bound_ms")},
                **{f"{c}_{k}": results[c][k]
                   for c in ("offline_window_18720", "offline_window_32760")
                   for k in ("ms", "route_ms", "plain_ms", "library_ms", "bound_ms",
@@ -3178,7 +3780,9 @@ def main() -> None:
               "realtime_video_tpu_torch/csrc/attention_bwd_sm90.cu",
               "realtime_video_tpu/ops/attention.py:72",
               sum(training[key][b] for key in ("launches_dmd", "launches_flow_matching")
-                  for b in ("window_bwd", "block_causal_bwd")),
+                  for b in ("window_bwd", "block_causal_bwd"))
+              + sum(r["launches"]["window_bwd"] for r in gan["steps"])
+              + sum(ode["update_launches"][b] for b in ("window_bwd", "block_causal_bwd")),
               bwd_results["decode_4680x9360"],
               max(r["max_abs_err"] for r in bwd_results.values()),
               {"case": "decode window 4680 x 9360, 12 heads (ms: the D pre-pass, dQ and dK/dV "
@@ -3194,7 +3798,11 @@ def main() -> None:
                **{f"{c}_library_errors": bwd_results[c]["library_errors"]
                   for c, *rest in BWD_CASES if rest[-1]},
                "launches_dmd_2_steps": training["launches_dmd"]["window_bwd"],
-               "launches_flow_matching_step": training["launches_flow_matching"]}),
+               "launches_flow_matching_step": training["launches_flow_matching"],
+               **{f"launches_gan_{r['update']}_update_{r['step']}": r["launches"]["window_bwd"]
+                  for r in gan["steps"]},
+               "launches_ode_regression_update": {
+                   b: ode["update_launches"][b] for b in ("window_bwd", "block_causal_bwd")}}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

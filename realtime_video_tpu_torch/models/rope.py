@@ -5,12 +5,13 @@ Per-axis angle tables (theta 10000) are built in float64 on the host and
 stored as float32, split over the head dim as [t | h | w] =
 [d - 4*(d//6), 2*(d//6), 2*(d//6)]; the temporal table is offset by the block's
 start frame so cached frames keep absolute positions. Rotation runs in float32
-on interleaved pairs (x[2i], x[2i+1]).
+on interleaved pairs (x[2i], x[2i+1]). RIFLEx (`riflex_k`, causal_model.py:26-38)
+pins one temporal frequency for long-video extrapolation.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,16 @@ def _angle_table(max_seq_len: int, dim: int, theta: float = 10000.0) -> np.ndarr
     """Angles [max_seq_len, dim//2] = pos * theta^(-2i/dim)."""
     assert dim % 2 == 0
     inv = 1.0 / np.power(theta, np.arange(0, dim, 2, dtype=np.float64) / dim)
+    return np.outer(np.arange(max_seq_len, dtype=np.float64), inv)
+
+
+def _angle_table_riflex(max_seq_len: int, dim: int, theta: float = 10000.0, k: int = 0,
+                        L_test: Optional[int] = None) -> np.ndarray:
+    """The RIFLEx table: intrinsic frequency k-1 pinned to 0.9 * 2 pi / L_test
+    (causal_model.py:26-38), in host float64."""
+    inv = 1.0 / np.power(theta, np.arange(0, dim, 2, dtype=np.float64) / dim)
+    if k:
+        inv[k - 1] = 0.9 * 2 * np.pi / L_test
     return np.outer(np.arange(max_seq_len, dtype=np.float64), inv)
 
 
@@ -34,10 +45,14 @@ class RopeTables:
 
     @classmethod
     def create(cls, head_dim: int, max_seq_len: int = 1024, theta: float = 10000.0,
+               riflex_k: int = 0, riflex_L_test: Optional[int] = None,
                device=None) -> "RopeTables":
         d = head_dim
         dt, dh, dw = d - 4 * (d // 6), 2 * (d // 6), 2 * (d // 6)
-        at = _angle_table(max_seq_len, dt, theta)
+        if riflex_k:
+            at = _angle_table_riflex(max_seq_len, dt, theta, riflex_k, riflex_L_test)
+        else:
+            at = _angle_table(max_seq_len, dt, theta)
         ah = _angle_table(max_seq_len, dh, theta)
         aw = _angle_table(max_seq_len, dw, theta)
 

@@ -23,6 +23,12 @@ WanI2VCrossAttention (model.py:258-300): `img_emb` projects CLIP features
 into cached K/V, and the cross attention adds attn(q, k_img, v_img) to
 attn(q, k_txt, v_txt) before its output projection.
 
+The GAN critic's classify forward (`dit_classify`, model.py:775-795) is a
+train-mode forward with `gan_classify`: at each tapped layer a register
+token cross-attends to the layer's output tokens (`gan_block_apply`; its
+Lq = 1 attention in torch ops, `register_attention`, as the JAX package
+leaves it to XLA), and a small MLP maps the gathered tokens to logits.
+
 AdaLN modulation is per frame ([B, F, 6, C], causal_model.py:463-491).
 Numerics as in the JAX package: params and activations bf16, norms, RoPE and
 the time MLP in f32. Attention goes through `ops/attention.py`.
@@ -479,6 +485,38 @@ def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f: int,
     return tokens + gate(y, f, g_ffn), k, v
 
 
+def register_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention of a few query tokens (the GAN register token, Lq =
+    1) over every key, in torch ops: f32 logits and softmax, the
+    probabilities cast to v's dtype, f32 sums (`xla_attention`,
+    ops/attention.py:72-95 of the JAX package, which runs no Pallas kernel
+    here). q [B, Lq, N, D], k/v [B, Lk, N, D]."""
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def gan_block_apply(cfg: WanModelConfig, p: Params, x: torch.Tensor,
+                    register: torch.Tensor) -> torch.Tensor:
+    """GanAttentionBlock (model.py:391-470): the register token cross-attends
+    to a layer's output tokens; token = reg + attn(norm3(x), reg), then
+    ffn(layer_norm(token)) + token. x [B, L, D]; register [B, 1, D]; returns
+    [B, 1, D]."""
+    b, L, d = x.shape
+    n, dh = cfg.num_heads, cfg.head_dim
+    xn = layer_norm(x, p["norm3"]["scale"], p["norm3"]["bias"], eps=cfg.eps)
+    ca = p["cross_attn"]
+    q = rms_norm(ca["norm_q"], linear(ca["q"], register), eps=cfg.eps).reshape(b, 1, n, dh)
+    k = rms_norm(ca["norm_k"], linear(ca["k"], xn), eps=cfg.eps).reshape(b, L, n, dh)
+    v = linear(ca["v"], xn).reshape(b, L, n, dh)
+    y = register_attention(q, k, v)
+    token = register + linear(ca["o"], y.reshape(b, 1, d))
+    tn = layer_norm(token, eps=cfg.eps)
+    ff = p["ffn"]
+    return linear(ff["fc2"], gelu_tanh(linear(ff["fc1"], tn))) + token
+
+
 def dit_forward(
     cfg: WanModelConfig,
     params: Params,
@@ -497,9 +535,12 @@ def dit_forward(
     act_calib: Optional[list] = None,
     attn_mask: Optional[torch.Tensor] = None,
     block_tokens: Optional[int] = None,
+    gan_classify: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
-    the cache updated (None in train mode). `layers` may carry precomputed
+    the cache updated (None in train mode); with `gan_classify` (taps,
+    registers, blocks, cls_head, concat_time: `dit_classify` builds it),
+    (flow_pred, logits [B, num_class]) instead. `layers` may carry precomputed
     per-layer views of params["blocks"] (`layer_params`). `act_calib`, when
     given, receives max|input| of every block linear, layer by layer in
     `_calib_site_order`.
@@ -602,6 +643,7 @@ def dit_forward(
         return attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi)
 
     cross_names = ("k", "v") + (("k_img", "v_img") if "k_img" in crossattn_cache else ())
+    tap_out: Dict[int, torch.Tensor] = {}
     for lid, bp in enumerate(layers):
         if mode == "train":
             attend = train_attend
@@ -619,6 +661,14 @@ def dit_forward(
             tokens, k, v = run(tokens)
         if train_cache:
             kvc.train_cache_write(kv_cache, lid, current_start, k, v, win)
+        if gan_classify is not None and lid in gan_classify["taps"]:
+            # the critic's feature tap (model.py:785-789) reads the layer's
+            # output, outside the layer's checkpoint; a repeated tap takes the
+            # last of its register tokens, as the JAX package's switch does
+            i = len(gan_classify["taps"]) - 1 - gan_classify["taps"][::-1].index(lid)
+            reg = gan_classify["registers"][i][None, None].to(tokens.dtype).expand(
+                b, 1, cfg.dim)
+            tap_out[lid] = gan_block_apply(cfg, gan_classify["blocks"][i], tokens, reg)
 
     if kv_cache is not None:
         kv_cache["global_end"] = new_global_end
@@ -629,7 +679,16 @@ def dit_forward(
     eh = hp["modulation"][None].float() + e[:, :, None, :]  # [B, F, 2, D]
     yh = modulate(layer_norm(tokens, eps=cfg.eps), f, eh[:, :, 0], eh[:, :, 1])
     out = linear(hp["head"], yh)
-    return unpatchify(cfg, out, grid), kv_cache
+    flow = unpatchify(cfg, out, grid)
+    if gan_classify is None:
+        return flow, kv_cache
+    # the class head over the gathered taps (model.py:790-795)
+    flat = torch.cat([tap_out[tl] for tl in gan_classify["taps"]], dim=1).reshape(b, -1)
+    if gan_classify.get("concat_time", False):
+        flat = torch.cat([flat, 10.0 * e[:, 0].to(flat.dtype)], dim=-1)
+    cp = gan_classify["cls_head"]
+    hcls = layer_norm(flat, cp["norm"]["scale"], cp["norm"]["bias"], eps=1e-5)
+    return flow, linear(cp["fc2"], F.silu(linear(cp["fc1"], hcls)))
 
 
 def context_prefill(
@@ -656,3 +715,19 @@ def context_prefill(
                         mode="prefill", kv_cache=kv_cache,
                         prefill_block_tokens=block_tokens, layers=layers)
     return kv
+
+
+def dit_classify(cfg: WanModelConfig, params: Params, noisy: torch.Tensor, t: torch.Tensor,
+                 rope_tables: RopeTables, crossattn_cache: Dict[str, torch.Tensor],
+                 gan_params: Params, taps: Tuple[int, ...] = (13, 21, 29),
+                 concat_time: bool = False) -> torch.Tensor:
+    """Discriminator logits [B, num_class] (the classify-mode forward,
+    model.py:775-795): a train-mode forward with no mask, no cache, whose
+    tapped layers feed the register tokens (rms-normed, eps 1e-6)."""
+    registers = rms_norm(gan_params["register_norm"], gan_params["register_tokens"], eps=1e-6)
+    _, logits = dit_forward(
+        cfg, params, noisy, t.float(), rope_tables, crossattn_cache, mode="train",
+        gan_classify={"taps": tuple(taps), "registers": registers,
+                      "blocks": gan_params["blocks"], "cls_head": gan_params["cls_head"],
+                      "concat_time": concat_time})
+    return logits

@@ -3,7 +3,9 @@
     sigma schedule:   sigma = shift * s / (1 + (shift - 1) * s),  s = linspace
     timesteps:        t = sigma * num_train_timesteps
     add_noise:        x_t = (1 - sigma_t) * x0 + sigma_t * noise
+    flow target:      v = noise - x0
     flow -> x0:       x0 = x_t - sigma_t * v
+    euler step:       x_{t-1} = x_t + v * (sigma_next - sigma_t)
 
 Timesteps are looked up by nearest neighbour (argmin |timesteps - t|), as in
 the reference. Tables are built in numpy float32 exactly as the JAX package
@@ -75,12 +77,49 @@ class FlowMatchSchedule:
         out = (1.0 - sigma) * x0.float() + sigma * noise.float()
         return out.to(noise.dtype)
 
+    def step(self, model_output: torch.Tensor, timestep: torch.Tensor,
+             sample: torch.Tensor, to_final: bool = False) -> torch.Tensor:
+        """Euler flow step x + v (sigma_next - sigma) (scheduler.py:143-157),
+        in f32, cast to sample.dtype; sigma_next is 0 past the last index and
+        with `to_final`."""
+        tid = self.timestep_id(timestep)
+        sigma = self.sigmas[tid]
+        sigma = sigma.reshape(sigma.shape + (1,) * (sample.dim() - sigma.dim()))
+        n = self.sigmas.shape[0]
+        if to_final:
+            sigma_next = torch.zeros_like(sigma)
+        else:
+            nxt = self.sigmas[(tid + 1).clamp(max=n - 1)]
+            sigma_next = torch.where(tid + 1 >= n, torch.zeros_like(nxt), nxt)
+            sigma_next = sigma_next.reshape(sigma.shape)
+        out = sample.float() + model_output.float() * (sigma_next - sigma)
+        return out.to(sample.dtype)
+
     def flow_to_x0(self, flow_pred: torch.Tensor, xt: torch.Tensor,
                    timestep: torch.Tensor) -> torch.Tensor:
         """x0 = x_t - sigma_t * v, in f32, cast to flow_pred.dtype."""
         sigma = self._bcast_sigma(timestep, xt.dim())
         out = xt.float() - sigma * flow_pred.float()
         return out.to(flow_pred.dtype)
+
+    def x0_to_flow(self, x0_pred: torch.Tensor, xt: torch.Tensor,
+                   timestep: torch.Tensor) -> torch.Tensor:
+        """v = (x_t - x0) / sigma_t (wan_wrapper.py:207-228), in f32, cast to
+        x0_pred.dtype."""
+        sigma = self._bcast_sigma(timestep, xt.dim())
+        return ((xt.float() - x0_pred.float()) / sigma).to(x0_pred.dtype)
+
+    def x0_to_noise(self, x0: torch.Tensor, xt: torch.Tensor,
+                    timestep: torch.Tensor) -> torch.Tensor:
+        """noise = (x_t - (1 - sigma) x0) / sigma, in f32, cast to x0.dtype."""
+        sigma = self._bcast_sigma(timestep, xt.dim())
+        return ((xt.float() - (1.0 - sigma) * x0.float()) / sigma).to(x0.dtype)
+
+    def noise_to_x0(self, noise: torch.Tensor, xt: torch.Tensor,
+                    timestep: torch.Tensor) -> torch.Tensor:
+        """x0 = (x_t - sigma noise) / (1 - sigma), in f32, cast to noise.dtype."""
+        sigma = self._bcast_sigma(timestep, xt.dim())
+        return ((xt.float() - sigma * noise.float()) / (1.0 - sigma)).to(noise.dtype)
 
     def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
                         timestep: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ after release_server.py:100-313).
 detected from it), else random-initialised from a seed with a warning; the
 Wan 2.1 VAE from MODEL_FOLDER's Wan2.1_VAE.pth when it exists, else random;
 the text encoder `load_text_encoder` picks; and, for the TAEHV preview tier
-(`use_taehv`), TAEHV's params (`load_taehv`).
+(`use_taehv`), TAEHV's params (`load_taehv`). `warmup_models` then takes
+what a fresh server's first session would pay (the server calls it under
+DO_COMPILE).
 
 The int8 tier follows the JAX loaders' steps on the device itself:
 `enable_int8_dit` (default: `enable_int8`) calibrates the DiT's block linears
@@ -27,7 +29,12 @@ import time
 import torch
 
 from realtime_video_tpu_torch import config as config_mod
-from realtime_video_tpu_torch.config import MODEL_FOLDER, T5_CONFIGS, WAN_CONFIGS
+from realtime_video_tpu_torch.config import (
+    COMPILE_SHAPES,
+    MODEL_FOLDER,
+    T5_CONFIGS,
+    WAN_CONFIGS,
+)
 from realtime_video_tpu_torch.models import diffusion_wrapper as dw_mod
 from realtime_video_tpu_torch.models import taehv as taehv_mod
 from realtime_video_tpu_torch.models import vae as vae_mod
@@ -35,7 +42,7 @@ from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
 from realtime_video_tpu_torch.models.text_encoder import StaticTextEncoder, WanTextEncoder
 from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
-from realtime_video_tpu_torch.ops import hopper_conv, hopper_int8_mm
+from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv, hopper_int8_mm
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
 from realtime_video_tpu_torch.utils import qcache
@@ -181,6 +188,10 @@ def load_taehv(device):
     return taehv_mod.init_taehv_params(gen, device, torch.bfloat16)
 
 
+def load_pipeline(config, transformer, text_encoder, vae) -> CausalInferencePipeline:
+    return CausalInferencePipeline(config, transformer, text_encoder, vae)
+
+
 def load_all(config, device, seed: int = 0) -> Models:
     """DiT (`checkpoint_path`, else config["model_name"] from `seed`), Wan 2.1
     VAE (seed + 1), text encoder (seed + 2) and, with `use_taehv`, TAEHV on
@@ -191,7 +202,121 @@ def load_all(config, device, seed: int = 0) -> Models:
     text_encoder = load_text_encoder(config, device, seed + 2, transformer.cfg.text_len,
                                      transformer.cfg.text_dim)
     vae = load_vae(config, device, seed + 1)
-    pipeline = CausalInferencePipeline(config, transformer, text_encoder, vae)
+    pipeline = load_pipeline(config, transformer, text_encoder, vae)
     taehv = load_taehv(device) if config.get("use_taehv", False) else None
     log.info("All models loaded in %.2fs", time.time() - t0)
     return Models(text_encoder, transformer, pipeline, vae, vae, taehv)
+
+
+
+def _has_int8(tree) -> bool:
+    if isinstance(tree, dict):
+        return "w_q" in tree or any(_has_int8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_int8(v) for v in tree)
+    return False
+
+
+def kernel_sources(models: Models) -> list:
+    """The CUDA sources of every kernel library the loaded tier launches while
+    serving: the attention kernel always, K3 for int8 DiT linears, the conv
+    kernel for an int8 VAE."""
+    sources = [hopper_attention.SM90_SOURCE]
+    if _has_int8(models.transformer.params):
+        sources.append(hopper_int8_mm.SOURCE)
+    if _has_int8(models.vae_decoder.params):
+        sources.append(hopper_conv.SOURCE)
+    return sources
+
+
+def warmup_models(models: Models, config, shapes=None) -> dict:
+    """Take what a fresh server's first session would pay, before any
+    session (serving/models.py:250-345 of the JAX package, which compiles
+    the hot path; release_server.py:753-755 + COMPILE_SHAPES, settings.py:6).
+    The port compiles no program, so it warms what a first session meets
+    cold: on a card, the kernel libraries the tier launches
+    (`cuda_build.build_all`, nvcc for a missing one) and their loads; then,
+    for each (width, height) in `shapes` (default config["compile_shapes"],
+    else COMPILE_SHAPES, both orientations), the library handles, kernel
+    loads, heuristics and allocator growth of the session's own `block_step`
+    on block 0 (no context) and on a steady block (kv_cache_num_frames of
+    context), block 0's decode per latent (twice, the second with the
+    cache), the steady block's decode as a session decodes it (the Wan VAE
+    per latent, or TAEHV with `use_taehv`) and one frame of the stream
+    encode.
+
+    Scratch KV, VAE and TAEHV caches only, and a zero [1, 512, text_dim]
+    context for the text K/V: the models' and the pipeline's state stay as
+    they were, except TAEHV's params, which a `use_taehv` config without them
+    gets here as its first session would. Returns {"build_s": seconds of the
+    library builds and loads, "shapes": {"WxH": seconds}}."""
+    from realtime_video_tpu_torch.ops import cuda_build, kv_cache as kvc
+    from realtime_video_tpu_torch.serving.session import _ensure_taehv_params, block_step
+
+    gen = models.transformer
+    cfg, dev, dtype = gen.cfg, gen.device, gen.dtype
+    shapes = shapes or config.get("compile_shapes") or COMPILE_SHAPES
+    shift = float(config.get("timestep_shift", 5.0))
+    steps = _denoise_steps(config, shift)
+    kv_frames = int(config.get("kv_cache_num_frames", 3))
+    nfpb = models.pipeline.num_frame_per_block
+    schedule = FlowMatchSchedule.create(shift=shift, sigma_min=0.0, extra_one_step=True,
+                                        device=dev)
+    use_taehv = bool(config.get("use_taehv", False))
+    vae = models.vae_decoder
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        sources = kernel_sources(models)
+        libs = cuda_build.build_all(sources)
+        hopper_attention._load()
+        if hopper_int8_mm.SOURCE in libs:
+            hopper_int8_mm._load()
+        if hopper_conv.SOURCE in libs:
+            hopper_conv._load()
+    out = {"build_s": time.perf_counter() - t0, "shapes": {}}
+    if use_taehv:
+        _ensure_taehv_params(models)
+
+    def zeros_like_draw(shape, dtype_, device):
+        return torch.zeros(shape, dtype=dtype_, device=device)
+
+    with torch.no_grad():
+        cross = gen.compute_crossattn_cache(
+            torch.zeros((1, 512, cfg.text_dim), dtype=dtype, device=dev))
+        for w, h in shapes:
+            t1 = time.perf_counter()
+            lat_h, lat_w = h // 8, w // 8
+            fsl = cfg.frame_seq_length(lat_h, lat_w)
+            max_attn = (kv_frames + nfpb) * fsl
+            kv = kvc.init_kv_cache(cfg.num_layers, 1, max_attn, cfg.num_heads, cfg.head_dim,
+                                   dtype=dtype, device=dev)
+            noisy = torch.zeros((1, nfpb, cfg.in_dim, lat_h, lat_w), dtype=dtype, device=dev)
+            for nctx in (0, kv_frames):
+                clean = (torch.zeros((1, nctx, cfg.in_dim, lat_h, lat_w), dtype=dtype,
+                                     device=dev) if nctx else None)
+                x0, kv = block_step(gen, kv, cross, steps, clean, noisy, nctx * fsl, fsl,
+                                    nfpb, max_attn, schedule, zeros_like_draw)
+                if nctx == 0:
+                    # block 0 decodes per latent frame (the streamed path)
+                    _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype))
+                    _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype), vcache)
+            if use_taehv:
+                # a TAEHV session decodes each block whole: fresh, then with state
+                _, tstate = taehv_mod.taehv_decode(models.taehv_params,
+                                                   x0.to(torch.bfloat16), None)
+                taehv_mod.taehv_decode(models.taehv_params, x0.to(torch.bfloat16), tstate)
+            else:
+                for i in range(x0.shape[1]):
+                    _, vcache = vae.decode_block(x0[:, i:i + 1].to(vae.dtype), vcache)
+            models.vae_encoder.encode_stream(
+                torch.zeros((1, 1, 3, h, w), dtype=models.vae_encoder.dtype, device=dev))
+            sync()
+            out["shapes"][f"{w}x{h}"] = time.perf_counter() - t1
+            log.info("warmup %dx%d done (%.1fs)", w, h, out["shapes"][f"{w}x{h}"])
+    log.info("warmup complete in %.1fs", time.perf_counter() - t0)
+    return out

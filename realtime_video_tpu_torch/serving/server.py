@@ -19,7 +19,11 @@ order.
 
 Run: `python -m realtime_video_tpu_torch.serving.server` (PORT, CONFIG,
 DEVICE env vars; the text encoder by USE_STATIC_ENCODER_COND_DICT and
-RTV_T5_TINY, as `serving/models.load_text_encoder` reads them).
+RTV_T5_TINY, as `serving/models.load_text_encoder` reads them). With
+DO_COMPILE=1, `create_app` runs `serving/models.warmup_models` before it
+serves: the kernel libraries are built and loaded and the hot path runs
+once at each of the config's `compile_shapes` (default COMPILE_SHAPES), so
+the first session does not pay for them.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from pydantic import ValidationError
 
 from realtime_video_tpu_torch.config import load_server_config
 from realtime_video_tpu_torch.serving.metrics import METRICS
-from realtime_video_tpu_torch.serving.models import Models, load_all
+from realtime_video_tpu_torch.serving.models import Models, load_all, warmup_models
 from realtime_video_tpu_torch.serving.params import GenerateParams
 from realtime_video_tpu_torch.serving.session import GenerationSession
 from realtime_video_tpu_torch.serving.video_io import save_video_to_bytes
@@ -351,6 +355,11 @@ def create_app(config=None, models: Optional[Models] = None, device=None) -> web
     if models is None:
         models = load_all(config, device or os.getenv("DEVICE", "cuda"))
     app["models"] = models
+    if os.getenv("DO_COMPILE", "false").lower() in ("true", "1", "yes"):
+        # take the first session's cold costs now: kernel builds and loads,
+        # the hot path at COMPILE_SHAPES (the reference's DO_COMPILE +
+        # compile_models, release_server.py:85, 753-755)
+        app["warmup"] = warmup_models(models, config)
     app.router.add_get("/health", health)
     app.router.add_get("/metrics", metrics)
     app.router.add_get("/", root)

@@ -127,6 +127,22 @@ def _image_to_array(image) -> np.ndarray:
     return (arr - 0.5) * 2.0
 
 
+def block_step(gen, kv_cache, cross, steps: Tuple[float, ...],
+               clean_context: Optional[torch.Tensor], noisy: torch.Tensor,
+               current_start: int, fsl: int, nfpb: int, max_attn: int,
+               schedule: FlowMatchSchedule, noise_fn: NoiseFn):
+    """One serving block on `kv_cache` (zeroed, then prefilled from the clean
+    context when there is one) and the text K/V `cross`: the few-step
+    denoise of `noisy`. Returns (x0 [1, nfpb, 16, h, w], kv_cache). The
+    session runs it on its pipeline's caches, the warm-up on scratch ones."""
+    kvc.reset_kv_cache(kv_cache)
+    if clean_context is not None:
+        wan_dit.context_prefill(gen.cfg, gen.params, clean_context, gen.rope, cross, kv_cache,
+                                block_tokens=fsl * nfpb, layers=gen.layers)
+    denoise = gen.make_denoise_block_fn(steps, max_attn, schedule=schedule)
+    return denoise(kv_cache, cross, noisy, current_start, noise_fn)
+
+
 class GenerationSession:
     SESSION_COUNTER = AtomicCounter()
 
@@ -341,22 +357,31 @@ class GenerationSession:
         k = self.params.kv_cache_num_frames
         return self.get_clean_context_frames(models), min(self.current_start_frame, k)
 
-    def block_step(self, models, steps: Tuple[float, ...],
-                   clean_context: Optional[torch.Tensor], noisy: torch.Tensor,
-                   current_start: int) -> torch.Tensor:
-        """Reset the KV cache, prefill it from the clean context, denoise the
-        block; returns its clean latents x0 [1, nfpb, 16, h, w]."""
+    def recompute_kv_cache(self, models) -> int:
+        """Zero the KV cache and re-prefill it from this block's clean context
+        (session.py:584-600 of the JAX package; the hot loop does the same
+        inside `block_step`); returns the model input start frame."""
         pipeline = models.pipeline
-        gen = models.transformer
-        kvc.reset_kv_cache(pipeline.kv_cache)
+        clean_context, model_input_start_frame = self.plan_block_context(models)
+        pipeline._initialize_kv_cache(1, self.frame_seq_length, self.dtype)
         if clean_context is not None:
+            gen = models.transformer
             wan_dit.context_prefill(
                 gen.cfg, gen.params, clean_context, gen.rope, pipeline.crossattn_cache,
                 pipeline.kv_cache, block_tokens=self.frame_seq_length * self.num_frame_per_block,
                 layers=gen.layers)
-        denoise = gen.make_denoise_block_fn(steps, self._max_attn(), schedule=self.schedule)
-        x0, pipeline.kv_cache = denoise(pipeline.kv_cache, pipeline.crossattn_cache,
-                                        noisy, current_start, self.noise_fn)
+        return model_input_start_frame
+
+    def block_step(self, models, steps: Tuple[float, ...],
+                   clean_context: Optional[torch.Tensor], noisy: torch.Tensor,
+                   current_start: int) -> torch.Tensor:
+        """Reset the KV cache, prefill it from the clean context, denoise the
+        block (`block_step`); returns its clean latents x0 [1, nfpb, 16, h, w]."""
+        pipeline = models.pipeline
+        x0, pipeline.kv_cache = block_step(
+            models.transformer, pipeline.kv_cache, pipeline.crossattn_cache, steps,
+            clean_context, noisy, current_start, self.frame_seq_length,
+            self.num_frame_per_block, self._max_attn(), self.schedule, self.noise_fn)
         return x0
 
     def generate_block_internal(self, models) -> Optional[torch.Tensor]:
@@ -451,6 +476,10 @@ class GenerationSession:
         if out is None:
             raise asyncio.CancelledError()
         return out
+
+    def generate_blocks(self, num_blocks: int, models) -> None:
+        for _ in range(num_blocks):
+            self.generate_block(models)
 
     def __hash__(self):
         return id(self)

@@ -94,6 +94,12 @@ class _FlowSolverBase:
         sigma = float(self.sigmas[self._step_index])
         return sample - sigma * flow_pred
 
+    def scale_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                    step_index: int) -> torch.Tensor:
+        """(1 - sigma) sample + sigma noise at schedule index `step_index`."""
+        s = float(self.sigmas[step_index])
+        return (1 - s) * sample + s * noise
+
     def _push_history(self, x0: torch.Tensor) -> None:
         self._x0_history.append(x0)
         if len(self._x0_history) > self.solver_order:

@@ -103,7 +103,8 @@ class Trainer:
     seed: int
 
 
-def _random_head(net: WanDiffusion, seed: int) -> None:
+def random_head(net: WanDiffusion, seed: int) -> None:
+    """Replace the zero-initialised output head with N(0, 0.05) draws (seeded)."""
     w = net.params["head"]["head"]["w"]
     gen = torch.Generator(device=w.device).manual_seed(seed)
     w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * 0.05)
@@ -129,7 +130,7 @@ def build(args: argparse.Namespace) -> Trainer:
     generator, real_score, fake_score = mk(0), mk(1), mk(2)
     if config.get("random_heads", False):
         for i, net in enumerate((generator, real_score, fake_score)):
-            _random_head(net, 20 + i)
+            random_head(net, 20 + i)
     model = {"dmd": DMD, "sid": SiD}[args.loss](generator, real_score, fake_score, config)
     cfg = generator.cfg
     if args.text_encoder == "umt5":

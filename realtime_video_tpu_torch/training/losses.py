@@ -72,13 +72,16 @@ def causal_flow_matching_loss(
 
 
 def tree_leaves(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """{"a/b/c": tensor} of a nested dict of tensors, in insertion order."""
-    if isinstance(tree, dict):
-        out: Dict[str, torch.Tensor] = {}
-        for k, v in tree.items():
-            out.update(tree_leaves(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
+    """{"a/b/c": tensor} of nested dicts, lists and tuples of tensors, in
+    insertion order; a list or tuple item's key is its index ("blocks/0/w")."""
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        return {prefix[:-1]: tree}
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in items:
+        out.update(tree_leaves(v, f"{prefix}{k}/"))
+    return out
 
 
 def trainable(tree: Any) -> Any:

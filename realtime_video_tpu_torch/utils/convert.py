@@ -75,6 +75,13 @@ def wan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = N
     return convert(tree)
 
 
+def gan_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX `init_gan_head_params` tree (numpy leaves: register tokens, a
+    list of GanAttentionBlocks, the class MLP) as the port's GAN head params,
+    structure kept, linear weights [in, out] as they are."""
+    return tree_from_numpy(tree, device, dtype)
+
+
 def vae_params_from_jax(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """A JAX `init_vae_params` or `quantize_vae_params` tree (numpy leaves) as
     the port's VAE params. Int8 conv `w_q` leaves come K-major

@@ -2,8 +2,9 @@
 its serving stack, TAEHV, the quantised-tree cache, the offline sampler, the
 solvers, the teacher pipelines, `WanT2V` and `WanI2V`, the CLIP towers, the
 image and prompt-extension utilities, the training stack (`train`,
-`training/`, the self-forcing rollout, the datasets) and every other module
-of it, and `jax` stays out of sys.modules. Also holds
+`training/` with GAN, the self-forcing rollout, the datasets), the ODE-pair
+scripts (`scripts/`) and every other module of it, and neither `jax` nor
+the JAX package enters sys.modules. Also holds
 that the port's kernel wrappers take a CUDA tensor only to their kernels (on
 a CPU-only host they must raise, not fall back), and that its entry points
 (TAEHV's init and `sample_videos` among them) build on the card unless
@@ -44,7 +45,10 @@ def test_port_imports_no_jax():
             "realtime_video_tpu_torch.training.draws",
             "realtime_video_tpu_torch.pipelines.self_forcing_training",
             "realtime_video_tpu_torch.utils.dataset",
-            "realtime_video_tpu_torch.utils.lmdb_io"} <= set(mods)
+            "realtime_video_tpu_torch.utils.lmdb_io",
+            "realtime_video_tpu_torch.training.gan", "realtime_video_tpu_torch.scripts",
+            "realtime_video_tpu_torch.scripts.generate_ode_pairs",
+            "realtime_video_tpu_torch.scripts.create_shards"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -105,6 +109,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sample.sample_videos(["a cat"], save_videos=False)
     assert taehv.init_taehv_params(torch.Generator(), "cpu")["decoder"][1]["w"].device.type == \
         "cpu"
+
+
+def test_ode_pairs_script_defaults_to_the_card(monkeypatch, tmp_path):
+    """generate_ode_pairs builds its teacher on the CUDA card unless --device
+    names another: without a card it raises before it writes anything."""
+    from realtime_video_tpu_torch.scripts import generate_ode_pairs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("a cat\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_ode_pairs.main(["--prompts", str(prompts), "--out", str(tmp_path / "out"),
+                                 "--tiny"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_int8_kernel_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):

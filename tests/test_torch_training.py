@@ -131,7 +131,7 @@ def _trainable(net):
 
 
 def _check_grads(tparams, jgrads):
-    jflat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(g)
+    jflat = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): np.asarray(g)
              for path, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]}
     tflat = tlosses.tree_leaves(tparams)
     assert set(jflat) == set(tflat)
