@@ -120,7 +120,14 @@ Phases, each reported on its own lines:
      ODE-pair path (`ode_pairs_phase`): `generate_ode_pairs` on t2v-1.3B at
      21 latents of 832x480 (2 prompts, 4 steps in place of 48), its shard
      through `create_shards` and read back bit for bit, and one
-     `ode_regression_loss` update on the trajectory;
+     `ode_regression_loss` update on the trajectory; then teacher forcing:
+     mode 2 of both attention kernels at train.py's shape, 2L = 18720 in
+     blocks of 4680, 12 heads (`teacher_forcing_kernel`: the forward on four
+     row slices and the backward on the whole call against their plain
+     versions, four planted faults, times beside the bounds and torch SDPA
+     under the dense mask), and `dit_forward(tf_concat=True)` at t2v-1.3B
+     (`teacher_forcing_1p3b`: forward and forward + backward ms and peak
+     GiB, the launches as derived, JAX's causality test at full width);
   4. the server: `load_all` builds a DiT (random weights from a seed) and the
      Wan 2.1 VAE on the card, and the aiohttp server listens on 127.0.0.1;
      every WebSocket session (3 blocks, 832x480, 4 steps, 3 KV-cache frames)
@@ -189,15 +196,22 @@ Phases, each reported on its own lines:
          processes at 1.3B int8, without and with DO_COMPILE=1, each's
          warm-up record (library builds, seconds per shape) and first
          session's TTFF at the client; the warm-up must run under DO_COMPILE
-         and not without it.
+         and not without it;
+       - the real-checkpoint path (`real_checkpoint_phase`), last: a
+         full-size checkpoint set synthesised in the reference's layout
+         (1.3B DiT, Wan 2.1 VAE, umT5-xxl) in a temporary MODEL_FOLDER, each
+         file's converter round trip bit for bit, `run_real_checkpoint` in a
+         subprocess (30 finite frames, a checksum, load seconds by file), and
+         `sweep_sample` over two DiTs against a direct `sample_videos`.
 The quantised-tree cache is off (RTV_QUANT_CACHE=0) outside its phase, and
 its directory is a temporary one, removed at exit.
 
 Before its last line it prints the kernels' JSON summary, one row per TPU
 kernel of the repo (nine rows, each with `earlier_ms`: the replaced
-version's time in this run where _archive/ holds it, else null) and one for
+version's time in this run where _archive/ holds it, else null), one for
 the attention backward, which replaces no TPU kernel (its `earlier_ms` the
-first, mma.sync form's); the
+first, mma.sync form's), and one for the teacher-forcing mode of the two
+attention kernels, which replaces none either; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it, and so does a host without a CUDA device.
 Phase 1 also names the JPEG codec the server uses (the native libjpeg codec,
@@ -1361,6 +1375,598 @@ web.run_app(app, host="127.0.0.1", port=int(os.environ["PORT"]), print=None)
 """
 
 
+#: teacher forcing at train.py's shape: 6 latent frames of 60x104 (1560
+#: tokens a frame) as [clean | noisy], blocks of 3 frames: L 9360, 2L 18720
+TF_HALF, TF_BLOCK = 6 * 1560, 3 * 1560
+#: the forward's row slices, each held against all 2L keys: clean block 0,
+#: the straddle of L (9360 = 73 * 128 + 16), the noisy block boundary, the
+#: last rows
+TF_SLICES = (("clean_block0", 0, 1024), ("l_straddle", TF_HALF - 512, TF_HALF + 512),
+             ("noisy_block_boundary", TF_HALF + TF_BLOCK - 512, TF_HALF + TF_BLOCK + 512),
+             ("last_rows", 2 * TF_HALF - 1024, 2 * TF_HALF))
+#: under K1's static max (the default) block 0's noisy flow moves with block
+#: 1's clean frames through the logit bound, which spans every query row as
+#: JAX's does (pallas_attention.py:437-442): 0.73% relative Frobenius on an
+#: H100 at random weights, beside 0.78% for block 1's real dependence on
+#: block 0. The limit, twice that reading, catches a gross leak on the
+#: default path only: a leak of the real dependence's size stays under it,
+#: and the bit-exact check under the running max is the one that catches it
+TF_STATIC_MAX_COUPLING_LIMIT = 0.015
+
+
+def sdpa_backend_name(q, k, v, mask, scale) -> str:
+    """The backend torch SDPA's dispatcher picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return f"not named ({type(e).__name__})"
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(choice, str(choice))
+
+
+def teacher_forcing_kernel_phase(card: str, dev, heads: int = 12) -> dict:
+    """Mode 2 of csrc/attention_sm90.cu and csrc/attention_bwd_sm90.cu at
+    train.py's teacher-forcing shape (2L = 18720, blocks of 4680, 12 heads,
+    head dim 128, bf16). The forward (with its LSE) against the plain
+    version on TF_SLICES, each slice against every key, with
+    `hopper_attention.agreement`: the output of the wrapper the main path
+    calls (`teacher_forcing_attention`, without a gradient and under
+    autograd through `KernelAttention`) and of the launch with the LSE (LSE
+    within 2e-3 of the plain LSE of the prescaled q); the backward on the
+    whole call against `kernel_backward_plain` under the mode-2 Mask, one
+    head at a time so that its f32 [2L, 2L] temporaries fit, at
+    `grad_atol`: `attention_backward` (two launches bit-equal) and the
+    gradient autograd takes through the wrapper. Planted faults that must fail: a noisy block that sees its
+    own clean block, the noisy range 16 keys short, the clean range dropped
+    for blocks j >= 1 (forward); the dK/dV pass skipping a clean key's later
+    noisy queries, and the leak (backward). CUDA-event times of the route
+    (one launch), the forward with its LSE, the backward, the plain
+    versions, and torch SDPA under the dense bool mask forward and backward
+    (the backend its dispatcher picks, named), beside the bounds of the
+    live pairs (`teacher_forcing_pairs`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+
+    t_phase = time.perf_counter()
+    hd, L, B = 128, TF_HALF, TF_BLOCK
+    n = 2 * L
+    scale = hd ** -0.5
+    mask = hk.Mask.teacher_forcing(L, B)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn((1, n, heads, hd), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    dense = mask.dense(n, n, dev)  # the plain versions' and SDPA's mask, never the kernel's
+
+    def plain_rows(lo, hi):
+        """(out, lse) of rows [lo, hi) against every key: the plain forward,
+        and the LSE of the prescaled q the kernel scores."""
+        out = hk._masked_softmax_attention(q[:, lo:hi], k, v, dense[lo:hi], scale)
+        logits = torch.einsum("bqnd,bknd->bnqk", hk.prescale(q[:, lo:hi], scale).float(),
+                              k.float()) / hk.LOG2E
+        return out, torch.logsumexp(logits.masked_fill(~dense[lo:hi], hk.NEG_INF), -1)
+
+    # the forward as the main path calls it: the route without a gradient,
+    # and KernelAttention (the route under autograd) with its backward; the
+    # launch with the LSE for the LSE bar and the planted faults
+    routed = hk.teacher_forcing_attention(q, k, v, L, B)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    autograd_out = hk.teacher_forcing_attention(qg, kg, vg, L, B)
+    autograd_grads = torch.autograd.grad(autograd_out, (qg, kg, vg), do)
+    autograd_out = autograd_out.detach()
+    del qg, kg, vg
+    out, lse = hk._launch_sm90(q, k, v, scale, None, *mask.kernel_args(), with_lse=True)
+    fwd, want_rows, lse_err = {}, {}, {}
+    for name, lo, hi in TF_SLICES:
+        want, want_lse = plain_rows(lo, hi)
+        want_rows[name] = want
+        for form, got_rows in (("", routed), ("_autograd", autograd_out), ("_with_lse", out)):
+            fwd[name + form] = hk.agreement(got_rows[:, lo:hi], want)
+        lse_err[name] = (lse[:, :, lo:hi] - want_lse).abs().max().item()
+        del want_lse
+    del routed, autograd_out
+    fwd_faults = {}
+    for fault, code in (("noisy_sees_own_clean_block", hk.FAULT_TF_LEAK),
+                        ("noisy_range_16_short", hk.FAULT_TF_SHORT),
+                        ("clean_dropped_for_j_ge_1", hk.FAULT_TF_DROP_CLEAN)):
+        bad = hk._launch_sm90(q, k, v, scale, None, *mask.kernel_args(), fault=code)
+        fwd_faults[fault] = any(not hk.agreement(bad[:, lo:hi], want_rows[name])["within_tol"]
+                                for name, lo, hi in TF_SLICES)
+        del bad
+    del want_rows
+
+    got = hk.attention_backward(q, k, v, out, do, lse, scale, mask)
+    again = hk.attention_backward(q, k, v, out, do, lse, scale, mask)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    t0 = time.perf_counter()
+    parts = [hk.kernel_backward_plain(q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1],
+                                      out[:, :, h:h + 1], do[:, :, h:h + 1], scale, mask)
+             for h in range(heads)]
+    torch.cuda.synchronize()
+    plain_bwd_ms = (time.perf_counter() - t0) * 1e3
+    want = [torch.cat([p[i] for p in parts], 2) for i in range(3)]
+    del parts
+    bwd = {g: hk.agreement(a, b, hk.grad_atol(b)) for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+    bwd.update({f"{g}_autograd": hk.agreement(a, b, hk.grad_atol(b))
+                for g, a, b in zip(("dq", "dk", "dv"), autograd_grads, want)})
+    del autograd_grads
+    bwd_faults = {}
+    for fault, code in (("dkdv_skips_later_noisy_queries", hk.FAULT_TF_SKIP_NOISY_Q),
+                        ("noisy_sees_own_clean_block", hk.FAULT_TF_LEAK)):
+        bad = hk.attention_backward(q, k, v, out, do, lse, scale, mask, fault=code)
+        bwd_faults[fault] = any(not hk.agreement(a, b, hk.grad_atol(b))["within_tol"]
+                                for a, b in zip(bad, want))
+        del bad
+    del got, want
+
+    # times: the route (one launch, no LSE), the forward with its LSE, the
+    # backward (pre-pass, dQ and dK/dV passes), the plain versions one head
+    # at a time, torch SDPA under the dense mask
+    ms = event_ms(lambda: hk.teacher_forcing_attention(q, k, v, L, B), 20)
+    fwd_lse_ms = event_ms(lambda: hk._launch_sm90(q, k, v, scale, None, *mask.kernel_args(),
+                                                  with_lse=True), 20)
+    bwd_ms = event_ms(lambda: hk.attention_backward(q, k, v, out, do, lse, scale, mask), 10)
+    plain_ms = event_ms(lambda: [hk.teacher_forcing_attention_plain(
+        q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1], L, B) for h in range(heads)], 1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library = sdpa_backend_name(qt, kt, vt, dense, scale)
+    library_ms = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dense,
+                                                                 scale=scale), 5)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=dense, scale=scale)
+    g = do.transpose(1, 2)
+    library_bwd_ms = event_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), g,
+                                                          retain_graph=True), 5)
+    del qt, kt, vt, qg, kg, vg, o, g
+    pairs = hk.teacher_forcing_pairs(L, B)
+    if pairs != int(dense.sum()):
+        fail(f"teacher forcing: {pairs} live pairs counted, the mask has {int(dense.sum())}")
+    fwd_flop = 4.0 * heads * hd * pairs
+    row_bytes = 2.0 * n * heads * hd
+    bound_ms, bound_by = bound(4 * row_bytes, fwd_flop, "bf16")  # q, k, v in, o out
+    bwd_bound_ms, bwd_bound_by = bound(7 * row_bytes + 4.0 * heads * n, 2.5 * fwd_flop, "bf16")
+    res = dict(
+        half_len=L, block_tokens=B, heads=heads, head_dim=hd, live_pairs_per_head=pairs,
+        dense_pairs_per_head=n * n, ms=ms, forward_with_lse_ms=fwd_lse_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library=f"torch SDPA {library}, dense bool mask",
+        bound_ms=bound_ms, bound_by=bound_by, tflops=fwd_flop / ms / 1e9,
+        bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd_ms, bwd_library_ms=library_bwd_ms,
+        bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by,
+        bwd_tflops=2.5 * fwd_flop / bwd_ms / 1e9,
+        max_abs_err=max(r["max_abs_err"] for r in fwd.values()),
+        rel_fro_err=max(r["rel_fro_err"] for r in fwd.values()),
+        lse_max_abs_err=max(lse_err.values()), lse_slices=lse_err,
+        bwd_max_abs_err=max(r["max_abs_err"] for r in bwd.values()),
+        bwd_rel_fro_err=max(r["rel_fro_err"] for r in bwd.values()),
+        forward_slices={name: {key: r[key] for key in ("max_abs_err", "rel_fro_err",
+                                                       "within_tol")}
+                        for name, r in fwd.items()},
+        backward={gname: {key: r[key] for key in ("max_abs_err", "rel_fro_err", "atol",
+                                                  "within_tol")}
+                  for gname, r in bwd.items()},
+        deterministic=deterministic, forward_faults_caught=fwd_faults,
+        backward_faults_caught=bwd_faults, phase_s=time.perf_counter() - t_phase)
+    phase("teacher_forcing_kernel", **res, card=card)
+    if not all(r["within_tol"] for r in list(fwd.values()) + list(bwd.values())):
+        fail(f"teacher forcing: the kernels disagree with their plain versions: {fwd} {bwd}")
+    if res["lse_max_abs_err"] > 2e-3:
+        fail(f"teacher forcing: the forward's LSE is {res['lse_max_abs_err']} off the plain one")
+    if not (all(fwd_faults.values()) and all(bwd_faults.values())):
+        fail(f"teacher forcing: a planted fault passes the check: {fwd_faults} {bwd_faults}")
+    if not deterministic:
+        fail("teacher forcing: two backward launches on the same inputs differ")
+    del q, k, v, do, out, lse, dense
+    torch.cuda.empty_cache()
+    return res
+
+
+def teacher_forcing_dit_phase(card: str, dev, read_counts, kernel_mods,
+                              latent=(60, 104)) -> dict:
+    """`dit_forward(tf_concat=True)` at t2v-1.3B full width (30 layers, dim
+    1536, random bf16 weights from seed 0, a random head) over [clean |
+    noisy] of 6 latent frames of 60x104 each (2L = 18720 tokens, blocks of 3
+    frames), t 0 for the clean half and 700 for the noisy, a seeded text
+    embedding. The forward (no grad) and the forward + backward of a
+    mean-square loss with every param trainable (each layer under
+    checkpointing, so each layer's forward runs again in the backward), each
+    in ms with syncs after a warm call of each, the peak GiB, and the
+    launches against the derivation: a forward launches `teacher_forcing` and
+    the cross-attention's K1 once a layer (with its bound pre-pass); the
+    forward + backward twice, and `teacher_forcing_bwd` and `window_bwd` once
+    a layer. Then JAX's causality test at full width: block 0's noisy flow is
+    bit-identical when block 1's clean frames change, and block 1's flow
+    moves when block 0's clean frames do. The bit-identity holds under K1's
+    running max (STATIC_MAX off): K1's static max takes one logit bound over
+    every query row (`logit_bound_maxima`), the clean rows' included, so
+    under it block 0's roundings move with the clean frames; that difference
+    (`block0_rel_change_static_max`) must stay under
+    TF_STATIC_MAX_COUPLING_LIMIT."""
+    import torch
+
+    from realtime_video_tpu_torch.config import WAN_CONFIGS
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+    from realtime_video_tpu_torch.train import random_head
+    from realtime_video_tpu_torch.training import losses
+
+    t_phase = time.perf_counter()
+    cfg = WAN_CONFIGS["t2v-1.3B"]
+    nl, frames, nfpb = cfg.num_layers, 6, 3
+    net = WanDiffusion(cfg=cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    random_head(net, 20)
+    fsl = (latent[0] // 2) * (latent[1] // 2)
+    block = fsl * nfpb
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def lat():
+        return torch.randn((1, frames, cfg.in_dim, *latent), generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    clean, noisy = lat(), lat()
+    t = torch.cat([torch.zeros((1, frames)), torch.full((1, frames), 700.0)], 1).to(dev)
+    emb = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                      device=dev).to(torch.bfloat16)
+
+    def forward(clean_frames, cross):
+        flow, _ = wan_dit.dit_forward(cfg, net.params, torch.cat([clean_frames, noisy], 1), t,
+                                      net.rope, cross, mode="train", tf_concat=True,
+                                      block_tokens=block)
+        return flow
+
+    def reset():
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return time.perf_counter()
+
+    def rel_change(a, b):
+        return ((a.float() - b.float()).norm() / a.float().norm()).item()
+
+    out = {}
+    clean2 = clean.clone()
+    clean2[:, nfpb:] = lat()[:, nfpb:]
+    clean3 = clean.clone()
+    clean3[:, :nfpb] = lat()[:, :nfpb]
+    with torch.no_grad():
+        cross = net.compute_crossattn_cache(emb)
+        forward(clean, cross)  # warm
+        t0 = reset()
+        flow = forward(clean, cross)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        out["forward_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launches_fwd, plain_fwd = read_counts()
+        static_change = rel_change(flow[:, :nfpb], forward(clean2, cross)[:, :nfpb])
+        # causality at full width, under K1's running max
+        hk_static = hk.STATIC_MAX
+        hk.STATIC_MAX = False
+        try:
+            base = forward(clean, cross)
+            flow2, flow3 = forward(clean2, cross), forward(clean3, cross)
+        finally:
+            hk.STATIC_MAX = hk_static
+    block0_same = torch.equal(base[:, :nfpb], flow2[:, :nfpb])
+    block1_moves = not torch.allclose(base[:, nfpb:].float(), flow3[:, nfpb:].float())
+    block1_change = rel_change(base[:, nfpb:], flow3[:, nfpb:])
+    finite = bool(torch.isfinite(flow).all())
+    shape = list(flow.shape)
+    del flow, base, flow2, flow3, clean2, clean3, cross
+
+    params = losses.trainable(net.params)
+
+    def step():
+        for leaf in losses.tree_leaves(params).values():
+            leaf.grad = None
+        flow = forward(clean, net.compute_crossattn_cache(emb))
+        loss = flow.float().square().mean()
+        loss.backward()
+        return loss.detach()
+
+    step()  # warm: the backward's first launches and allocations
+    t0 = reset()
+    loss = step()
+    torch.cuda.synchronize()
+    out["forward_backward_ms"] = (time.perf_counter() - t0) * 1e3
+    out["forward_backward_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches_fb, plain_fb = read_counts()
+    grad_norm = math.sqrt(sum(float(p.grad.float().square().sum())
+                              for p in losses.tree_leaves(params).values() if p.grad is not None))
+    want_fwd = {"teacher_forcing": nl, "window": nl, "logit_bound": nl, "teacher_forcing_bwd": 0}
+    want_fb = {"teacher_forcing": 2 * nl, "window": 2 * nl, "logit_bound": 2 * nl,
+               "teacher_forcing_bwd": nl, "window_bwd": nl}
+    out.update(model="t2v-1.3B", layers=nl, dim=cfg.dim, latents=[2 * frames, *latent],
+               tokens=2 * frames * fsl, block_tokens=block, flow_shape=shape, finite=finite,
+               loss=float(loss), grad_norm=grad_norm, launches_forward=launches_fwd,
+               expected_forward=want_fwd, launches_forward_backward=launches_fb,
+               expected_forward_backward=want_fb,
+               plain_on_cuda={**plain_fwd, **plain_fb},
+               block0_noisy_flow_bit_identical=block0_same,
+               block0_rel_change_static_max=static_change,
+               later_blocks_move=block1_moves, later_blocks_rel_change=block1_change,
+               phase_s=time.perf_counter() - t_phase)
+    phase("teacher_forcing_1p3b", **out, card=card)
+    if not (finite and shape == [1, frames, cfg.out_dim, *latent]
+            and math.isfinite(grad_norm) and grad_norm > 0):
+        fail(f"teacher_forcing_1p3b: flow {shape}, finite {finite}, grad norm {grad_norm}")
+    if any(launches_fwd[k] != v for k, v in want_fwd.items()) or \
+            any(launches_fb[k] != v for k, v in want_fb.items()):
+        fail(f"teacher_forcing_1p3b: launches {launches_fwd} / {launches_fb}, expected "
+             f"{want_fwd} / {want_fb}")
+    if any(plain_fwd.values()) or any(plain_fb.values()):
+        fail(f"teacher_forcing_1p3b: a plain version saw a CUDA tensor: {plain_fwd} {plain_fb}")
+    if not (block0_same and block1_moves):
+        fail(f"teacher_forcing_1p3b: causality: block 0 unchanged {block0_same}, later blocks "
+             f"move {block1_moves}")
+    if not static_change <= TF_STATIC_MAX_COUPLING_LIMIT:
+        fail(f"teacher_forcing_1p3b: under the static max block 0's flow moves {static_change} "
+             f"with block 1's clean frames, above {TF_STATIC_MAX_COUPLING_LIMIT}")
+    del net, params, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_reference_state_dict(params, cfg) -> dict:
+    """The port's umT5 tree as a reference-layout state dict on the CPU
+    (wan/modules/t5.py's names): the inverse of utils/checkpoint.convert_t5_encoder."""
+    sd = {}
+
+    def put(name, t):
+        sd[name] = t.detach().cpu().contiguous()
+
+    put("token_embedding.weight", params["token_embedding"])
+    put("norm.weight", params["norm"]["scale"])
+    bp = params["blocks"]
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        put(f"{b}.norm1.weight", bp["norm1"]["scale"][i])
+        for n in ("q", "k", "v", "o"):
+            put(f"{b}.attn.{n}.weight", bp["attn"][n]["w"][i].t())
+        put(f"{b}.norm2.weight", bp["norm2"]["scale"][i])
+        for ref, key in (("gate.0", "gate"), ("fc1", "fc1"), ("fc2", "fc2")):
+            put(f"{b}.ffn.{ref}.weight", bp["ffn"][key]["w"][i].t())
+        put(f"{b}.pos_embedding.embedding.weight", bp["rel_emb"][i])
+    return sd
+
+
+def vae_reference_state_dict(params, cfg) -> dict:
+    """The port's Wan 2.1 VAE tree as a reference-layout state dict on the
+    CPU (wan/modules/vae.py's names): the inverse of utils/checkpoint.convert_vae."""
+    from realtime_video_tpu_torch.models.vae import _decoder_plan, _encoder_plan
+
+    sd = {}
+
+    def put(name, t):
+        sd[name] = t.detach().cpu().contiguous()
+
+    def conv(name, p, perm):
+        put(f"{name}.weight", p["w"].permute(*perm))
+        put(f"{name}.bias", p["b"])
+
+    def conv3(name, p):  # [kt, kh, kw, in, out] -> [out, in, kt, kh, kw]
+        conv(name, p, (4, 3, 0, 1, 2))
+
+    def gamma(name, p):
+        put(name, p["gamma"].reshape(-1, 1, 1))
+
+    def res(base, p):
+        gamma(f"{base}.residual.0.gamma", p["norm1"])
+        conv3(f"{base}.residual.2", p["conv1"])
+        gamma(f"{base}.residual.3.gamma", p["norm2"])
+        conv3(f"{base}.residual.6", p["conv2"])
+        if "shortcut" in p:
+            conv3(f"{base}.shortcut", p["shortcut"])
+
+    def attn(base, p):
+        gamma(f"{base}.norm.gamma", p["norm"])
+        for n in ("to_qkv", "proj"):  # dense [in, out] -> 1x1 Conv2d [out, in, 1, 1]
+            put(f"{base}.{n}.weight", p[n]["w"].t()[:, :, None, None])
+            put(f"{base}.{n}.bias", p[n]["b"])
+
+    def stage(prefix, plan, ps):
+        for i, (spec, p) in enumerate(zip(plan, ps)):
+            if spec[0] == "res":
+                res(f"{prefix}.{i}", p)
+                continue
+            if "conv" in p:  # [kh, kw, in, out] -> [out, in, kh, kw]
+                conv(f"{prefix}.{i}.resample.1", p["conv"], (3, 2, 0, 1))
+            if "time_conv" in p:
+                conv3(f"{prefix}.{i}.time_conv", p["time_conv"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    conv3("encoder.conv1", enc["conv1"])
+    stage("encoder.downsamples", _encoder_plan(cfg)[1], enc["downsamples"])
+    res("encoder.middle.0", enc["middle_res1"])
+    attn("encoder.middle.1", enc["middle_attn"])
+    res("encoder.middle.2", enc["middle_res2"])
+    gamma("encoder.head.0.gamma", enc["head_norm"])
+    conv3("encoder.head.2", enc["head_conv"])
+    conv3("decoder.conv1", dec["conv1"])
+    res("decoder.middle.0", dec["middle_res1"])
+    attn("decoder.middle.1", dec["middle_attn"])
+    res("decoder.middle.2", dec["middle_res2"])
+    stage("decoder.upsamples", _decoder_plan(cfg)[1], dec["upsamples"])
+    gamma("decoder.head.0.gamma", dec["head_norm"])
+    conv3("decoder.head.2", dec["head_conv"])
+    conv3("conv1", params["conv1"])
+    conv3("conv2", params["conv2"])
+    return sd
+
+
+def same_state_dict(got: dict, want: dict) -> dict:
+    """Whether two state dicts hold the same names, dtypes, shapes and bits."""
+    import torch
+
+    names = set(got) == set(want)
+    differing = [k for k in want if k in got and not (
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and torch.equal(got[k], want[k]))]
+    return {"tensors": len(want), "names_equal": names, "differing": differing[:5],
+            "bit_exact": names and not differing}
+
+
+def real_checkpoint_phase(card: str, dev) -> dict:
+    """The real-checkpoint path at full size, in a temporary MODEL_FOLDER
+    removed at exit. `scripts/synthesize_checkpoint --t5 full` writes the
+    1.3B DiT (safetensors), the Wan 2.1 VAE (.pth) and umT5-xxl (safetensors)
+    in the reference's layout, timed (a subprocess), and the sweep's two
+    DiTs, written here: the synthesiser's DiT drawn from seeds 0 and 1, each
+    with a random head (the reference's zero head makes every flow zero, so
+    that any two checkpoints would sample one video, and the run of
+    `run_real_checkpoint` on the zero-head DiT shows the umT5 / VAE side and
+    the script's plumbing but not the DiT's load: the sweep shows that). Each file is loaded and converted on the card and
+    inverted back: the state dict must come back bit for bit (the DiT
+    through `reference_state_dict`, umT5 and the VAE through their inverses
+    here). Then `scripts/run_real_checkpoint` in a subprocess (MODEL_FOLDER
+    set, the fallback tokenizer, the bf16 tier, 832x480, 3 blocks, 4 steps):
+    30 finite frames, its checksum, each file's load-and-convert seconds
+    and the load's peak. Then `sweep_sample` over the two sweep DiTs (1
+    prompt, 1 block, the static text embedding): the two outputs must
+    differ, and the first must equal a direct `sample_videos` of a server
+    loaded from the same file."""
+    import numpy as np
+    import torch
+
+    from safetensors.torch import save_file
+
+    from realtime_video_tpu_torch import sweep_sample
+    from realtime_video_tpu_torch.config import (T5_CONFIGS, VAE_CONFIGS, WAN_CONFIGS,
+                                                 load_server_config)
+    from realtime_video_tpu_torch.sample import sample_videos
+    from realtime_video_tpu_torch.scripts import synthesize_checkpoint as synth
+    from realtime_video_tpu_torch.serving.models import load_all
+    from realtime_video_tpu_torch.serving.params import GenerateParams
+    from realtime_video_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    folder = tempfile.mkdtemp(prefix="rtv_models_")
+    atexit.register(shutil.rmtree, folder, ignore_errors=True)
+    free_gib = shutil.disk_usage(folder).free / 2 ** 30
+    if free_gib < 30:
+        fail(f"real_checkpoint: {free_gib:.1f} GiB free under {folder}, 30 needed")
+    env = {k: v for k, v in os.environ.items() if k != "USE_STATIC_ENCODER_COND_DICT"}
+    env.update(MODEL_FOLDER=folder, RTV_QUANT_CACHE="0",
+               PYTHONPATH=os.pathsep.join([str(repo), env.get("PYTHONPATH", "")]))
+
+    def run(args, timeout):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=repo, env=env,
+                              capture_output=True, text=True, timeout=timeout)
+        if proc.returncode:
+            fail(f"real_checkpoint: {args[0]} exited {proc.returncode}: "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    sweep_dir = os.path.join(folder, "sweep")
+    _, synth_s = run(["realtime_video_tpu_torch.scripts.synthesize_checkpoint", "--out", folder,
+                      "--t5", "full"], 600)
+    t0 = time.perf_counter()
+    os.makedirs(sweep_dir)
+    ckpts = []
+    for seed in (0, 1):  # the synthesiser's DiT from `seed`, its head N(0, 0.05) from 20 + seed
+        synth.GEN.manual_seed(seed)
+        sd = synth.synth_dit(WAN_CONFIGS["t2v-1.3B"])
+        w = sd["head.head.weight"]
+        head_gen = torch.Generator().manual_seed(20 + seed)
+        sd["head.head.weight"] = (torch.randn(w.shape, generator=head_gen) * 0.05).to(w.dtype)
+        ckpts.append(os.path.join(sweep_dir, f"dit_seed{seed}.safetensors"))
+        save_file(sd, ckpts[-1])
+        del sd, w
+    sweep_synth_s = time.perf_counter() - t0
+    base = os.path.join(folder, "Wan2.1-T2V-1.3B")
+    files = {"dit": os.path.join(folder, synth.DIT_NAME),
+             "vae": os.path.join(base, "Wan2.1_VAE.pth"),
+             "umt5": os.path.join(base, "models_t5_umt5-xxl-enc-bf16.safetensors")}
+    file_gib = {k: os.path.getsize(p) / 2 ** 30 for k, p in files.items()}
+
+    # full-size round trips: load, convert on the card, invert, compare bits
+    round_trip = {}
+    for name, path in files.items():
+        t0 = time.perf_counter()
+        sd = ckpt.load_torch_state_dict(path)
+        t1 = time.perf_counter()
+        if name == "dit":
+            cfg = ckpt.detect_wan_config(sd)
+            tree = ckpt.convert_wan_dit(sd, cfg, device=dev)
+            back = reference_state_dict(tree, cfg)
+        elif name == "umt5":
+            cfg = T5_CONFIGS["umt5-xxl"]
+            tree = ckpt.convert_t5_encoder(sd, cfg, device=dev)
+            back = t5_reference_state_dict(tree, cfg)
+        else:
+            cfg = VAE_CONFIGS["wan2.1"]
+            tree = ckpt.convert_vae(sd, cfg, device=dev)
+            back = vae_reference_state_dict(tree, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        round_trip[name] = {**same_state_dict(back, sd), "read_s": t1 - t0,
+                            "convert_and_invert_s": t2 - t1}
+        del sd, tree, back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out_path = os.path.join(folder, "out", "real_checkpoint.mp4")
+    stdout, run_s = run(["realtime_video_tpu_torch.scripts.run_real_checkpoint", "--blocks", "3",
+                         "--steps", "4", "--width", "832", "--height", "480", "--out", out_path],
+                        900)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith('{"real_checkpoint"')]
+    if not lines:
+        fail(f"real_checkpoint: run_real_checkpoint printed no result: {stdout[-3000:]}")
+    rec = json.loads(lines[-1])["real_checkpoint"]
+
+    # the sweep over two checkpoints, and a direct sampler on the first
+    yaml_1p3b = str(repo / "realtime_video_tpu_torch" / "configs" / "self_forcing_server.yaml")
+    prev = os.environ.get("USE_STATIC_ENCODER_COND_DICT")
+    os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
+    try:
+        t0 = time.perf_counter()
+        swept = sweep_sample.main([*ckpts, "--config", yaml_1p3b, "--out",
+                                   os.path.join(folder, "sweep_out"), "--first-n", "1",
+                                   "--num-blocks", "1", "--steps", "4", "--device", str(dev)])
+        sweep_s = time.perf_counter() - t0
+        first, second = (swept[os.path.splitext(os.path.basename(p))[0]][0] for p in ckpts)
+        config = load_server_config(yaml_1p3b, checkpoint_path=ckpts[0])
+        models = load_all(config, dev, seed=config.get("seed", 0))
+        direct = sample_videos([sweep_sample.SWEEP_PROMPTS[0]], yaml_1p3b,
+                               os.path.join(folder, "direct_out"),
+                               GenerateParams(prompt="", seed=42, num_blocks=1,
+                                              num_denoising_steps=4),
+                               models, save_videos=False)[0]
+    finally:
+        if prev is None:
+            os.environ.pop("USE_STATIC_ENCODER_COND_DICT", None)
+        else:
+            os.environ["USE_STATIC_ENCODER_COND_DICT"] = prev
+    sweep = {"frames": list(first.shape), "checkpoints_differ": not np.array_equal(first, second),
+             "first_equals_direct_sample": bool(np.array_equal(first, direct)),
+             "seconds": sweep_s}
+    del models, swept, first, second, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(model="t2v-1.3B", tier="bf16", t5="umt5-xxl (full)", file_gib=file_gib,
+               synthesis_s=synth_s, synthesis_sweep_dits_s=sweep_synth_s,
+               round_trip=round_trip, run_real_checkpoint=rec, run_s=run_s, sweep=sweep,
+               free_gib_before=free_gib, phase_s=time.perf_counter() - t_phase)
+    phase("real_checkpoint", **res, card=card)
+    if not all(r["bit_exact"] for r in round_trip.values()):
+        fail(f"real_checkpoint: a full-size converter round trip is not bit-exact: {round_trip}")
+    if rec["frames"] != [30, 3, 480, 832] or not rec["finite"] or \
+            set(rec["load_convert_s"]) != {os.path.basename(p) for p in files.values()}:
+        fail(f"real_checkpoint: run_real_checkpoint gave {rec}")
+    if not (sweep["checkpoints_differ"] and sweep["first_equals_direct_sample"]):
+        fail(f"real_checkpoint: sweep {sweep}")
+    return res
+
+
 def _json_or_none(line: str):
     try:
         return json.loads(line)
@@ -1580,9 +2186,11 @@ def main() -> None:
     if sass[libs[hk.BWD_SOURCE].name]["HMMA"]:
         fail(f"{hk.BWD_SOURCE.name}: mma.sync (HMMA) in its SASS: "
              f"{sass[libs[hk.BWD_SOURCE].name]}")
-    # the backward's three kernels, each with 0 spill bytes (a build that was
+    # the backward's five kernels (the pre-pass, and the dQ and dK/dV passes
+    # in their window / block-causal and teacher-forcing instantiations),
+    # each with 0 spill bytes (a build that was
     # reused has no report: then nothing is read)
-    if bwd_ptxas is not None and (len(bwd_ptxas) != 3 or any(
+    if bwd_ptxas is not None and (len(bwd_ptxas) != 5 or any(
             use.get("spill_store_bytes", 1) or use.get("spill_load_bytes", 1)
             for use in bwd_ptxas.values())):
         fail(f"{hk.BWD_SOURCE.name}: ptxas reports spills or a missing kernel: {bwd_ptxas}")
@@ -2602,6 +3210,9 @@ def main() -> None:
     training = training_phase(card, dev, read_counts, kernel_mods)
     gan = gan_phases(card, dev, read_counts, kernel_mods)
     ode = ode_pairs_phase(card, dev, read_counts, kernel_mods)
+    # teacher forcing: mode 2 of the two attention kernels, then the DiT
+    tf_kernel = teacher_forcing_kernel_phase(card, dev)
+    tf_dit = teacher_forcing_dit_phase(card, dev, read_counts, kernel_mods)
 
     # CLIP ViT-H/14 at full width and depth (32 blocks, dim 1280, 16 heads;
     # i2v uses 31), random f32 weights from a seed: one 832x480 image on the
@@ -3608,6 +4219,7 @@ def main() -> None:
 
     i2v14 = i2v_14b()
     server_warmup_phase(card, request)
+    real_checkpoint_phase(card, dev)
 
     def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3803,6 +4415,23 @@ def main() -> None:
                   for r in gan["steps"]},
                "launches_ode_regression_update": {
                    b: ode["update_launches"][b] for b in ("window_bwd", "block_causal_bwd")}}),
+        entry("teacher_forcing_attention (mode 2 of the same two kernels: a query tile walks "
+              "two key ranges, [clean | noisy]; forward and backward)", sm90_src,
+              "none: realtime_video_tpu/ops/attention.py:147 teacher_forcing_mask (dense XLA, "
+              "no Pallas kernel)", tf_dit["launches_forward_backward"]["teacher_forcing"],
+              tf_kernel, max(tf_kernel["max_abs_err"], tf_kernel["bwd_max_abs_err"]),
+              {"case": "2L = 18720 in blocks of 4680, 12 heads (train.py's shape); ms the "
+                       "forward route (one launch); launches those of one DiT forward + "
+                       "backward at t2v-1.3B (checkpointing reruns each layer's forward)",
+               "source_backward": "realtime_video_tpu_torch/csrc/attention_bwd_sm90.cu",
+               "library": tf_kernel["library"],
+               "launches_backward": tf_dit["launches_forward_backward"]["teacher_forcing_bwd"],
+               "launches_forward_only": tf_dit["launches_forward"]["teacher_forcing"],
+               **{k: tf_kernel[k] for k in ("forward_with_lse_ms", "bwd_ms", "bwd_plain_ms",
+                                            "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by",
+                                            "bwd_max_abs_err", "rel_fro_err", "bwd_rel_fro_err",
+                                            "lse_max_abs_err", "live_pairs_per_head")},
+               "deterministic": tf_kernel["deterministic"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

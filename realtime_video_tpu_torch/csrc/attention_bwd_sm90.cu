@@ -24,9 +24,14 @@
 // Masks as the forward's: the window [lo, hi) over the keys (unmasked is lo
 // = 0, hi = Lk), or block-causal: key < min(ends[q], kv_len), ends[q] = (q /
 // block_tokens + 1) * block_tokens, optionally key >= ends[q] - local_window,
-// and the diagonal. A masked (query, key) pair has P = 0; a row with no live
-// key (never on the training path) gets zero gradients, and so does a key
-// that no query sees.
+// and the diagonal; or teacher forcing (mode 2, csrc/attention_mask.cuh; each
+// pass's TF instantiation, so the other modes' code is unchanged): the dQ pass
+// walks the forward's two key ranges, the dK/dV pass their transpose (a clean
+// key of block b: the clean queries [bB, L) and the noisy queries
+// [L + (b + 1)B, 2L); a noisy key: its own noisy block), each key row's two
+// query ranges masking the edge tiles. A masked (query, key) pair has P = 0;
+// a row with no live key (never on the training path) gets zero gradients,
+// and so does a key that no query sees.
 //
 // Three launches on the caller's stream, no atomics, deterministic:
 //   1. attn_bwd_prepass: Qc = bf16(q * c), and per (batch, head) two f32 rows
@@ -77,15 +82,19 @@
 //
 // What bounds it on an H100: 5 products of 2 * Lq * Lk_live * 128 FLOP per
 // head are the work of the gradient (7 here, with the dQ pass), e.g. 0.680 ms
-// at the decode window 4680 x 9360 with 12 heads against ~0.1 ms of bytes:
+// at the decode window 4680 x 9360 with 12 heads against ~0.1 ms of bytes,
+// and 2.04 ms for teacher forcing's 131.4 M live pairs a head at 2L = 18720:
 // compute bound on the bf16 tensor cores (989 TFLOP/s dense), which only
 // wgmma reaches.
 
 #include <cuda_bf16.h>
 
+#include "attention_mask.cuh"
 #include "sm90.cuh"
 
 namespace {
+
+using rtv_mask::MODE_TEACHER_FORCING;
 
 constexpr int D = 128;
 constexpr int BM = 128;  // owned rows per block: two consumer warpgroups of 64
@@ -99,7 +108,7 @@ constexpr int OWN_TILE = 2 * OWN_HALF;
 constexpr int WALK_TILE = 2 * WALK_HALF;
 constexpr int NS = 4;                       // ring stages
 constexpr int STATS = 2 * BN * 4;           // a query tile's lse * log2 e and D (f32)
-constexpr int MODE_WINDOW = 0;              // mode 1: block-causal
+constexpr int MODE_WINDOW = 0;              // mode 1: block-causal, 2: teacher forcing
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -147,6 +156,7 @@ struct Params {
   int N, Lqp;
   float c;  // the forward's bf16(scale * log2 e)
   Mask m;
+  int fault;  // teacher forcing's planted faults (attention_mask.cuh)
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -267,6 +277,7 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, 
 }
 
 // dQ of 128 query rows: the key tiles of the forward's live range
+template <bool TF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -279,7 +290,12 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
   const int q_base = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
 
   int kv_begin, kv_end;
-  if (m.mode == MODE_WINDOW) {
+  rtv_mask::Tiles tiles = {};
+  if constexpr (TF) {
+    tiles = rtv_mask::tf_key_tiles(q_base, min(q_base + BM, m.Lq) - 1, m.kv_len, m.block_tokens,
+                                   p.fault, BN);
+    kv_begin = kv_end = 0;
+  } else if (m.mode == MODE_WINDOW) {
     kv_begin = m.lo;
     kv_end = m.hi;
   } else {
@@ -292,7 +308,12 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
   }
   kv_end = min(kv_end, m.Lk);
   kv_begin = (max(kv_begin, 0) / BN) * BN;
-  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+  const int n_tiles = TF ? tiles.n : kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+  // the first key row of tile `it`
+  auto tile_row = [&](int it) {
+    if constexpr (TF) return tiles.row(it, BN);
+    return kv_begin + it * BN;
+  };
 
   init_barriers(bars);
   const int wg = threadIdx.x / 128;
@@ -306,7 +327,7 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
       load_rows(smem, &tm_qc, &bars.own_full, OWN_HALF, h, q_base, b);
       load_rows(smem + OWN_TILE, &tm_do, &bars.own_full, OWN_HALF, h, q_base, b);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % NS, kv0 = kv_begin + it * BN;
+        const int s = it % NS, kv0 = tile_row(it);
         uint8_t* stage = smem + OFF_RING + s * 2 * WALK_TILE;
         sm90::mbar_wait(&bars.empty[s], ((it / NS) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&bars.full[s], 2 * WALK_TILE);
@@ -323,13 +344,22 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
   const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
 
   // live keys of row r: [lim_lo, lim_hi), plus the diagonal in block-causal
-  // mode, never past Lk; lse * log2 e and D of the row
+  // mode, never past Lk; teacher forcing: [0, lim_hi) and [lim2_lo,
+  // lim2_hi); lse * log2 e and D of the row
   int lim_lo[2], lim_hi[2], diag[2];
+  int lim2_lo[2] = {0, 0}, lim2_hi[2] = {0, 0};
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    if (m.mode == MODE_WINDOW) {
+    if constexpr (TF) {
+      const rtv_mask::TfRow tr = rtv_mask::tf_row(row, m.kv_len, m.block_tokens, p.fault);
+      lim_lo[r] = 0;
+      lim_hi[r] = tr.a_hi;
+      diag[r] = -1;
+      lim2_lo[r] = tr.b_lo;
+      lim2_hi[r] = row < m.Lq ? tr.b_hi : tr.b_lo;
+    } else if (m.mode == MODE_WINDOW) {
       lim_lo[r] = m.lo;
       lim_hi[r] = m.hi;
       diag[r] = -1;
@@ -377,15 +407,22 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
   // only
   auto probabilities = [&](int it) {
     sm90::fence_regs(s);
-    const int kv0 = kv_begin + it * BN;
-    if (m.full(q0, 64, kv0, BN)) {
+    const int kv0 = tile_row(it);
+    bool full;
+    if constexpr (TF)
+      full = q0 + 64 <= m.Lq &&
+             rtv_mask::tf_full(q0, 64, kv0, BN, m.kv_len, m.block_tokens, p.fault);
+    else
+      full = m.full(q0, 64, kv0, BN);
+    if (full) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = ex2(s[i] - lse2[(i >> 1) & 1]);
     } else {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i >> 1) & 1, col = kv0 + (i >> 2) * 8 + tig * 2 + (i & 1);
-        const bool live = (col >= lim_lo[r] && col < lim_hi[r]) || (col == diag[r] && col < m.Lk);
+        bool live = (col >= lim_lo[r] && col < lim_hi[r]) || (col == diag[r] && col < m.Lk);
+        if constexpr (TF) live = live || (col >= lim2_lo[r] && col < lim2_hi[r]);
         s[i] = live ? ex2(s[i] - lse2[r]) : 0.0f;
       }
     }
@@ -433,6 +470,7 @@ attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_qc, const __grid_constan
 
 // dK and dV of 128 key rows: the query tiles that can see them, each with
 // its stats box
+template <bool TF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_qc,
@@ -447,7 +485,11 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   const int k_end = min(k_base + BM, m.Lk);
 
   int q_begin, q_end;
-  if (m.mode == MODE_WINDOW) {
+  rtv_mask::Tiles tiles = {};
+  if constexpr (TF) {
+    tiles = rtv_mask::tf_query_tiles(k_base, k_end - 1, m.kv_len, m.block_tokens, p.fault, BN);
+    q_begin = q_end = 0;
+  } else if (m.mode == MODE_WINDOW) {
     q_begin = 0;
     q_end = (k_base < m.hi && k_end > m.lo) ? m.Lq : 0;
   } else {
@@ -459,7 +501,12 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
                   max(((k_end - 1 + m.local_window) / m.block_tokens) * m.block_tokens, k_end));
   }
   q_begin = (q_begin / BN) * BN;
-  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0;
+  const int n_tiles = TF ? tiles.n : q_end > q_begin ? (q_end - q_begin + BN - 1) / BN : 0;
+  // the first query row of tile `it`
+  auto tile_row = [&](int it) {
+    if constexpr (TF) return tiles.row(it, BN);
+    return q_begin + it * BN;
+  };
 
   init_barriers(bars);
   const int wg = threadIdx.x / 128;
@@ -474,7 +521,7 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
       load_rows(smem, &tm_k, &bars.own_full, OWN_HALF, h, k_base, b);
       load_rows(smem + OWN_TILE, &tm_v, &bars.own_full, OWN_HALF, h, k_base, b);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % NS, q0 = q_begin + it * BN;
+        const int s = it % NS, q0 = tile_row(it);
         uint8_t* stage = smem + OFF_RING + s * 2 * WALK_TILE;
         sm90::mbar_wait(&bars.empty[s], ((it / NS) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&bars.full[s], 2 * WALK_TILE + STATS);
@@ -492,6 +539,21 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
   const int k0 = k_base + wg * 64;
   const int r0 = k0 + warp * 16 + g;  // this thread's key rows r0 and r0 + 8
 
+  // teacher forcing: the queries that see key row r, [qc_lo, qc_hi) and
+  // [qn_lo, qn_hi) (none past Lk)
+  int qc_lo[2] = {0, 0}, qc_hi[2] = {0, 0}, qn_lo[2] = {0, 0}, qn_hi[2] = {0, 0};
+  if constexpr (TF) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r0 + 8 * r >= m.Lk) continue;
+      const rtv_mask::TfCol c = rtv_mask::tf_col(r0 + 8 * r, m.kv_len, m.block_tokens, p.fault);
+      qc_lo[r] = c.c_lo;
+      qc_hi[r] = c.c_hi;
+      qn_lo[r] = c.n_lo;
+      qn_hi[r] = c.n_hi;
+    }
+  }
+
   float dk[64], dv[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.0f;
@@ -500,7 +562,7 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
 
   if (n_tiles > 0) sm90::mbar_wait(&bars.own_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % NS, q0 = q_begin + it * BN;
+    const int s = it % NS, q0 = tile_row(it);
     sm90::mbar_wait(&bars.full[s], (it / NS) & 1);
     const uint8_t* qs = smem + OFF_RING + s * 2 * WALK_TILE;
     const uint8_t* os = qs + WALK_TILE;
@@ -516,14 +578,25 @@ attn_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_k, const __grid_consta
     // P^T while dP^T is in flight
     sm90::wgmma_wait<1>();
     sm90::fence_regs(st);
-    const bool full = m.full(q0, BN, k0, 64);
+    bool full;
+    if constexpr (TF)
+      full = q0 + BN <= m.Lq && k0 + 64 <= m.Lk &&
+             rtv_mask::tf_full(q0, BN, k0, 64, m.kv_len, m.block_tokens, p.fault);
+    else
+      full = m.full(q0, BN, k0, 64);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(lse2 + j * 8 + tig * 2);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e;
-        const bool live = full || m.live(q0 + j * 8 + tig * 2 + (e & 1), r0 + 8 * (e >> 1));
+        bool live;
+        if constexpr (TF) {
+          const int q = q0 + j * 8 + tig * 2 + (e & 1), r = e >> 1;
+          live = full || (q >= qc_lo[r] && q < qc_hi[r]) || (q >= qn_lo[r] && q < qn_hi[r]);
+        } else {
+          live = full || m.live(q0 + j * 8 + tig * 2 + (e & 1), r0 + 8 * (e >> 1));
+        }
         st[i] = live ? ex2(st[i] - ((e & 1) ? l2.y : l2.x)) : 0.0f;
       }
     }
@@ -581,7 +654,8 @@ int rows_map(CUtensorMap* map, const void* ptr, int B, int L, int N, int rows) {
 // it); c = bf16(scale * log2 e), the factor the forward took; stats [B, N, 2,
 // Lqp] f32 scratch with Lqp = Lq rounded up to a multiple of 4, and qc [B,
 // Lq, N, 128] bf16 scratch. mode 0 = window [lo, hi), mode 1 = block-causal
-// (block_tokens, kv_len, local_window <= 0 for none). With need_kv = 0 only
+// (block_tokens, kv_len, local_window <= 0 for none), mode 2 = teacher forcing
+// (kv_len = L, Lq = Lk = 2L, L a multiple of block_tokens). With need_kv = 0 only
 // dq is written. fault plants a fault for the checks (0 in every real call).
 extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* stats, void* qc,
@@ -590,6 +664,9 @@ extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* 
                                       int block_tokens, int kv_len, int local_window,
                                       int need_kv, int fault, void* stream) {
   if (D_ != D || B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || block_tokens <= 0 || c <= 0.0f)
+    return (int)cudaErrorInvalidValue;
+  const bool tf = mode == MODE_TEACHER_FORCING;
+  if (tf && (Lq != Lk || Lk != 2 * kv_len || kv_len % block_tokens != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int Lqp = (Lq + 3) / 4 * 4;
@@ -612,11 +689,12 @@ extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* 
   if (err != 0) return err;
   Params prm = {reinterpret_cast<__nv_bfloat16*>(dq), nullptr,
                 reinterpret_cast<const float*>(stats), N, Lqp, c,
-                {mode, lo, hi, block_tokens, kv_len, local_window, Lq, Lk}};
-  e = cudaFuncSetAttribute(attn_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+                {mode, lo, hi, block_tokens, kv_len, local_window, Lq, Lk}, fault};
+  const auto dq_pass = tf ? attn_bwd_dq_sm90<true> : attn_bwd_dq_sm90<false>;
+  e = cudaFuncSetAttribute(dq_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_sm90<<<dim3((Lq + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(
-      tm_qc_own, tm_do_own, tm_k_walk, tm_v_walk, prm);
+  dq_pass<<<dim3((Lq + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(tm_qc_own, tm_do_own, tm_k_walk,
+                                                                 tm_v_walk, prm);
   e = cudaGetLastError();
   if (e != cudaSuccess || !need_kv) return (int)e;
 
@@ -635,9 +713,10 @@ extern "C" int rtv_attention_bwd_sm90(const void* q, const void* k, const void* 
   if (err != 0) return err;
   prm.out_a = reinterpret_cast<__nv_bfloat16*>(dk);
   prm.out_b = reinterpret_cast<__nv_bfloat16*>(dv);
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  const auto dkdv_pass = tf ? attn_bwd_dkdv_sm90<true> : attn_bwd_dkdv_sm90<false>;
+  e = cudaFuncSetAttribute(dkdv_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dkdv_sm90<<<dim3((Lk + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(
-      tm_k_own, tm_v_own, tm_qc_walk, tm_do_walk, tm_stats, prm);
+  dkdv_pass<<<dim3((Lk + BM - 1) / BM, N, B), NTHREADS, SMEM, s>>>(tm_k_own, tm_v_own, tm_qc_walk,
+                                                                   tm_do_walk, tm_stats, prm);
   return (int)cudaGetLastError();
 }

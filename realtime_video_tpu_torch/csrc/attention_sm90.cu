@@ -9,6 +9,13 @@
 //   * _flash_kernel (K2), bf16: online-softmax attention in `window` mode and
 //     in `block_causal` mode (kv < min(ends[q], kv_len), optional local
 //     window, plus the diagonal);
+//   * and, with no TPU kernel behind it, teacher forcing (mode 2, the
+//     template's TF form): the [clean | noisy] mask of
+//     ops/attention.py::teacher_forcing_mask, which the JAX package runs
+//     through dense XLA. A query tile walks the union of two key ranges
+//     (csrc/attention_mask.cuh) with K2's running max and never touches the
+//     keys between them; each row's two ranges mask the edge tiles. A
+//     separate instantiation, so the other modes' code is unchanged;
 //   * _flash_kernel's int8_qk branch (K2-int8, RTV_ATTN_INT8): QK^T on s8
 //     quanta of q and of k minus its per-segment mean, the s32 sums scaled to
 //     f32 by sq * sk; the softmax (running max) and PV as K2;
@@ -80,13 +87,18 @@
 // compute bound on the bf16 tensor cores (989 TFLOP/s dense, 0.227 ms); the
 // int8 mode does its QK^T half at the int8 rate (1979 TOP/s) and its PV half
 // in bf16, so at the 14B shape (40 heads) its bound is 0.567 ms against the
-// bf16 route's 0.76.
+// bf16 route's 0.76. Teacher forcing at train.py's shape (2L = 18720, blocks
+// of 4680, 12 heads) has 131.4 M live pairs a head of the 350.4 M a dense
+// mask visits: 8.1e11 FLOP, 0.816 ms, compute bound.
 
 #include <cuda_bf16.h>
 
+#include "attention_mask.cuh"
 #include "sm90.cuh"
 
 namespace {
+
+using rtv_mask::MODE_TEACHER_FORCING;
 
 constexpr int D = 128;
 constexpr int BM = 128;  // query rows per thread block: two consumer warpgroups of 64
@@ -100,7 +112,7 @@ constexpr int NV = 2;                            // V ring stages
 constexpr int MAX_NK = 4;
 constexpr float NEG_INF = -1e30f;
 constexpr float STATIC_MAX_LIMIT = 64.0f;  // exp2(s - M) is safe while M < 64
-constexpr int MODE_WINDOW = 0;             // mode 1: block-causal
+constexpr int MODE_WINDOW = 0;             // mode 1: block-causal, 2: teacher forcing
 
 // planted faults for the checks that must catch them
 constexpr int FAULT_K_SCALE_SHIFT = 2;     // int8: the last segment's columns take the
@@ -158,7 +170,7 @@ struct Int8Args {
   int ks_stride, seg;
 };
 
-template <bool INT8>
+template <bool INT8, bool TF>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -178,9 +190,15 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.z;
   const int q_base = blockIdx.x * BM;
 
-  // ---- the KV range this block can see (tile-aligned start) ----
+  // ---- the KV range this block can see (tile-aligned start); teacher
+  // forcing: two ranges (kv_len = L, the length of each half) ----
   int kv_begin, kv_end;
-  if (mode == MODE_WINDOW) {
+  rtv_mask::Tiles tiles = {};
+  if constexpr (TF) {
+    tiles = rtv_mask::tf_key_tiles(q_base, min(q_base + BM, Lq) - 1, kv_len, block_tokens,
+                                   fault, BN);
+    kv_begin = kv_end = 0;
+  } else if (mode == MODE_WINDOW) {
     kv_begin = lo;
     kv_end = hi;
   } else {
@@ -195,7 +213,12 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
   kv_end = min(kv_end, Lk);
   kv_begin = (max(kv_begin, 0) / BN) * BN;
-  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+  const int n_tiles = TF ? tiles.n : kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+  // the first KV row of tile `it`
+  auto tile_row = [&](int it) {
+    if constexpr (TF) return tiles.row(it, BN);
+    return kv_begin + it * BN;
+  };
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(&bars.q_full, 1);
@@ -225,7 +248,7 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
         sm90::tma_load_4d(smem + BM * ROW_BYTES, &tm_q, &bars.q_full, 64, h, q_base, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % NK;
-        int kv0 = kv_begin + it * BN;
+        int kv0 = tile_row(it);
         if (fault == FAULT_STALE_RING_STAGE && s == NK - 1 && it > 0) kv0 -= BN;
         uint8_t* ks = smem + L::OFF_K + s * L::K_TILE;
         sm90::mbar_wait(&bars.k_empty[s], ((it / NK) & 1) ^ 1);
@@ -242,7 +265,7 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
       sm90::prefetch_tensormap(&tm_v);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % NV;
-        int kv0 = kv_begin + it * BN;
+        int kv0 = tile_row(it);
         if (fault == FAULT_STALE_RING_STAGE && s == NV - 1 && it > 0) kv0 -= BN;
         uint8_t* vs = smem + L::OFF_V + s * V_TILE;
         sm90::mbar_wait(&bars.v_empty[s], ((it / NV) & 1) ^ 1);
@@ -261,12 +284,21 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
     const int r1 = r0 + 8;
 
     // live columns of row r: [lim_lo, lim_hi), plus the diagonal col == r in
-    // block-causal mode, and never past Lk
+    // block-causal mode, and never past Lk; teacher forcing: [0, lim_hi) and
+    // [lim2_lo, lim2_hi)
     int lim_lo[2], lim_hi[2], diag[2];
+    int lim2_lo[2] = {0, 0}, lim2_hi[2] = {0, 0};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = r ? r1 : r0;
-      if (mode == MODE_WINDOW) {
+      if constexpr (TF) {
+        const rtv_mask::TfRow tr = rtv_mask::tf_row(qpos, kv_len, block_tokens, fault);
+        lim_lo[r] = 0;
+        lim_hi[r] = tr.a_hi;
+        diag[r] = -1;
+        lim2_lo[r] = tr.b_lo;
+        lim2_hi[r] = tr.b_hi;
+      } else if (mode == MODE_WINDOW) {
         lim_lo[r] = lo;
         lim_hi[r] = hi;
         diag[r] = -1;
@@ -361,7 +393,7 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
       if constexpr (INT8) {
         sm90::fence_regs(si);
         const float* sks = reinterpret_cast<const float*>(smem + L::OFF_SK + s * L::SK);
-        const int kv0 = kv_begin + it * BN;
+        const int kv0 = tile_row(it);
         if (kv0 + BN <= shift_from) {
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
@@ -406,9 +438,12 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
     // mask tile `it` on the fragment (edge tiles only), then p = exp2(s - M)
     // or exp2(s - m) with the running max; alpha rescales what came before
     auto softmax = [&](int it, float (&alpha)[2]) {
-      const int kv0 = kv_begin + it * BN;
+      const int kv0 = tile_row(it);
       bool full_tile;
-      if (mode == MODE_WINDOW) {
+      if constexpr (TF) {
+        full_tile = rtv_mask::tf_full(q_base, min(BM, Lq - q_base), kv0, BN, kv_len,
+                                      block_tokens, fault);
+      } else if (mode == MODE_WINDOW) {
         full_tile = kv0 >= lo && kv0 + BN <= hi;
       } else {
         const int end_first = (q_base / block_tokens + 1) * block_tokens;
@@ -424,8 +459,8 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
           for (int e = 0; e < 4; ++e) {
             const int col = kv0 + j * 8 + tig * 2 + (e & 1);
             const int r = e >> 1;
-            const bool valid =
-                ((col >= lim_lo[r] && col < lim_hi[r]) || col == diag[r]) && col < Lk;
+            bool valid = ((col >= lim_lo[r] && col < lim_hi[r]) || col == diag[r]) && col < Lk;
+            if constexpr (TF) valid = valid || (col >= lim2_lo[r] && col < lim2_hi[r]);
             if (!valid) sc[4 * j + e] = NEG_INF;
           }
         }
@@ -712,17 +747,17 @@ int qkv_map(CUtensorMap* map, const void* ptr, int B, int L, int N, int rows, bo
       strides, box);
 }
 
-template <bool INT8>
+template <bool INT8, bool TF>
 int launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
            const CUtensorMap& tm_sk, void* o, int B, int Lq, int Lk, int N, float qscale,
            const float* maxima, float* lse, const Int8Args& i8, int mode, int lo, int hi,
            int block_tokens, int kv_len, int local_window, int fault, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel_sm90<INT8>,
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel_sm90<INT8, TF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Layout<INT8>::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + BM - 1) / BM, N, B);
-  attention_kernel_sm90<INT8><<<grid, NTHREADS, Layout<INT8>::SMEM, stream>>>(
+  attention_kernel_sm90<INT8, TF><<<grid, NTHREADS, Layout<INT8>::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_sk, reinterpret_cast<__nv_bfloat16*>(o), Lq, Lk, N, qscale, maxima,
       lse, i8, mode, lo, hi, block_tokens, kv_len, local_window, fault);
   return (int)cudaGetLastError();
@@ -783,7 +818,9 @@ extern "C" int rtv_int8_qk_quantize(const void* q, const void* k, void* q8, void
 // The bf16 kernel. q raw (the kernel multiplies it by qscale = bf16(scale *
 // log2 e)), k, v, o [B, L, N, D] bf16 contiguous. mode 0 = window [lo, hi),
 // with the static-max / running-max choice made on the device from maxima
-// (null: running max always); mode 1 = block-causal (running max). lse, when
+// (null: running max always); mode 1 = block-causal (running max); mode 2 =
+// teacher forcing over [clean | noisy] with kv_len = L, the length of each
+// half (Lq = Lk = 2L, L a multiple of block_tokens; running max). lse, when
 // not null, receives each row's log-sum-exp [B, N, Lq] f32 (natural log of
 // the scaled scores) for the backward kernel; null writes nothing. fault
 // plants a fault for the checks (0 in every real call).
@@ -793,28 +830,34 @@ extern "C" int rtv_attention_sm90(const void* q, const void* k, const void* v, v
                                   int kv_len, int local_window, int fault, void* stream) {
   if (D_ != D || B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || block_tokens <= 0)
     return (int)cudaErrorInvalidValue;
+  const bool tf = mode == MODE_TEACHER_FORCING;
+  if (tf && (Lq != Lk || Lk != 2 * kv_len || kv_len % block_tokens != 0))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   int err = qkv_map(&tm_q, q, B, Lq, N, BM, false);
   if (err == 0) err = qkv_map(&tm_k, k, B, Lk, N, BN, false);
   if (err == 0) err = qkv_map(&tm_v, v, B, Lk, N, BN, false);
   if (err != 0) return err;
   const Int8Args none = {nullptr, nullptr, 0, 1};
-  return launch<false>(tm_q, tm_k, tm_v, tm_v, o, B, Lq, Lk, N, qscale, maxima, lse, none, mode,
-                       lo, hi, block_tokens, kv_len, local_window, fault,
-                       reinterpret_cast<cudaStream_t>(stream));
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (tf)
+    return launch<false, true>(tm_q, tm_k, tm_v, tm_v, o, B, Lq, Lk, N, qscale, nullptr, lse,
+                               none, mode, lo, hi, block_tokens, kv_len, local_window, fault, s);
+  return launch<false, false>(tm_q, tm_k, tm_v, tm_v, o, B, Lq, Lk, N, qscale, maxima, lse, none,
+                              mode, lo, hi, block_tokens, kv_len, local_window, fault, s);
 }
 
 // The int8 QK^T kernel on the pre-pass's quanta: q8, k8 [B, L, N, D] s8,
 // q_scale [B, N, Lq] and k_scale [B, N, Lk] f32 (rows ks_stride apart, a
-// multiple of 4), v and o bf16; modes as rtv_attention_sm90's, running max
-// always. seg is the k-mean segment width (for the planted k-scale fault).
+// multiple of 4), v and o bf16; modes 0 and 1 as rtv_attention_sm90's, running
+// max always. seg is the k-mean segment width (for the planted k-scale fault).
 extern "C" int rtv_attention_sm90_int8(const void* q8, const void* k8, const void* v, void* o,
                                        const void* q_scale, const void* k_scale, int ks_stride,
                                        int B, int Lq, int Lk, int N, int D_, int mode, int lo,
                                        int hi, int block_tokens, int kv_len, int local_window,
                                        int seg, int fault, void* stream) {
   if (D_ != D || B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || block_tokens <= 0 || seg <= 0 ||
-      ks_stride < Lk || ks_stride % 4)
+      ks_stride < Lk || ks_stride % 4 || mode == MODE_TEACHER_FORCING)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_sk;
   int err = qkv_map(&tm_q, q8, B, Lq, N, BM, true);
@@ -830,7 +873,7 @@ extern "C" int rtv_attention_sm90_int8(const void* q8, const void* k8, const voi
   if (err != 0) return err;
   const Int8Args i8 = {reinterpret_cast<const float*>(q_scale),
                        reinterpret_cast<const float*>(k_scale), ks_stride, seg};
-  return launch<true>(tm_q, tm_k, tm_v, tm_sk, o, B, Lq, Lk, N, 0.0f, nullptr, nullptr, i8, mode,
-                      lo, hi, block_tokens, kv_len, local_window, fault,
-                      reinterpret_cast<cudaStream_t>(stream));
+  return launch<true, false>(tm_q, tm_k, tm_v, tm_sk, o, B, Lq, Lk, N, 0.0f, nullptr, nullptr, i8,
+                             mode, lo, hi, block_tokens, kv_len, local_window, fault,
+                             reinterpret_cast<cudaStream_t>(stream));
 }

@@ -536,6 +536,7 @@ def dit_forward(
     attn_mask: Optional[torch.Tensor] = None,
     block_tokens: Optional[int] = None,
     gan_classify: Optional[Params] = None,
+    tf_concat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
     the cache updated (None in train mode); with `gan_classify` (taps,
@@ -550,6 +551,14 @@ def dit_forward(
     block-causal (key < ends[q] | q == key, the JAX package's
     `blockwise_causal_mask` given as structure: K2's block-causal mode);
     `attn_mask` ([L, L] bool, True = attend) is the dense form, CPU only.
+
+    `tf_concat` (train mode only) is teacher forcing (causal_model.py:
+    1060-1108): x is [clean | noisy] along frames and t [B, 2F]; RoPE runs
+    on F frames and repeats its positions for the two halves; the
+    self-attention is `teacher_forcing_attention` over blocks of
+    `block_tokens` (the kernel's mode 2 on a card), or the dense
+    `attn_mask` (CPU only); the head keeps the noisy half, so the flow is
+    [B, F, C, H, W].
 
     Decode mode takes the serving cache (`kv_cache.init_kv_cache`, written
     in place, no gradient through it) or the training cache
@@ -572,8 +581,16 @@ def dit_forward(
     elif train_cache and mode != "decode":
         raise ValueError("the training cache takes decode mode only")
     b, f, c, H, W = x.shape
+    if tf_concat:
+        if mode != "train":
+            raise ValueError(f"tf_concat is a train-mode forward, not {mode!r}")
+        if f % 2:
+            raise ValueError(f"tf_concat needs [clean | noisy] frames, got {f}")
+        if attn_mask is None and block_tokens is None:
+            raise ValueError("tf_concat needs block_tokens (or a dense attn_mask on the CPU)")
     pt, ph, pw = cfg.patch_size
-    grid = (f, H // ph, W // pw)
+    # teacher forcing: RoPE positions repeat for the two halves
+    grid = (f // 2 if tf_concat else f, H // ph, W // pw)
     fsl = grid[1] * grid[2]
     L = f * fsl
     current_start = int(current_start)
@@ -609,11 +626,16 @@ def dit_forward(
                          f"the {cache_size}-token cache")
 
     rope = rope_tables.fused(*grid, start_frame)
+    if tf_concat:
+        rope = tuple(torch.cat([r, r]) for r in rope)
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
     lin = linear if act_calib is None else functools.partial(linear, record=act_calib)
 
     def train_attend(q, k, v):
+        if tf_concat and attn_mask is None:
+            return attn_ops.teacher_forcing_attention(q, k.contiguous(), v.contiguous(),
+                                                      L // 2, block_tokens)
         if block_tokens is not None:
             return attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
                                                    block_tokens)
@@ -675,6 +697,8 @@ def dit_forward(
         kv_cache["local_end"] = new_local_end
 
     # ---- head (CausalHead, causal_model.py:495-523) ----
+    if tf_concat:  # the noisy half (causal_model.py:1104-1108)
+        tokens, e, f = tokens[:, L // 2:], e[:, f // 2:], f // 2
     hp = params["head"]
     eh = hp["modulation"][None].float() + e[:, :, None, :]  # [B, F, 2, D]
     yh = modulate(layer_norm(tokens, eps=cfg.eps), f, eh[:, :, 0], eh[:, :, 1])

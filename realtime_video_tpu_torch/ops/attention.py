@@ -12,6 +12,9 @@ kernel cannot take raises.
   * `decode_attention(q, k, v, lo, hi)` — the rolling-cache window [lo, hi).
   * `block_causal_attention(q, k, v, block_tokens, local_window)` —
     kv < ends[q] (get_block_mask semantics, causal_model.py:108-141).
+  * `teacher_forcing_attention(q, k, v, half_len, block_tokens)` — the
+    [clean | noisy] mask of `teacher_forcing_mask` as structure (the kernel's
+    mode 2), always bf16 on the card.
 
 Which mode of the kernel a call takes follows the JAX package's attention
 switches (RTV_ATTN_INT8, _SKEW, _SKEW2, _STATICMAX, _BK), which
@@ -61,6 +64,10 @@ def block_causal_attention(q, k, v, block_tokens: int,
     return hk.block_causal_attention(q, k, v, block_tokens, local_window)
 
 
+def teacher_forcing_attention(q, k, v, half_len: int, block_tokens: int) -> torch.Tensor:
+    return hk.teacher_forcing_attention(q, k, v, half_len, block_tokens)
+
+
 # ---------------------------------------------------------------------------
 # attention masks
 # ---------------------------------------------------------------------------
@@ -93,6 +100,17 @@ def blockwise_causal_mask(num_frames: int, frame_seqlen: int, num_frame_per_bloc
     if local_attn_size != -1:
         mask = mask & (kv_idx >= ends - local_attn_size * frame_seqlen)
     return mask | (q_idx == kv_idx)
+
+
+def teacher_forcing_mask(num_frames: int, frame_seqlen: int, num_frame_per_block: int,
+                         device=None) -> torch.Tensor:
+    """[2L, 2L] bool mask for teacher-forcing training over the sequence
+    [clean | noisy] (L = num_frames * frame_seqlen): clean tokens are
+    blockwise-causal over the clean half; noisy tokens see their own noisy
+    block and the clean tokens of strictly earlier blocks; and the diagonal
+    (_prepare_teacher_forcing_mask, causal_model.py:676-762)."""
+    return hk.teacher_forcing_dense(num_frames * frame_seqlen,
+                                    frame_seqlen * num_frame_per_block, device)
 
 
 def decode_window_mask(num_q: int, num_kv: int, kv_abs_start: int, local_end: int,

@@ -24,6 +24,11 @@ the Pallas TPU kernels of `realtime_video_tpu/ops/pallas_attention.py`:
     flight, the Hopper form of the skew, so `window_skew` launches it with
     the running max and `window_skew_staticmax` with the bound pre-pass's
     static max (and its in-launch fallback at M >= 64).
+  * Teacher forcing, which has no TPU kernel (the JAX package runs
+    `teacher_forcing_mask` through dense XLA): the same kernel's mode 2
+    over the sequence [clean | noisy], in bf16 with K2's running max. A
+    query tile walks the union of its two key ranges
+    (`csrc/attention_mask.cuh`); no dense mask is built on the card.
 
 The bf16 launches take raw q and fold the prescale (`prescale`, bf16(q *
 bf16(scale * log2 e))) into their Q tile, and the int8 pre-pass into its
@@ -66,7 +71,7 @@ whose gradient the plain backward computes.
 
 `LAUNCHES` counts kernel launches per route (one int8 call = its pre-pass
 and its main kernel; one backward = its D pre-pass and its dQ and dK/dV
-passes, under `window_bwd` / `block_causal_bwd`),
+passes, under `window_bwd` / `block_causal_bwd` / `teacher_forcing_bwd`),
 `PREPASS_LAUNCHES["logit_bound"]` those of the logit-bound pre-pass; nothing
 else touches them. `PLAIN_ON_CUDA` counts calls of a plain version on a CUDA
 tensor (a plain backward under its forward's key), which the serving and
@@ -101,11 +106,17 @@ STATIC_MAX = _os.getenv("RTV_ATTN_STATICMAX", "1") in ("1", "true")
 
 _MODE_WINDOW = 0
 _MODE_BLOCK_CAUSAL = 1
+_MODE_TEACHER_FORCING = 2
 
 #: planted faults for the checks that must catch them (kernel argument)
 FAULT_K_SCALE_SHIFT = 2  # int8: the last segment's columns take the next row's k scale
 FAULT_STALE_RING_STAGE = 3  # the last K and V ring stages hold the previous tile
 FAULT_DROP_D = 1  # backward: dS = P * dP, the rowsum(dO * O) term dropped
+# teacher forcing (csrc/attention_mask.cuh), forward and backward
+FAULT_TF_LEAK = 4  # a noisy block also sees its own clean block
+FAULT_TF_SHORT = 5  # the noisy range ends 16 keys short
+FAULT_TF_DROP_CLEAN = 6  # noisy blocks j >= 1 see no clean keys
+FAULT_TF_SKIP_NOISY_Q = 7  # backward: a clean key's dK/dV skips the later noisy queries
 
 SM90_SOURCE = cuda_build.CSRC / "attention_sm90.cu"
 BWD_SOURCE = cuda_build.CSRC / "attention_bwd_sm90.cu"
@@ -113,12 +124,13 @@ SOURCES = (SM90_SOURCE, BWD_SOURCE)
 
 WINDOW_ROUTES = ("window", "window_int8qk", "window_skew", "window_skew_staticmax")
 BLOCK_CAUSAL_ROUTES = ("block_causal", "block_causal_int8qk")
-BACKWARD_KEYS = ("window_bwd", "block_causal_bwd")
+BACKWARD_KEYS = ("window_bwd", "block_causal_bwd", "teacher_forcing_bwd")
 #: kernel launches per route (plain-version calls are not counted)
-LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES + BACKWARD_KEYS}
+LAUNCHES: Dict[str, int] = {r: 0 for r in WINDOW_ROUTES + BLOCK_CAUSAL_ROUTES
+                            + ("teacher_forcing",) + BACKWARD_KEYS}
 #: launches of the logit-bound pre-pass kernel (part of the `window` route)
 PREPASS_LAUNCHES: Dict[str, int] = {"logit_bound": 0}
-PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0}
+PLAIN_ON_CUDA: Dict[str, int] = {"window": 0, "block_causal": 0, "teacher_forcing": 0}
 
 _lib = None
 _bwd_lib = None
@@ -255,11 +267,30 @@ def block_causal_attention_plain(q, k, v, block_tokens: int,
     return _masked_softmax_attention(q, k, v, valid, scale)
 
 
+def teacher_forcing_dense(half_len: int, block_tokens: int, device=None) -> torch.Tensor:
+    """[2L, 2L] bool over the sequence [clean | noisy], L = half_len: a clean
+    query sees the clean keys up to the end of its block; a noisy query of
+    block j sees its own noisy block [L + jB, L + (j + 1)B) and the clean
+    keys of the earlier blocks [0, jB); and the diagonal
+    (ops/attention.py:147-173 of the JAX package)."""
+    n = 2 * half_len
+    q_idx = torch.arange(n, device=device)[:, None]
+    kv_idx = torch.arange(n, device=device)[None, :]
+    clean_q = q_idx < half_len
+    clean_mask = clean_q & (kv_idx < (q_idx // block_tokens + 1) * block_tokens)
+    noise_block = (q_idx - half_len) // block_tokens
+    nn_start = half_len + noise_block * block_tokens
+    own = (kv_idx >= nn_start) & (kv_idx < nn_start + block_tokens)
+    earlier = kv_idx < noise_block * block_tokens
+    return clean_mask | (~clean_q & (own | earlier)) | (q_idx == kv_idx)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mask:
     """The keys a call attends to: the window [lo, hi) (mode 0; unmasked is
-    [0, Lk)) or block-causal (mode 1: key < min(ends[q], kv_len), optionally
-    key >= ends[q] - local_window, and the diagonal)."""
+    [0, Lk)), block-causal (mode 1: key < min(ends[q], kv_len), optionally
+    key >= ends[q] - local_window, and the diagonal) or teacher forcing (mode
+    2: `teacher_forcing_dense` with L = kv_len, B = block_tokens)."""
     mode: int
     lo: int = 0
     hi: int = 0
@@ -276,20 +307,36 @@ class Mask:
                      local_window: Optional[int] = None) -> "Mask":
         return cls(_MODE_BLOCK_CAUSAL, 0, lk, block_tokens, lk, local_window)
 
+    @classmethod
+    def teacher_forcing(cls, half_len: int, block_tokens: int) -> "Mask":
+        """[clean | noisy], each half `half_len` tokens in blocks of
+        `block_tokens`; the kernel takes half_len a multiple of block_tokens
+        (every clean block whole)."""
+        if block_tokens <= 0 or half_len <= 0 or half_len % block_tokens:
+            raise ValueError(f"teacher forcing needs half_len ({half_len}) a positive "
+                             f"multiple of block_tokens ({block_tokens})")
+        return cls(_MODE_TEACHER_FORCING, 0, 2 * half_len, block_tokens, half_len)
+
     @property
     def key(self) -> str:
         """The route name the call counts under."""
-        return "window" if self.mode == _MODE_WINDOW else "block_causal"
+        return ("window", "block_causal", "teacher_forcing")[self.mode]
 
     def dense(self, lq: int, lk: int, device) -> torch.Tensor:
         """[Lq, Lk] bool, True = attend."""
         if self.mode == _MODE_WINDOW:
             return _window_mask(lk, self.lo, self.hi, device).expand(lq, lk)
+        if self.mode == _MODE_TEACHER_FORCING:
+            if lq != self.hi or lk != self.hi:
+                raise ValueError(f"the teacher-forcing mask is {self.hi} x {self.hi}, "
+                                 f"not {lq} x {lk}")
+            return teacher_forcing_dense(self.kv_len, self.block_tokens, device)
         return block_causal_mask(lq, lk, self.block_tokens, self.kv_len, self.local_window,
                                  device)
 
     def kernel_args(self) -> Tuple[int, int, int, int, int, int]:
-        """(mode, lo, hi, block_tokens, kv_len, local_window or -1) of a launch."""
+        """(mode, lo, hi, block_tokens, kv_len, local_window or -1) of a launch
+        (teacher forcing: kv_len is L, the half length)."""
         return (self.mode, self.lo, self.hi, self.block_tokens, self.kv_len,
                 -1 if self.local_window is None else self.local_window)
 
@@ -741,6 +788,49 @@ def block_causal_attention(q, k, v, block_tokens: int,
         out = _launch_sm90(q, k, v, scale, None, *args)
     LAUNCHES[route] += 1
     return out
+
+
+def teacher_forcing_attention_plain(q, k, v, half_len: int, block_tokens: int,
+                                    scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version of the teacher-forcing route: the dense mask through
+    the masked f32 softmax."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        PLAIN_ON_CUDA["teacher_forcing"] += 1
+    valid = Mask.teacher_forcing(half_len, block_tokens).dense(q.shape[1], k.shape[1], q.device)
+    return _masked_softmax_attention(q, k, v, valid, scale)
+
+
+def teacher_forcing_attention(q, k, v, half_len: int, block_tokens: int,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention over [clean | noisy] (Lq = Lk = 2 * half_len) under the
+    teacher-forcing mask (`teacher_forcing_dense`): on a CUDA tensor mode 2 of
+    the bf16 kernel, through `KernelAttention` (the backward kernel's mode 2)
+    when a gradient is needed; on the CPU the plain version. Always bf16: the
+    JAX package runs this mask through dense XLA whatever RTV_ATTN_INT8 says,
+    so the int8 and skew switches do not apply here."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    mask = Mask.teacher_forcing(half_len, block_tokens)
+    if q.shape[1] != mask.hi or k.shape[1] != mask.hi:
+        raise ValueError(f"teacher forcing over 2 x {half_len} tokens, got Lq {q.shape[1]} "
+                         f"and Lk {k.shape[1]}")
+    if _needs_grad(q, k, v):
+        return KernelAttention.apply(q, k, v, mask, scale, False)
+    if not q.is_cuda:
+        return teacher_forcing_attention_plain(q, k, v, half_len, block_tokens, scale)
+    _check(q, k, v)
+    out = _launch_sm90(q, k, v, scale, None, *mask.kernel_args())
+    LAUNCHES["teacher_forcing"] += 1
+    return out
+
+
+def teacher_forcing_pairs(half_len: int, block_tokens: int) -> int:
+    """Live (query, key) pairs of one head under the teacher-forcing mask:
+    each half holds the block triangle, sum over blocks j of B * (j + 1) B."""
+    n = half_len // block_tokens
+    return block_tokens ** 2 * n * (n + 1)
 
 
 def window_flops(lq: int, lo: int, hi: int, heads: int, head_dim: int,

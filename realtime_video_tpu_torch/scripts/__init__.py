@@ -1,3 +1,3 @@
-"""Data tooling of the port, run as modules: `python -m
-realtime_video_tpu_torch.scripts.generate_ode_pairs` and
-`python -m realtime_video_tpu_torch.scripts.create_shards`."""
+"""Data and checkpoint tooling of the port, run as modules: `python -m
+realtime_video_tpu_torch.scripts.generate_ode_pairs`, `.create_shards`,
+`.synthesize_checkpoint` and `.run_real_checkpoint`."""

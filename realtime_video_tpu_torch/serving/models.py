@@ -23,6 +23,7 @@ shapes their numbers.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import time
 
@@ -52,7 +53,7 @@ log = logging.getLogger(__name__)
 
 class Models:
     def __init__(self, text_encoder, transformer, pipeline, vae_encoder, vae_decoder,
-                 taehv_params=None):
+                 taehv_params=None, load_seconds=None):
         self.text_encoder = text_encoder
         self.transformer: WanDiffusion = transformer
         self.pipeline: CausalInferencePipeline = pipeline
@@ -62,6 +63,9 @@ class Models:
         #: the TAEHV preview decoder's params (`load_taehv`), built by load_all
         #: for a `use_taehv` config, else at a preview session's start
         self.taehv_params = taehv_params
+        #: seconds `load_all` took per component (transformer, text_encoder,
+        #: vae), the device synchronised after each
+        self.load_seconds = load_seconds
 
 
 def _denoise_steps(config, shift) -> tuple:
@@ -192,20 +196,43 @@ def load_pipeline(config, transformer, text_encoder, vae) -> CausalInferencePipe
     return CausalInferencePipeline(config, transformer, text_encoder, vae)
 
 
+def check_mesh_shape(config) -> None:
+    """The port serves on one card: a `mesh_shape` whose sizes multiply to
+    more than 1 device is refused, not run on one card in silence."""
+    shape = dict(config.get("mesh_shape") or {})
+    devices = math.prod(int(n) for n in shape.values())
+    if devices > 1:
+        raise ValueError(f"mesh_shape {shape} asks for {devices} devices; the port serves on "
+                         "one card (multi-GPU tensor parallelism is ROADMAP Queue 1 item 6): "
+                         "set mesh_shape: {}")
+
+
 def load_all(config, device, seed: int = 0) -> Models:
     """DiT (`checkpoint_path`, else config["model_name"] from `seed`), Wan 2.1
     VAE (seed + 1), text encoder (seed + 2) and, with `use_taehv`, TAEHV on
-    `device`, in the tier the config asks for."""
+    `device`, in the tier the config asks for (one device: see
+    `check_mesh_shape`). The Models carry each component's load seconds."""
+    check_mesh_shape(config)
     t0 = time.time()
     device = torch.device(device)
-    transformer = load_transformer(config, device, seed)
-    text_encoder = load_text_encoder(config, device, seed + 2, transformer.cfg.text_len,
-                                     transformer.cfg.text_dim)
-    vae = load_vae(config, device, seed + 1)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    transformer = timed("transformer", load_transformer, config, device, seed)
+    text_encoder = timed("text_encoder", load_text_encoder, config, device, seed + 2,
+                         transformer.cfg.text_len, transformer.cfg.text_dim)
+    vae = timed("vae", load_vae, config, device, seed + 1)
     pipeline = load_pipeline(config, transformer, text_encoder, vae)
     taehv = load_taehv(device) if config.get("use_taehv", False) else None
     log.info("All models loaded in %.2fs", time.time() - t0)
-    return Models(text_encoder, transformer, pipeline, vae, vae, taehv)
+    return Models(text_encoder, transformer, pipeline, vae, vae, taehv, seconds)
 
 
 

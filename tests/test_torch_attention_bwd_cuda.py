@@ -121,7 +121,7 @@ def test_static_max_lse_and_autograd_path_on_gpu():
     out.backward(do)
     assert hk.LAUNCHES["window"] == 1 and hk.LAUNCHES["window_bwd"] == 1
     assert hk.PREPASS_LAUNCHES["logit_bound"] == 1
-    assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0}
+    assert not any(hk.PLAIN_ON_CUDA.values())
     qd = q.clone().requires_grad_()
     hk.window_attention(qd, k, v, 0, 600).backward(do)
     assert torch.equal(qd.grad, qg.grad)

@@ -48,7 +48,12 @@ def test_port_imports_no_jax():
             "realtime_video_tpu_torch.utils.lmdb_io",
             "realtime_video_tpu_torch.training.gan", "realtime_video_tpu_torch.scripts",
             "realtime_video_tpu_torch.scripts.generate_ode_pairs",
-            "realtime_video_tpu_torch.scripts.create_shards"} <= set(mods)
+            "realtime_video_tpu_torch.scripts.create_shards",
+            "realtime_video_tpu_torch.scripts.synthesize_checkpoint",
+            "realtime_video_tpu_torch.scripts.run_real_checkpoint",
+            "realtime_video_tpu_torch.sweep_sample", "realtime_video_tpu_torch.examples",
+            "realtime_video_tpu_torch.examples.generate",
+            "realtime_video_tpu_torch.examples.sample_example"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -76,13 +81,17 @@ def test_kernel_wrapper_never_falls_back_for_cuda_tensors(monkeypatch):
         hk.window_attention(q, q, q, 0, 4)
     with pytest.raises(RuntimeError, match="no nvcc"):
         hk.block_causal_attention(q, q, q, 2)
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        hk.teacher_forcing_attention(q, q, q, 2, 1)
     # the gradient path too: its forward and its backward kernel
     qg = q.float().requires_grad_().to(torch.bfloat16)
     with pytest.raises(RuntimeError, match="no nvcc"):
         hk.window_attention(qg, q, q, 0, 4)
     with pytest.raises(RuntimeError, match="no nvcc"):
+        hk.teacher_forcing_attention(qg, q, q, 2, 1)
+    with pytest.raises(RuntimeError, match="no nvcc"):
         hk.attention_backward(q, q, q, q, q, torch.zeros(1, 2, 4), 0.1, hk.Mask.window(0, 4))
-    assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0}
+    assert hk.PLAIN_ON_CUDA == {"window": 0, "block_causal": 0, "teacher_forcing": 0}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -123,6 +132,29 @@ def test_ode_pairs_script_defaults_to_the_card(monkeypatch, tmp_path):
         generate_ode_pairs.main(["--prompts", str(prompts), "--out", str(tmp_path / "out"),
                                  "--tiny"])
     assert not (tmp_path / "out").exists()
+
+
+def test_checkpoint_tools_default_to_the_card(monkeypatch, tmp_path):
+    """run_real_checkpoint, sweep_sample and the two examples load their
+    models on the CUDA card unless --device names another: without a card
+    they raise before they load anything."""
+    from realtime_video_tpu_torch import config, sweep_sample
+    from realtime_video_tpu_torch.examples import generate, sample_example
+    from realtime_video_tpu_torch.scripts import run_real_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = tmp_path / "Wan2.1-T2V-1.3B"
+    base.mkdir()
+    for p in (tmp_path / "dit.safetensors", base / "Wan2.1_VAE.pth",
+              base / "models_t5_umt5-xxl-enc-bf16.safetensors"):
+        p.write_bytes(b"")
+    monkeypatch.setattr(config, "MODEL_FOLDER", str(tmp_path))
+    for run in (lambda: run_real_checkpoint.main([]),
+                lambda: sweep_sample.main([str(tmp_path / "dit.safetensors")]),
+                lambda: generate.main(["--out", str(tmp_path / "g.mp4")]),
+                lambda: sample_example.main(["--video", str(tmp_path / "in.mp4")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
 
 
 def test_int8_kernel_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):

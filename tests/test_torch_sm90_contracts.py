@@ -155,8 +155,12 @@ def test_port_sources_hash_the_shared_header():
     for src in (hm.SOURCE, hc.SOURCE):  # the int8 pre-passes share one quantiser
         assert cuda_build.CSRC / "quantize.cuh" in cuda_build.local_headers(src)
     assert cuda_build.local_headers(cuda_build.CSRC / "quantize.cuh") == []
-    # the wgmma backward takes the shared header alone
-    assert cuda_build.local_headers(hk.BWD_SOURCE) == [cuda_build.CSRC / "sm90.cuh"]
+    # the two attention kernels take the shared header and the mask header
+    # (teacher forcing's ranges), nothing else; the mask header includes none
+    for src in hk.SOURCES:
+        assert sorted(cuda_build.local_headers(src)) == sorted(
+            [cuda_build.CSRC / "sm90.cuh", cuda_build.CSRC / "attention_mask.cuh"])
+    assert cuda_build.local_headers(cuda_build.CSRC / "attention_mask.cuh") == []
     assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == [
         "attention_bwd_sm90.cu", "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
 
@@ -185,6 +189,11 @@ def test_port_sources_hash_the_shared_header():
     ("(anonymous namespace)::attn_bwd_dq_sm90(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, (anonymous namespace)::Params)", "attention_backward_kernel"),
     ("(anonymous namespace)::attn_bwd_dkdv_sm90(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
+     "attention_backward_kernel"),
+    ("void (anonymous namespace)::attention_kernel_sm90<false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, int)", "attention_kernel"),
+    ("void (anonymous namespace)::attn_bwd_dkdv_sm90<true>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
      "attention_backward_kernel"),
 ])
