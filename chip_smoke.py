@@ -203,6 +203,39 @@ Phases, each reported on its own lines:
          file's converter round trip bit for bit, `run_real_checkpoint` in a
          subprocess (30 finite frames, a checksum, load seconds by file), and
          `sweep_sample` over two DiTs against a direct `sample_videos`.
+  5. the multi-GPU phases (`parallel_phases`,
+     realtime_video_tpu_torch/tools/parallel_smoke.py), after the card's
+     compute mode is read (an exclusive mode fails): tp and dp x tp run as
+     ranks that share this card over gloo (`parallel/launch.run`; gloo's
+     CUDA all-reduce is probed and printed), each against the same work in
+     this process from the same seeds, their walls printed as those of
+     ranks sharing one card:
+       - `tp_denoise_1p3b`: t2v-1.3B, 30 layers, tp 2 (6 heads a rank), bf16
+         and int8 with static scales: reset, prefill and a 4-step block at
+         832x480 with 3 KV frames; x0 against one process (cosine and
+         relative Frobenius, `TP_*_BAR`), bit-identical over the ranks, each
+         rank's K1 / K2 / K3 / bound pre-pass launches equal to the
+         derivation;
+       - `tp_forward_14b`: t2v-14B int8 (dynamic scales) with the int8 QK^T
+         attention, 2 layers, tp 4 (10 heads a rank): a decode forward
+         against one process; on each rank's own shards, timed one rank at
+         a time, K3 at qkv 4680x5120x3840 and fc2 4680x3456x5120 within 1
+         bf16 ulp and K2-int8 at 10 heads, each beside its bound;
+       - `dp_tp_train_step`: dp 2 x tp 2, t2v-1.3B width, 2 layers, a batch
+         of 2 at train.py's latent shape: one flow-matching step with the
+         EMA against the one-process step: the averaged gradient, the AdamW
+         update and the EMA shadow's step each by cosine and relative error
+         (`TRAIN_BARS`), a planted fault (the dp mean of the gradients
+         dropped) caught by the same bars, replicated leaves bit-equal over
+         tp, the backward launches;
+       - `ring_kernel_composition` (one process): rank 0's query shard of
+         the teacher's 32760² unmasked self-attention at 12 and 40 heads,
+         sp 2 / 4 / 8: K1 with its LSE over each key shard, merged, against
+         one K1 launch over all keys (`agreement`, the LSE within 2e-3),
+         timed beside the single launch and the bound;
+       - `nccl_multi_gpu`: with two or more cards, tp over NCCL and the
+         1.3B teacher forward with `sp_mesh` at sp = the card count against
+         one card; on one card `{"ran": false}`.
 The quantised-tree cache is off (RTV_QUANT_CACHE=0) outside its phase, and
 its directory is a temporary one, removed at exit.
 
@@ -2073,6 +2106,215 @@ def server_warmup_phase(card: str, request: dict) -> dict:
             fail(f"server_warmup {label}: the warm-up ran {record['warmup'] is not None}, "
                  f"DO_COMPILE {do_compile}")
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+#: tp (ranks sharing the card) against one process: x0's cosine and relative
+#: Frobenius error. The row-parallel partial sums round to bf16 once a rank,
+#: so tp is not bit-equal to one device; set from the first readings on an
+#: H100 80GB HBM3 at 700 W (1.3B bf16 / int8 static 0.999985 / 0.999967 and
+#: 5.5e-3 / 8.1e-3; 14B int8 + INT8_QK 0.999980 and 6.4e-3), about 2.5x
+#: their error
+TP_COSINE_BAR, TP_REL_FRO_BAR = 0.9999, 2e-2
+
+#: dp 2 x tp 2 against the one-process step: (cosine above, relative
+#: Frobenius error below) for the averaged gradient, the AdamW update and
+#: the EMA shadow's step. AdamW's first step is about lr * sign(grad) a
+#: weight and a bf16 weight moves by whole ulps, so a gradient near 0 that
+#: flips its sign moves the update far more than the gradient. The update's
+#: and the EMA step's bars are set from the readings on an H100 80GB HBM3 at
+#: 700 W: 0.99947 and 3.3e-2 for both, against 0.53-0.78 and 0.66-0.97 under
+#: the planted fault (the dp mean dropped)
+TRAIN_BARS = {"grads": (0.999, 2e-2), "update": (0.999, 5e-2), "ema_step": (0.999, 5e-2)}
+
+
+def parallel_phases(card: str) -> dict:
+    """The multi-GPU phases (realtime_video_tpu_torch/tools/parallel_smoke.py):
+    tp and dp x tp with ranks sharing this card over gloo, the ring's K1
+    composition in this process, and NCCL where there are two or more cards.
+    Every wall time of ranks that share the card is printed as such."""
+    import torch
+
+    from realtime_video_tpu_torch.parallel import launch
+    from realtime_video_tpu_torch.tools import parallel_smoke as ps
+
+    dev = torch.device("cuda")
+    out = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    compute_mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
+    shared = {"compute_mode": compute_mode, "wall_times": "ranks sharing one card: not a speed "
+              "figure"}
+    if compute_mode and "exclusive" in compute_mode.lower():
+        fail(f"compute mode {compute_mode}: a second process gets no context on this card")
+
+    # -- tp_denoise_1p3b: tp 2, bf16 and int8 static, two ranks on this card --
+    t0 = time.perf_counter()
+    act_scales = ps.calibrate("t2v-1.3B", dev)
+    one = {tier: ps.one_process_block(tier, "t2v-1.3B", dev, act_scales)
+           for tier in ("bf16", "int8_static")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch.run(ps.tp_denoise_rank, 2, {"tiers": ("bf16", "int8_static"),
+                                               "model": "t2v-1.3B", "act_scales": act_scales},
+                       backend="gloo", device="cuda", timeout_s=400)
+    res = {"model": "t2v-1.3B", "tp": 2, "heads_per_rank": ranks[0]["bf16"]["heads_per_rank"],
+           "backend": ranks[0]["backend"],
+           "gloo_takes_cuda_all_reduce": ranks[0].get("gloo_takes_cuda_all_reduce"),
+           "gloo_error": ranks[0].get("gloo_error"), **shared}
+    if not all(r.get("gloo_takes_cuda_all_reduce") for r in ranks):
+        phase("tp_denoise_1p3b", **res, card=card)
+        fail(f"gloo refuses CUDA tensors on this build: {res['gloo_error']}")
+    for tier in ("bf16", "int8_static"):
+        want = one[tier]["x0"]
+        got = ranks[0][tier]["x0"]
+        exp = ps.expected_block_launches(30, tier != "bf16")
+        row = {"cosine_vs_one_process": ps.cosine(got, want),
+               "rel_fro_vs_one_process": ps.rel_fro(got, want),
+               "x0_identical_across_ranks": len({r[tier]["x0_sha256"] for r in ranks}) == 1,
+               "launches_per_rank": [r[tier]["launches"] for r in ranks],
+               "launches_expected_per_rank": exp,
+               "launches_one_process": one[tier]["launches"],
+               "shared_card_wall_ms_per_rank": [r[tier]["wall_ms"] for r in ranks],
+               "one_process_wall_ms": one[tier]["wall_ms"]}
+        res[tier] = row
+        counts_ok = all(r[tier]["launches"][k] == v for r in ranks for k, v in exp.items()) \
+            and all(r[tier]["launches"]["plain_on_cuda"] == 0 for r in ranks)
+        row["bars"] = {"cosine": TP_COSINE_BAR, "rel_fro": TP_REL_FRO_BAR}
+        if not (row["cosine_vs_one_process"] > TP_COSINE_BAR
+                and row["rel_fro_vs_one_process"] < TP_REL_FRO_BAR
+                and row["x0_identical_across_ranks"]
+                and bool(torch.isfinite(got).all()) and counts_ok):
+            phase("tp_denoise_1p3b", **res, card=card)
+            fail(f"tp_denoise_1p3b {tier}: {row}")
+    res["phase_s"] = time.perf_counter() - t0
+    phase("tp_denoise_1p3b", **res, card=card)
+    out["tp_denoise_1p3b"] = res
+    del one, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- tp_forward_14b: int8 with INT8_QK, 2 layers, tp 4, four ranks --
+    t0 = time.perf_counter()
+    one14 = ps.one_process_14b(2, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch.run(ps.tp_forward_14b_rank, 4, {"layers": 2}, backend="gloo",
+                       device="cuda", timeout_s=400)
+    got, want = ranks[0]["x0"], one14["x0"]
+    res = {"model": "t2v-14B (2 layers)", "tier": "int8 dynamic + INT8_QK", "tp": 4,
+           "heads_per_rank": 10, "backend": ranks[0]["backend"],
+           "cosine_vs_one_process": ps.cosine(got, want),
+           "rel_fro_vs_one_process": ps.rel_fro(got, want),
+           "x0_identical_across_ranks": len({r["x0_sha256"] for r in ranks}) == 1,
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "launches_one_process": one14["launches"],
+           "shared_card_wall_ms_per_rank": [r["wall_ms"] for r in ranks],
+           "one_process_wall_ms": one14["wall_ms"],
+           "kernels_per_rank": [r["kernels"] for r in ranks],
+           "kernel_times": "each rank timed alone (the others wait at a barrier)",
+           "bars": {"cosine": TP_COSINE_BAR, "rel_fro": TP_REL_FRO_BAR},
+           "phase_s": time.perf_counter() - t0, **shared}
+    phase("tp_forward_14b", **res, card=card)
+    k3_ok = all(r["kernels"][c]["max_err_bf16_ulps"] <= 1.0 for r in ranks for c in ("qkv", "fc2"))
+    att_ok = all(r["kernels"]["attention_int8qk"]["within_tol"] for r in ranks)
+    if not (res["cosine_vs_one_process"] > TP_COSINE_BAR
+            and res["rel_fro_vs_one_process"] < TP_REL_FRO_BAR
+            and res["x0_identical_across_ranks"] and k3_ok
+            and att_ok and bool(torch.isfinite(got).all())):
+        fail(f"tp_forward_14b: {res}")
+    out["tp_forward_14b"] = res
+    del ranks, one14
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- dp_tp_train_step: dp 2 x tp 2, t2v-1.3B width, 2 layers --
+    t0 = time.perf_counter()
+    ref_dir = tempfile.mkdtemp(prefix="rtv_dp_tp_")
+    atexit.register(shutil.rmtree, ref_dir, ignore_errors=True)
+    ref_path = os.path.join(ref_dir, "one_process_step.pt")
+    one_step = ps.one_process_train(dev, ref_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = launch.run(ps.dp_tp_train_rank, 4, {"reference": ref_path}, backend="gloo",
+                       device="cuda", timeout_s=400)
+    by = {(r["dp_rank"], r["tp_rank"]): r for r in ranks}
+    repl_equal = all(by[(d, 0)]["replicated_sha256"] == by[(d, 1)]["replicated_sha256"]
+                     for d in (0, 1))
+    exp_bwd = {"block_causal_bwd": ps.TRAIN_LAYERS, "window_bwd": ps.TRAIN_LAYERS}
+    res = {"model": "t2v-1.3B width, 2 layers", "dp": 2, "tp": 2,
+           "latents": [ps.TRAIN_BATCH, ps.TRAIN_FRAMES, 16, ps.LAT_H, ps.LAT_W],
+           "backend": ranks[0]["backend"],
+           **{f"{pre}{part}_{m}_per_rank": [r[f"{pre}{part}_{m}"] for r in ranks]
+              for pre in ("", "fault_no_dp_mean_") for part in TRAIN_BARS
+              for m in ("cosine", "rel_err")},
+           "bars": {part: {"cosine_above": c, "rel_err_below": e}
+                    for part, (c, e) in TRAIN_BARS.items()},
+           "replicated_leaves_bit_equal_over_tp": repl_equal,
+           "loss_per_rank": [r["loss"] for r in ranks], "loss_one_process": one_step["loss"],
+           "backward_launches_per_rank": [{k: r["launches"][k] for k in exp_bwd}
+                                          for r in ranks],
+           "backward_launches_expected_per_rank": exp_bwd,
+           "launches_one_process": one_step["launches"],
+           "shared_card_wall_ms_per_rank": [r["wall_ms"] for r in ranks],
+           "one_process_wall_ms": one_step["wall_ms"],
+           "peak_gib_per_rank": [r["peak_gib"] for r in ranks],
+           "phase_s": time.perf_counter() - t0, **shared}
+
+    def within(r, part, pre=""):
+        c, e = TRAIN_BARS[part]
+        return r[f"{pre}{part}_cosine"] > c and r[f"{pre}{part}_rel_err"] < e
+
+    # each part's bars on their own must catch the planted fault on every rank
+    res["fault_no_dp_mean_caught"] = {
+        part: not any(within(r, part, "fault_no_dp_mean_") for r in ranks)
+        for part in TRAIN_BARS}
+    phase("dp_tp_train_step", **res, card=card)
+    if not (all(within(r, part) for r in ranks for part in TRAIN_BARS)
+            and all(res["fault_no_dp_mean_caught"].values())
+            and repl_equal
+            and all(r["launches"][k] == v for r in ranks for k, v in exp_bwd.items())):
+        fail(f"dp_tp_train_step: {res}")
+    out["dp_tp_train_step"] = res
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- ring_kernel_composition: one process, 32760^2 unmasked --
+    t0 = time.perf_counter()
+    rows = ps.ring_composition(dev)
+    phase("ring_kernel_composition", rows=rows, phase_s=time.perf_counter() - t0, card=card)
+    bad = [r for r in rows if not (r["within_tol"] and r["lse_max_abs_err"] <= r["lse_tol"]
+                                   and r["launches"] == r["sp"])]
+    if bad:
+        fail(f"ring_kernel_composition: {bad}")
+    out["ring_kernel_composition"] = rows
+
+    # -- nccl_multi_gpu: a card a rank, where there are two or more --
+    n = torch.cuda.device_count()
+    if n < 2:
+        phase("nccl_multi_gpu", ran=False, devices=n, card=card)
+    else:
+        t0 = time.perf_counter()
+        tp = 2
+        ranks = launch.run(ps.tp_denoise_rank, tp, {"tiers": ("bf16",), "model": "t2v-1.3B",
+                                                   "act_scales": None},
+                           backend="nccl", device="cuda", timeout_s=400)
+        want = ps.one_process_block("bf16", "t2v-1.3B", dev, None)["x0"]
+        tp_cos = ps.cosine(ranks[0]["bf16"]["x0"], want)
+        flows = launch.run(ps.teacher_sp_rank, n, {}, backend="nccl", device="cuda",
+                           timeout_s=600)
+        cfg, params = ps.model_params("t2v-1.3B", None, dev)
+        single = ps.teacher_flow(ps.WanDiffusion(cfg=cfg, params=params), dev).cpu()
+        sp_cos = ps.cosine(flows[0]["flow"], single)
+        res = {"ran": True, "devices": n, "tp_denoise_bf16_cosine": tp_cos,
+               "teacher_sp": n, "teacher_sp_r": flows[0]["sp_r"], "teacher_sp_u": flows[0]["sp_u"],
+               "teacher_flow_cosine_vs_one_card": sp_cos,
+               "phase_s": time.perf_counter() - t0}
+        phase("nccl_multi_gpu", **res, card=card)
+        if not (tp_cos > 0.999 and sp_cos > 0.999):
+            fail(f"nccl_multi_gpu: {res}")
+        out["nccl_multi_gpu"] = res
     return out
 
 
@@ -4220,6 +4462,9 @@ def main() -> None:
     i2v14 = i2v_14b()
     server_warmup_phase(card, request)
     real_checkpoint_phase(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_phases(card)
 
     def entry(name, source, replaces, launches, case, max_abs_err, extra=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -188,7 +188,7 @@ _DEFAULT_SERVER_CONFIG: Dict[str, Any] = {
     "width": 832,
     "causal": True,
     "model_kwargs": {"timestep_shift": 5.0},
-    "mesh_shape": {},  # one device; load_all refuses more (multi-GPU: ROADMAP Queue 1 item 6)
+    "mesh_shape": {},  # one device; load_all refuses more (tp runs outside the server)
     "param_dtype": "bfloat16",
 }
 

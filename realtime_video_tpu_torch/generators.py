@@ -1,8 +1,9 @@
 """Wan 2.1-style generator facades (port of realtime_video_tpu/generators.py):
 the 50-step CFG generators over a whole clip, after the reference's
 wan/text2video.py `WanT2V.generate` and wan/image2video.py `WanI2V.generate`.
-Both run on the generator's device; the JAX package's sequence-parallel mesh
-is not ported.
+Both run on the generator's device; the teacher loop they run
+(`BidirectionalDiffusionInferencePipeline`) takes an `sp_mesh` for the
+sequence-parallel teacher (Ulysses x ring, one process a card).
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ from realtime_video_tpu_torch.config import WAN_CONFIGS, WanModelConfig
 from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.rope import RopeTables
 from realtime_video_tpu_torch.ops import kv_cache as kvc
+from realtime_video_tpu_torch.parallel import sharding
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule
 from realtime_video_tpu_torch.utils.device import resolve_device
 
@@ -34,12 +35,18 @@ class WanDiffusion:
     loads `checkpoint_path` (a reference state dict; the config is detected
     from it) when that file exists, else random-initialises them from `seed`,
     on `device` (default: the CUDA card; pass device="cpu" for the CPU); with
-    them, it runs where they lie."""
+    them, it runs where they lie.
+
+    With a `mesh` whose "tp" axis has more than one rank, the wrapper holds
+    this rank's slice of the (whole) tree it was given or made
+    (`parallel/sharding.shard_wan_params`: a fused qkv holds this rank's q,
+    k and v columns side by side), and its forwards, its cross-attention
+    caches and `init_kv_cache` run on this rank's num_heads / tp heads."""
 
     def __init__(self, cfg: Optional[WanModelConfig] = None, params=None,
                  model_name: str = "t2v-1.3B", timestep_shift: float = 5.0,
                  device=None, dtype=torch.bfloat16, seed: int = 0,
-                 fuse_qkv: bool = True, checkpoint_path: Optional[str] = None):
+                 fuse_qkv: bool = True, checkpoint_path: Optional[str] = None, mesh=None):
         if params is None and checkpoint_path and os.path.exists(checkpoint_path):
             from realtime_video_tpu_torch.utils.checkpoint import load_wan_dit
 
@@ -52,6 +59,9 @@ class WanDiffusion:
             params = wan_dit.init_wan_params(cfg, gen, device, dtype)
         if fuse_qkv:
             params = wan_dit.fuse_qkv_params(params)
+        self.mesh = mesh
+        self.num_heads = sharding.local_heads(cfg.num_heads, mesh)
+        params = sharding.shard_wan_params(params, mesh)
         self.cfg = cfg
         self.params = params
         self.device = params["patch_embedding"]["w"].device
@@ -81,6 +91,8 @@ class WanDiffusion:
         sa = self.params["blocks"]["self_attn"]
         if "w" not in sa.get("qkv", sa.get("q", {})):
             raise ValueError("calibrate on float params, before quantising")
+        if self.num_heads != cfg.num_heads:
+            raise ValueError("calibrate on one device, then shard")
         fsl = cfg.frame_seq_length(lat_h, lat_w)
         cache_size = kv_frames * fsl
         ts = [float(t) for t in steps]
@@ -117,7 +129,13 @@ class WanDiffusion:
         """Per-layer text K/V, and an i2v model's image K/V from `clip_fea`,
         of `params` (default `self.params`)."""
         return wan_dit.compute_crossattn_cache(self.cfg, self.params if params is None
-                                               else params, prompt_embeds, clip_fea=clip_fea)
+                                               else params, prompt_embeds, clip_fea=clip_fea,
+                                               mesh=self.mesh)
+
+    def init_kv_cache(self, batch_size: int, cache_size: int, dtype=torch.bfloat16) -> Dict:
+        """A zeroed serving KV cache on this rank's heads."""
+        return kvc.init_kv_cache(self.cfg.num_layers, batch_size, cache_size, self.num_heads,
+                                 self.cfg.head_dim, dtype, self.device)
 
     def forward(self, noisy: torch.Tensor, crossattn_cache, timestep: torch.Tensor,
                 kv_cache: Optional[Dict] = None, current_start: int = 0, mode: str = "decode",
@@ -125,7 +143,8 @@ class WanDiffusion:
                 schedule: Optional[FlowMatchSchedule] = None,
                 act_calib: Optional[list] = None,
                 attn_mask: Optional[torch.Tensor] = None,
-                params: Optional[Dict] = None, block_tokens: Optional[int] = None):
+                params: Optional[Dict] = None, block_tokens: Optional[int] = None,
+                sp_attn=None):
         """Returns (flow_pred, pred_x0, kv_cache) — WanDiffusionWrapper.forward
         (wan_wrapper.py:230-301). Train mode takes no cache (kv_cache None,
         returned as None), and `block_tokens` for block-causal attention or a
@@ -133,7 +152,8 @@ class WanDiffusion:
         the forward runs on (the trainable one, as the JAX package's
         `forward(params, ...)`), else `self.params`. An i2v model's input
         carries its conditioning channels after the latent's out_dim; pred_x0
-        is of the latent's channels."""
+        is of the latent's channels. `sp_attn` (train mode) runs the
+        sequence-parallel forward (`wan_dit.dit_forward`)."""
         t = timestep.to(torch.float32)
         if max_attention_size is None:
             fsl = self.cfg.frame_seq_length(noisy.shape[-2], noisy.shape[-1])
@@ -143,7 +163,7 @@ class WanDiffusion:
             crossattn_cache, mode=mode, kv_cache=kv_cache, current_start=current_start,
             max_attention_size=max_attention_size,
             layers=self.layers if params is None else None, act_calib=act_calib,
-            attn_mask=attn_mask, block_tokens=block_tokens)
+            attn_mask=attn_mask, block_tokens=block_tokens, mesh=self.mesh, sp_attn=sp_attn)
         x0 = (schedule or self.schedule).flow_to_x0(flow, noisy[:, :, :flow.shape[2]], t)
         return flow, x0, kv
 

@@ -43,9 +43,33 @@ Two tiers of block linears, chosen by the parameters:
     calibration records that `dit_forward(act_calib=...)` collects, and
     `linear` runs them through the fused int8 kernel
     (`ops/hopper_int8_mm.py`) on a card, or its plain version on the CPU.
+
+Tensor parallelism (`mesh` with a "tp" axis of size > 1; the tree and the
+caches are this rank's slices, `parallel/sharding.py`): a rank attends over
+num_heads / tp heads, and the collectives GSPMD places in the JAX package
+are explicit (`parallel/collectives.py`):
+  * a replicated activation enters the column-parallel linears (q / k / v
+    or qkv, cross q, fc1; the text K/V) through `copy_to_tp`;
+  * the row-parallel linears (o, cross o, fc2) sum their partial products
+    with `reduce_from_tp` and add their bias once, after the sum
+    (`row_linear`); an int8 one without a static scale quantises with the
+    tp group's MAX of its shards' amax, the scale one device would take;
+  * the q/k RMSNorm normalises over the whole width: each rank's sum of
+    squares is summed over tp (`rms_norm_tp`), not averaged over its shard;
+  * the attention's static logit bound (K1's pre-pass) is MAX-reduced over
+    tp before the launch, so every rank runs one device's function.
+With tp = 1 (or no mesh) none of this runs.
+
+Sequence parallelism (`sp_attn`, train mode): each rank holds a contiguous
+1/sp of the tokens from the patch embedding to the head; `sp_attn` is the
+self-attention over the sharded sequence (`parallel/sequence.py`), the
+per-frame modulation reads each token's frame index, the RoPE tables are
+sliced at the rank's token offset, the cross-attention stays local (every
+rank holds the whole text K/V), and the head's tokens are all-gathered.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -63,6 +87,9 @@ from realtime_video_tpu_torch.models.rope import (
 from realtime_video_tpu_torch.ops import attention as attn_ops
 from realtime_video_tpu_torch.ops import hopper_int8_mm
 from realtime_video_tpu_torch.ops import kv_cache as kvc
+from realtime_video_tpu_torch.parallel import collectives as coll
+from realtime_video_tpu_torch.parallel import mesh as mesh_mod
+from realtime_video_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -186,6 +213,50 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return n.to(x.dtype) * p["scale"].to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A forward's tp group: its process group, its size and the heads this
+    rank attends over."""
+
+    group: Any
+    size: int
+    heads: int
+
+
+def tensor_parallel(cfg: WanModelConfig, mesh) -> Optional[TensorParallel]:
+    """The tp group of `mesh` for this model, or None where tp is 1."""
+    size = mesh_mod.axis_size(mesh, "tp")
+    if size == 1:
+        return None
+    return TensorParallel(mesh_mod.axis_group(mesh, "tp"), size,
+                          sharding.local_heads(cfg.num_heads, mesh))
+
+
+def rms_norm_tp(p: Params, x: torch.Tensor, dim: int, group, eps: float = 1e-5) -> torch.Tensor:
+    """WanRMSNorm of a width-sharded x (this rank's heads of q or k): the
+    sum of squares over the whole width `dim`, each rank's share summed over
+    tp (a per-rank mean would be another model)."""
+    xf = x.float()
+    ss = coll.sum_over_tp(xf.square().sum(dim=-1, keepdim=True), group)
+    n = xf * torch.rsqrt(ss / dim + eps)
+    return n.to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def row_linear(p: Params, x: torch.Tensor, tp: TensorParallel, lin: Callable) -> torch.Tensor:
+    """A row-parallel linear (o, cross o, fc2): x holds this rank's rows of
+    the input, the partial products are summed over tp and the bias is added
+    once, after the sum. An int8 one without a static activation scale
+    quantises with the MAX over tp of its shards' scales, one device's."""
+    part = {k: v for k, v in p.items() if k != "b"}
+    if "w_q" in part and "a_scale" not in part:
+        part["a_scale"] = coll.all_reduce_max_(hopper_int8_mm.dynamic_scale(x).detach(),
+                                               tp.group)
+    y = coll.reduce_from_tp(lin(part, x), tp.group)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None, eps: float = 1e-6) -> torch.Tensor:
     """WanLayerNorm (model.py:88-98): f32 stats, optional affine."""
@@ -204,17 +275,22 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def modulate(x: torch.Tensor, num_frames: int, shift: torch.Tensor,
+def modulate(x: torch.Tensor, num_frames, shift: torch.Tensor,
              scale: torch.Tensor) -> torch.Tensor:
     """Per-frame AdaLN: x [B, L, D] viewed as [B, F, L/F, D];
-    x * (1 + scale) + shift (causal_model.py:471)."""
+    x * (1 + scale) + shift (causal_model.py:471). `num_frames` may be each
+    token's frame index ([L] long: a sequence-parallel shard of tokens)."""
+    if isinstance(num_frames, torch.Tensor):
+        return x * (1.0 + scale[:, num_frames].to(x.dtype)) + shift[:, num_frames].to(x.dtype)
     b, L, d = x.shape
     xf = x.reshape(b, num_frames, L // num_frames, d)
     y = xf * (1.0 + scale[:, :, None, :].to(x.dtype)) + shift[:, :, None, :].to(x.dtype)
     return y.reshape(b, L, d)
 
 
-def gate(x: torch.Tensor, num_frames: int, g: torch.Tensor) -> torch.Tensor:
+def gate(x: torch.Tensor, num_frames, g: torch.Tensor) -> torch.Tensor:
+    if isinstance(num_frames, torch.Tensor):  # each token's frame index
+        return x * g[:, num_frames].to(x.dtype)
     b, L, d = x.shape
     xf = x.reshape(b, num_frames, L // num_frames, d)
     return (xf * g[:, :, None, :].to(x.dtype)).reshape(b, L, d)
@@ -399,13 +475,18 @@ def img_embedding(params: Params, clip_fea: torch.Tensor) -> torch.Tensor:
 
 
 def compute_crossattn_cache(cfg: WanModelConfig, params: Params, context: torch.Tensor,
-                            clip_fea: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                            clip_fea: Optional[torch.Tensor] = None,
+                            mesh=None) -> Dict[str, torch.Tensor]:
     """Per-layer text K/V [L, B, T, N, Dh], computed once per prompt. An i2v
     model given `clip_fea` [B, 257, 1280] also caches the image K/V
-    `k_img` / `v_img` [L, B, 257, N, Dh] of its projected features."""
+    `k_img` / `v_img` [L, B, 257, N, Dh] of its projected features. Under
+    tp (`mesh`; `params` this rank's slice) the cache holds this rank's
+    N / tp heads, the norm over the whole width."""
+    tp = tensor_parallel(cfg, mesh)
     ctx = text_embedding(cfg, params, context)  # [B, T, D]
     ca = params["blocks"]["cross_attn"]
-    n, dh, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    n, dh, nl = cfg.num_heads if tp is None else tp.heads, cfg.head_dim, cfg.num_layers
+    norm = rms_norm if tp is None else functools.partial(rms_norm_tp, dim=cfg.dim, group=tp.group)
 
     def project(pp, src):
         """src @ w for every layer, a layer at a time: int8 weights are
@@ -420,8 +501,10 @@ def compute_crossattn_cache(cfg: WanModelConfig, params: Params, context: torch.
 
     def kv(src, k_name, v_name, norm_name):
         b, T, _ = src.shape
-        k = rms_norm({"scale": ca[norm_name]["scale"][:, None, None, :]},
-                     project(ca[k_name], src))
+        if tp is not None:
+            src = coll.copy_to_tp(src, tp.group)
+        k = norm({"scale": ca[norm_name]["scale"][:, None, None, :]},
+                 project(ca[k_name], src))
         v = project(ca[v_name], src)
         return k.reshape(nl, b, T, n, dh).contiguous(), v.reshape(nl, b, T, n, dh).contiguous()
 
@@ -437,33 +520,43 @@ def compute_crossattn_cache(cfg: WanModelConfig, params: Params, context: torch.
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f: int,
+def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f,
            e0: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
-           cross: Tuple[torch.Tensor, ...], attend: Callable, lin: Callable):
+           cross: Tuple[torch.Tensor, ...], attend: Callable, lin: Callable,
+           tp: Optional[TensorParallel] = None):
     """One transformer layer (causal_model.py:436-493): returns (tokens, k, v),
     k and v the layer's roped self-attention keys and values. `attend(q, k,
     v)` is the self-attention of the mode (it may write a cache); `cross` is
-    the layer's text K/V, and an i2v model's image K/V after them."""
+    the layer's text K/V, and an i2v model's image K/V after them. `f` is
+    the frame count, or each token's frame index (see `modulate`). With `tp`
+    the layer runs on this rank's heads and FFN columns (module note)."""
     b, L, _ = tokens.shape
-    n, dh = cfg.num_heads, cfg.head_dim
+    n, dh = cfg.num_heads if tp is None else tp.heads, cfg.head_dim
+    if tp is None:
+        enter, norm, out_lin, bound = (lambda x: x), rms_norm, lin, None
+    else:
+        enter = functools.partial(coll.copy_to_tp, group=tp.group)
+        norm = functools.partial(rms_norm_tp, dim=cfg.dim, group=tp.group)
+        out_lin = functools.partial(row_linear, tp=tp, lin=lin)
+        bound = tp.group
     em = bp["modulation"][None].float() + e0  # [B, F, 6, D]
     sh_msa, sc_msa, g_msa = em[:, :, 0], em[:, :, 1], em[:, :, 2]
     sh_ffn, sc_ffn, g_ffn = em[:, :, 3], em[:, :, 4], em[:, :, 5]
 
     # ---- self attention ----
-    xn = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa)
+    xn = enter(modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa))
     sa = bp["self_attn"]
     if "qkv" in sa:
         q, k, v = lin(sa["qkv"], xn).chunk(3, dim=-1)
     else:
         q, k, v = lin(sa["q"], xn), lin(sa["k"], xn), lin(sa["v"], xn)
-    q = rms_norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
-    k = rms_norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
+    q = norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
+    k = norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
     v = v.reshape(b, L, n, dh)
     q = rope_apply_fused(q, *rope)
     k = rope_apply_fused(k, *rope)
     y = attend(q, k, v)
-    y = lin(sa["o"], y.reshape(b, L, cfg.dim))
+    y = out_lin(sa["o"], y.reshape(b, L, n * dh))
     tokens = tokens + gate(y, f, g_msa)
 
     # ---- cross attention over the cached text K/V ----
@@ -472,16 +565,17 @@ def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f: int,
         xc = layer_norm(tokens, bp["norm3"]["scale"], bp["norm3"]["bias"], eps=cfg.eps)
     else:
         xc = tokens
-    qc = rms_norm(ca["norm_q"], lin(ca["q"], xc), eps=cfg.eps).reshape(b, L, n, dh)
-    yc = attn_ops.attention(qc, cross[0].to(qc.dtype), cross[1].to(qc.dtype))
+    qc = norm(ca["norm_q"], lin(ca["q"], enter(xc)), eps=cfg.eps).reshape(b, L, n, dh)
+    yc = attn_ops.attention(qc, cross[0].to(qc.dtype), cross[1].to(qc.dtype), bound_group=bound)
     if len(cross) == 4:  # i2v: the image tokens, before o
-        yc = yc + attn_ops.attention(qc, cross[2].to(qc.dtype), cross[3].to(qc.dtype))
-    tokens = tokens + lin(ca["o"], yc.reshape(b, L, cfg.dim))
+        yc = yc + attn_ops.attention(qc, cross[2].to(qc.dtype), cross[3].to(qc.dtype),
+                                     bound_group=bound)
+    tokens = tokens + out_lin(ca["o"], yc.reshape(b, L, n * dh))
 
     # ---- ffn ----
-    xf2 = modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn)
+    xf2 = enter(modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn))
     ff = bp["ffn"]
-    y = lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
+    y = out_lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
     return tokens + gate(y, f, g_ffn), k, v
 
 
@@ -537,6 +631,8 @@ def dit_forward(
     block_tokens: Optional[int] = None,
     gan_classify: Optional[Params] = None,
     tf_concat: bool = False,
+    mesh=None,
+    sp_attn=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One transformer forward. Returns (flow_pred [B, F, C, H, W], kv_cache),
     the cache updated (None in train mode); with `gan_classify` (taps,
@@ -567,7 +663,23 @@ def dit_forward(
     K/V). With grad enabled, a layer whose input carries a graph runs under
     `torch.utils.checkpoint` (non-reentrant): the same values and gradients,
     its activations recomputed in the backward, so that a full-width
-    training step fits one card."""
+    training step fits one card; under tp the recompute issues the layer's
+    collectives again, in the same order on every rank.
+
+    `mesh` with a "tp" axis of size > 1 runs the tensor-parallel forward on
+    this rank's slice of the tree (`params`, `layers`, the caches: see the
+    module note); `sp_attn` (train mode, no mask) the sequence-parallel one:
+    x and t whole on every rank, this rank's tokens through the layers,
+    the flow whole again after the head."""
+    tp = tensor_parallel(cfg, mesh)
+    if tp is not None and (act_calib is not None or gan_classify is not None):
+        raise ValueError("tensor parallelism runs the decode, prefill and train forwards; "
+                         "calibrate and classify on one device")
+    if sp_attn is not None and (mode != "train" or attn_mask is not None or tf_concat
+                                or block_tokens is not None or gan_classify is not None
+                                or tp is not None):
+        raise ValueError("sp_attn is the unmasked train-mode forward's self-attention, "
+                         "without tp")
     train_cache = kv_cache is not None and kvc.is_train_cache(kv_cache)
     if mode == "train":
         if kv_cache is not None:
@@ -597,6 +709,15 @@ def dit_forward(
 
     tokens = patchify(cfg, params, x)
     e, e0 = time_embeddings(cfg, params, t)
+    frames = f
+    if sp_attn is not None:
+        # this rank's contiguous share of the tokens (xdit_context_parallel.py:130-133)
+        if L % sp_attn.size:
+            raise ValueError(f"{L} tokens do not split over sp={sp_attn.size}")
+        share = L // sp_attn.size
+        offset = sp_attn.rank * share
+        tokens = tokens[:, offset:offset + share].contiguous()
+        frames = torch.arange(offset, offset + share, device=tokens.device) // fsl
 
     cache_size = 0 if kv_cache is None else kvc.cache_size(kv_cache)
     if mode == "decode":
@@ -628,11 +749,16 @@ def dit_forward(
     rope = rope_tables.fused(*grid, start_frame)
     if tf_concat:
         rope = tuple(torch.cat([r, r]) for r in rope)
+    if sp_attn is not None:
+        rope = tuple(r[offset:offset + share] for r in rope)
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
     lin = linear if act_calib is None else functools.partial(linear, record=act_calib)
+    bound = None if tp is None else tp.group
 
     def train_attend(q, k, v):
+        if sp_attn is not None:
+            return sp_attn(q, k, v)
         if tf_concat and attn_mask is None:
             return attn_ops.teacher_forcing_attention(q, k.contiguous(), v.contiguous(),
                                                       L // 2, block_tokens)
@@ -640,12 +766,13 @@ def dit_forward(
             return attn_ops.block_causal_attention(q, k.contiguous(), v.contiguous(),
                                                    block_tokens)
         mask = None if attn_mask is None else attn_mask[None, None]
-        return attn_ops.attention(q, k.contiguous(), v.contiguous(), mask=mask)
+        return attn_ops.attention(q, k.contiguous(), v.contiguous(), mask=mask,
+                                  bound_group=bound)
 
     def prefix_attend(prefix_k, prefix_v, q, k, v):
         wk = torch.cat([*prefix_k, k.to(q.dtype)], 1)
         wv = torch.cat([*prefix_v, v.to(q.dtype)], 1)
-        return attn_ops.decode_attention(q, wk, wv, 0, wk.shape[1])
+        return attn_ops.decode_attention(q, wk, wv, 0, wk.shape[1], bound_group=bound)
 
     def cache_attend(lid, q, k, v):
         if torch.is_grad_enabled() and (k.requires_grad or v.requires_grad):
@@ -662,7 +789,7 @@ def dit_forward(
                                                    prefill_block_tokens)
         wk = ck[:, win_start:win_start + win].to(q.dtype).contiguous()
         wv = cv[:, win_start:win_start + win].to(q.dtype).contiguous()
-        return attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi)
+        return attn_ops.decode_attention(q, wk, wv, dec_lo, dec_hi, bound_group=bound)
 
     cross_names = ("k", "v") + (("k_img", "v_img") if "k_img" in crossattn_cache else ())
     tap_out: Dict[int, torch.Tensor] = {}
@@ -675,8 +802,8 @@ def dit_forward(
         else:
             attend = functools.partial(cache_attend, lid)
         cross = tuple(crossattn_cache[name][lid] for name in cross_names)
-        run = functools.partial(_block, cfg, bp, f=f, e0=e0, rope=rope, cross=cross,
-                                attend=attend, lin=lin)
+        run = functools.partial(_block, cfg, bp, f=frames, e0=e0, rope=rope, cross=cross,
+                                attend=attend, lin=lin, tp=tp)
         if torch.is_grad_enabled() and tokens.requires_grad:
             tokens, k, v = torch.utils.checkpoint.checkpoint(run, tokens, use_reentrant=False)
         else:
@@ -701,8 +828,13 @@ def dit_forward(
         tokens, e, f = tokens[:, L // 2:], e[:, f // 2:], f // 2
     hp = params["head"]
     eh = hp["modulation"][None].float() + e[:, :, None, :]  # [B, F, 2, D]
-    yh = modulate(layer_norm(tokens, eps=cfg.eps), f, eh[:, :, 0], eh[:, :, 1])
+    yh = modulate(layer_norm(tokens, eps=cfg.eps), frames if sp_attn is not None else f,
+                  eh[:, :, 0], eh[:, :, 1])
     out = linear(hp["head"], yh)
+    if sp_attn is not None and sp_attn.size > 1:
+        # the head is per token, so its output is gathered, not its 1536-wide
+        # input (xdit_context_parallel.py:141-142)
+        out = coll.all_gather(out, 1, sp_attn.gather_group)
     flow = unpatchify(cfg, out, grid)
     if gan_classify is None:
         return flow, kv_cache
@@ -724,6 +856,7 @@ def context_prefill(
     kv_cache: Dict,
     block_tokens: int,
     layers: Optional[List[Params]] = None,
+    mesh=None,
 ) -> Dict:
     """Write clean-context K/V into a freshly reset cache (the serving
     recompute path, release_server.py:588-633), always through the
@@ -737,7 +870,7 @@ def context_prefill(
     t0 = torch.zeros((b, f), dtype=torch.float32, device=clean_ctx.device)
     _, kv = dit_forward(cfg, params, clean_ctx, t0, rope_tables, crossattn_cache,
                         mode="prefill", kv_cache=kv_cache,
-                        prefill_block_tokens=block_tokens, layers=layers)
+                        prefill_block_tokens=block_tokens, layers=layers, mesh=mesh)
     return kv
 
 

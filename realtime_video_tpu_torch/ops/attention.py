@@ -10,6 +10,8 @@ kernel cannot take raises.
     with a dense `mask` only the plain version exists, so it runs on the CPU
     alone.
   * `decode_attention(q, k, v, lo, hi)` — the rolling-cache window [lo, hi).
+  * `attention_with_lse(q, k, v)` — unmasked, with each row's LSE (the
+    sequence-parallel ring merges these).
   * `block_causal_attention(q, k, v, block_tokens, local_window)` —
     kv < ends[q] (get_block_mask semantics, causal_model.py:108-141).
   * `teacher_forcing_attention(q, k, v, half_len, block_tokens)` — the
@@ -44,9 +46,11 @@ def plain_attention(q, k, v, mask: Optional[torch.Tensor] = None,
 
 
 def attention(q, k, v, mask: Optional[torch.Tensor] = None,
-              scale: Optional[float] = None) -> torch.Tensor:
+              scale: Optional[float] = None, bound_group=None) -> torch.Tensor:
+    """`bound_group`: the tp (or Ulysses) group over whose ranks the static
+    logit bound is MAX-reduced (`hopper_attention.window_attention`)."""
     if mask is None:
-        return hk.window_attention(q, k, v, 0, k.shape[1], scale)
+        return hk.window_attention(q, k, v, 0, k.shape[1], scale, bound_group=bound_group)
     if q.is_cuda:
         raise NotImplementedError(
             "dense-mask attention has no CUDA kernel in the port; use "
@@ -54,9 +58,16 @@ def attention(q, k, v, mask: Optional[torch.Tensor] = None,
     return plain_attention(q, k, v, mask, scale)
 
 
-def decode_attention(q, k, v, lo: int, hi: int) -> torch.Tensor:
+def decode_attention(q, k, v, lo: int, hi: int, bound_group=None) -> torch.Tensor:
     """Cache-window decode attention: q attends to k/v positions [lo, hi)."""
-    return hk.window_attention(q, k, v, lo, hi)
+    return hk.window_attention(q, k, v, lo, hi, bound_group=bound_group)
+
+
+def attention_with_lse(q, k, v, scale: Optional[float] = None):
+    """Unmasked attention and each row's natural-log LSE (f32 [B, N, Lq]) of
+    the function the launch computed: one K1 launch on a card, the plain
+    forward on the CPU (a ring step of `parallel/sequence.py`)."""
+    return hk.window_attention(q, k, v, 0, k.shape[1], scale, route="window", return_lse=True)
 
 
 def block_causal_attention(q, k, v, block_tokens: int,

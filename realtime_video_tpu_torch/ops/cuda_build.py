@@ -72,6 +72,10 @@ def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:
     compiler's output if any build fails."""
     libs = {src: library_path(src) for src in sources}
     todo = [(src, lib) for src, lib in libs.items() if not lib.exists()]
+    if todo and os.environ.get("RTV_CUDA_NO_BUILD") == "1":
+        # a rank of parallel/launch.run: its parent builds, the ranks only load
+        raise RuntimeError(f"RTV_CUDA_NO_BUILD=1 and {[s.name for s, _ in todo]} not built: "
+                           "build them before the ranks start (cuda_build.build_all)")
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         compiler = nvcc()

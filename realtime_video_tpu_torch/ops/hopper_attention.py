@@ -90,6 +90,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from realtime_video_tpu_torch.ops import cuda_build
+from realtime_video_tpu_torch.parallel import collectives as coll
 
 LOG2E = 1.4426950408889634
 #: exp2(s - M) cannot underflow a whole row while M stays below this bound
@@ -688,10 +689,10 @@ class KernelAttention(torch.autograd.Function):
     autograd equals the dense softmax's."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask: Mask, scale: float, static: bool):
+    def forward(ctx, q, k, v, mask: Mask, scale: float, static: bool, bound_group=None):
         if q.is_cuda:
             _check(q, k, v)
-            maxima = _maxima_launch(q, k, scale) if static else None
+            maxima = _bound_maxima(q, k, scale, bound_group) if static else None
             out, lse = _launch_sm90(q, k, v, scale, maxima, *mask.kernel_args(), with_lse=True)
             LAUNCHES[mask.key] += 1
         else:
@@ -706,17 +707,33 @@ class KernelAttention(torch.autograd.Function):
         need_kv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
         dq, dk, dv = attention_backward(q, k, v, out, do.contiguous(), lse, ctx.scale, ctx.mask,
                                         need_kv=need_kv)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _bound_maxima(q, k, scale: float, bound_group=None) -> torch.Tensor:
+    """The bound pre-pass's maxima, MAX-reduced over `bound_group` when one
+    is given: a rank that holds some of the heads (tp, Ulysses) then takes
+    the bound of all of them, as one device would."""
+    maxima = _maxima_launch(q, k, scale)
+    if bound_group is not None:
+        coll.all_reduce_max_(maxima, bound_group)
+    return maxima
+
+
 def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
-                     route: Optional[str] = None) -> torch.Tensor:
+                     route: Optional[str] = None, bound_group=None,
+                     return_lse: bool = False):
     """Attend q to KV positions [lo, hi) (host ints), by `route` (one of
-    WINDOW_ROUTES; default: `window_route()` under the current switches)."""
+    WINDOW_ROUTES; default: `window_route()` under the current switches).
+    `bound_group`: MAX-reduce the static logit bound over this process group
+    before the launch (`_bound_maxima`). `return_lse` (the unmasked bf16
+    window only, no gradient): (out, lse), lse the natural-log f32 [B, N,
+    Lq] of the function the launch computed (the kernel's, whose scores are
+    bf16(q c) k^T; the plain forward's on the CPU)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     lk = k.shape[1]
@@ -725,12 +742,24 @@ def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
     if route not in WINDOW_ROUTES:
         raise ValueError(f"window route {route!r} not in {WINDOW_ROUTES}")
     int8 = route == "window_int8qk"
+    if return_lse:
+        if route != "window" or (lo, hi) != (0, lk) or _needs_grad(q, k, v):
+            raise ValueError("return_lse is the unmasked 'window' route's, without a gradient")
+        if not q.is_cuda:
+            return attention_forward_plain(q, k, v, Mask.window(lo, hi), scale)
+        _check(q, k, v)
+        maxima = _bound_maxima(q, k, scale, bound_group) if static_max(route) else None
+        out = _launch_sm90(q, k, v, scale, maxima, _MODE_WINDOW, lo, hi, 1, lk, -1,
+                           with_lse=True)
+        LAUNCHES[route] += 1
+        return out
     if _needs_grad(q, k, v):
         if route != "window":
             raise NotImplementedError(
                 f"the {route!r} attention route has no backward kernel: a gradient needs the "
                 "bf16 'window' route (RTV_ATTN_INT8, _SKEW and _SKEW2 off)")
-        return KernelAttention.apply(q, k, v, Mask.window(lo, hi), scale, static_max(route))
+        return KernelAttention.apply(q, k, v, Mask.window(lo, hi), scale, static_max(route),
+                                     bound_group)
     if not q.is_cuda:
         if int8:
             return window_attention_int8qk_plain(q, k, v, lo, hi, scale)
@@ -740,7 +769,7 @@ def window_attention(q, k, v, lo: int, hi: int, scale: Optional[float] = None,
         out = _launch_int8(q, k, v, scale, _MODE_WINDOW, lo, hi, 1, lk, -1,
                            seg=segment_rows(lk))
     else:  # window (K1/K2), window_skew (K6a), window_skew_staticmax (K6b)
-        maxima = _maxima_launch(q, k, scale) if static_max(route) else None
+        maxima = _bound_maxima(q, k, scale, bound_group) if static_max(route) else None
         out = _launch_sm90(q, k, v, scale, maxima, _MODE_WINDOW, lo, hi, 1, lk, -1)
     LAUNCHES[route] += 1
     return out
@@ -768,7 +797,8 @@ def block_causal_attention(q, k, v, block_tokens: int,
         if q.shape[1] != k.shape[1]:
             raise ValueError("block-causal attention needs Lq == Lk")
         return KernelAttention.apply(q, k, v, Mask.block_causal(k.shape[1], block_tokens,
-                                                                local_window), scale, False)
+                                                                local_window), scale, False,
+                                     None)
     if not q.is_cuda:
         if int8:
             return block_causal_attention_int8qk_plain(q, k, v, block_tokens, local_window,
@@ -817,7 +847,7 @@ def teacher_forcing_attention(q, k, v, half_len: int, block_tokens: int,
         raise ValueError(f"teacher forcing over 2 x {half_len} tokens, got Lq {q.shape[1]} "
                          f"and Lk {k.shape[1]}")
     if _needs_grad(q, k, v):
-        return KernelAttention.apply(q, k, v, mask, scale, False)
+        return KernelAttention.apply(q, k, v, mask, scale, False, None)
     if not q.is_cuda:
         return teacher_forcing_attention_plain(q, k, v, half_len, block_tokens, scale)
     _check(q, k, v)

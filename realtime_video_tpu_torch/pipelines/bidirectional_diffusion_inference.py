@@ -10,8 +10,17 @@ unmasked window on a card), guided as flow_u + g * (flow_c - flow_u), and
 one solver (UniPC, or DPM++ on the explicit `get_sampling_sigmas` ladder)
 steps the latents. `WanI2V` runs its loop here too, with the CLIP
 features in both cross caches and its 20 conditioning channels beside the
-latents. The pipeline runs on the generator's device; the JAX package's
-sequence-parallel mesh is not ported.
+latents. The pipeline runs on the generator's device.
+
+`sp_mesh` (a one-axis DeviceMesh over the whole world, one rank a card)
+shards the teacher's tokens over its ranks with hybrid USP attention, as
+the reference runs its teacher under xDiT USP (text2video.py:87-97): the
+Ulysses degree is the largest divisor of the world that divides the heads,
+and the ring covers the rest (`_sp_attention`, built once with its process
+groups when the pipeline is made, so a loop over clips makes no new group).
+Every rank runs the whole loop on the same noise and gets the whole flow
+back from each forward (`wan_dit.dit_forward(sp_attn=)`), so the solver's
+state stays replicated.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from typing import List, Optional
 import torch
 
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
+from realtime_video_tpu_torch.parallel import mesh as mesh_mod
+from realtime_video_tpu_torch.parallel import sequence
 from realtime_video_tpu_torch.pipelines.causal_diffusion_inference import (
     ProfileClock,
     decode_video,
@@ -29,7 +40,8 @@ from realtime_video_tpu_torch.solvers import make_solver
 
 
 class BidirectionalDiffusionInferencePipeline:
-    def __init__(self, config, generator: WanDiffusion, text_encoder=None, vae=None):
+    def __init__(self, config, generator: WanDiffusion, text_encoder=None, vae=None,
+                 sp_mesh=None):
         self.generator = generator
         self.text_encoder = text_encoder
         self.vae = vae
@@ -37,14 +49,27 @@ class BidirectionalDiffusionInferencePipeline:
         self.sample_solver = config.get("sample_solver", "unipc")
         self.sampling_steps = int(config.get("sampling_steps", 50))
         self.shift = float(config.get("timestep_shift", 5.0))
+        self.sp_mesh = sp_mesh
+        self.sp_attn, self.usp_mesh = (None, None) if sp_mesh is None else self._sp_attention()
         self.last_profile: Optional[dict] = None
 
     def _forward(self, cross, x: torch.Tensor, t: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
         if y is not None:
             x = torch.cat([x, y], dim=2)  # i2v: 16 + 20 = 36 channels
-        flow, _, _ = self.generator.forward(x, cross, t, mode="train")
+        flow, _, _ = self.generator.forward(x, cross, t, mode="train", sp_attn=self.sp_attn)
         return flow
+
+    def _sp_attention(self):
+        """(USP attention over `sp_mesh`, the (ring, Ulysses) mesh it runs
+        on): Ulysses degree the largest divisor of the world that divides the
+        heads, the ring over the rest (xdit_context_parallel.py:179-184)."""
+        n = self.sp_mesh.size()
+        heads = self.generator.cfg.num_heads
+        uly = max(d for d in range(1, n + 1) if n % d == 0 and heads % d == 0)
+        mesh2 = mesh_mod.make_mesh({"sp_r": n // uly, "sp_u": uly},
+                                   self.sp_mesh.device_type)
+        return sequence.make_usp_attention(mesh2, "sp_u", "sp_r"), mesh2
 
     def inference(self, noise: torch.Tensor, text_prompts: Optional[List[str]] = None,
                   prompt_embeds: Optional[torch.Tensor] = None,

@@ -197,14 +197,15 @@ def load_pipeline(config, transformer, text_encoder, vae) -> CausalInferencePipe
 
 
 def check_mesh_shape(config) -> None:
-    """The port serves on one card: a `mesh_shape` whose sizes multiply to
-    more than 1 device is refused, not run on one card in silence."""
+    """The server runs on one card: a `mesh_shape` whose sizes multiply to
+    more than 1 device is refused, not run on one card in silence. (The
+    JAX server never reads `mesh_shape` either; the tp denoise block runs
+    outside the server, one process a rank: `parallel/launch.py`.)"""
     shape = dict(config.get("mesh_shape") or {})
     devices = math.prod(int(n) for n in shape.values())
     if devices > 1:
-        raise ValueError(f"mesh_shape {shape} asks for {devices} devices; the port serves on "
-                         "one card (multi-GPU tensor parallelism is ROADMAP Queue 1 item 6): "
-                         "set mesh_shape: {}")
+        raise ValueError(f"mesh_shape {shape} asks for {devices} devices; the server runs on "
+                         "one card (tp inside the server: ROADMAP): set mesh_shape: {}")
 
 
 def load_all(config, device, seed: int = 0) -> Models:

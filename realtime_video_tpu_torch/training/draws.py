@@ -40,3 +40,25 @@ class TorchDraws:
 
     def randint(self, low, high, shape) -> torch.Tensor:
         return torch.randint(low, high, tuple(shape), generator=self._int)
+
+
+class DataParallelDraws:
+    """A dp rank's share of the draws of the whole batch: each draw is made
+    at dp x the local leading (batch) size from `draws`, in its order, and
+    this rank keeps its rows. Every rank of the step then sees what one
+    device drawing the whole batch sees (the JAX step draws the whole
+    sharded batch from one key)."""
+
+    def __init__(self, draws: Draws, dp: int, rank: int):
+        self.draws, self.dp, self.rank = draws, dp, rank
+
+    def _rows(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        return x[self.rank * b:(self.rank + 1) * b]
+
+    def normal(self, shape, dtype, device) -> torch.Tensor:
+        b = shape[0]
+        return self._rows(self.draws.normal((b * self.dp, *shape[1:]), dtype, device), b)
+
+    def randint(self, low, high, shape) -> torch.Tensor:
+        b = shape[0]
+        return self._rows(self.draws.randint(low, high, (b * self.dp, *shape[1:])), b)

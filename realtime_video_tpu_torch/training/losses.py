@@ -51,20 +51,22 @@ def causal_flow_matching_loss(
     num_frame_per_block: int = 3,
     loss_type: str = "flow",
     context_noise_max: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal diffusion pretraining loss (model/diffusion.py:86-113): a
     block-causal train-mode forward of `params` on noised latents against the
     flow target. The cross-attention K/V are computed inside the loss, so
-    their projections get gradients too."""
+    their projections get gradients too. With a tp `mesh`, `params` is this
+    rank's slice and the forward the tensor-parallel one."""
     del context_noise_max
     b, f, c, h, w = latents.shape
     fsl = gen.cfg.frame_seq_length(h, w)
     t = sample_block_timesteps(draws, b, f, num_frame_per_block, device=latents.device)
     noise = draws.normal(latents.shape, latents.dtype, latents.device)
     noisy = gen.schedule.add_noise(latents, noise, t)
-    cross = gen.compute_crossattn_cache(prompt_embeds, params=params)
+    cross = wan_dit.compute_crossattn_cache(gen.cfg, params, prompt_embeds, mesh=mesh)
     flow_pred, _ = wan_dit.dit_forward(gen.cfg, params, noisy, t, gen.rope, cross, mode="train",
-                                       block_tokens=fsl * num_frame_per_block)
+                                       block_tokens=fsl * num_frame_per_block, mesh=mesh)
     target = gen.schedule.training_target(latents, noise, t)
     weights = gen.schedule.training_weight(t)
     loss = denoising_loss(loss_type, flow_pred, target, weights=weights)

@@ -3,12 +3,13 @@ its serving stack, TAEHV, the quantised-tree cache, the offline sampler, the
 solvers, the teacher pipelines, `WanT2V` and `WanI2V`, the CLIP towers, the
 image and prompt-extension utilities, the training stack (`train`,
 `training/` with GAN, the self-forcing rollout, the datasets), the ODE-pair
-scripts (`scripts/`) and every other module of it, and neither `jax` nor
-the JAX package enters sys.modules. Also holds
+scripts (`scripts/`), the parallel layer (`parallel/`: mesh, launch,
+collectives, sharding, sequence, plan) and every other module of it, and
+neither `jax` nor the JAX package enters sys.modules. Also holds
 that the port's kernel wrappers take a CUDA tensor only to their kernels (on
 a CPU-only host they must raise, not fall back), and that its entry points
-(TAEHV's init and `sample_videos` among them) build on the card unless
-asked for the CPU."""
+(TAEHV's init and `sample_videos` among them, and `parallel/launch.run`,
+NCCL with a card a rank) build on the card unless asked for the CPU."""
 import pathlib
 import subprocess
 import sys
@@ -53,7 +54,12 @@ def test_port_imports_no_jax():
             "realtime_video_tpu_torch.scripts.run_real_checkpoint",
             "realtime_video_tpu_torch.sweep_sample", "realtime_video_tpu_torch.examples",
             "realtime_video_tpu_torch.examples.generate",
-            "realtime_video_tpu_torch.examples.sample_example"} <= set(mods)
+            "realtime_video_tpu_torch.examples.sample_example",
+            "realtime_video_tpu_torch.parallel.mesh", "realtime_video_tpu_torch.parallel.launch",
+            "realtime_video_tpu_torch.parallel.collectives",
+            "realtime_video_tpu_torch.parallel.sharding",
+            "realtime_video_tpu_torch.parallel.sequence",
+            "realtime_video_tpu_torch.parallel.plan"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -118,6 +124,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sample.sample_videos(["a cat"], save_videos=False)
     assert taehv.init_taehv_params(torch.Generator(), "cpu")["decoder"][1]["w"].device.type == \
         "cpu"
+    from realtime_video_tpu_torch.parallel import launch
+
+    with pytest.raises(RuntimeError, match="NCCL needs a card a rank"):
+        launch.run(print, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run(print, 2, backend="gloo")
 
 
 def test_ode_pairs_script_defaults_to_the_card(monkeypatch, tmp_path):
