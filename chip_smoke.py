@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 for the numbers in PERF.md).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]   (those alone)
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), the build of the
@@ -153,7 +154,18 @@ Phases, each reported on its own lines:
          `int8_static_scales`: calibrated and quantised on the card), two
          sessions; block 0's x0 must correlate with the bf16 tier's (> 0.99)
          on the same seed and request, with a random head so that the DiT's
-         output is not zero;
+         output is not zero; then on its models the VAE's placement
+         (`vae_phases`): `device_guard` (the bindings' device guard's host
+         cost a block), `vae_split_one_card` (the VAE in bf16 and int8
+         split by rows into 2 and 4 shards on this card against the
+         unsplit one, K4/K5 at every shard form against the plain version,
+         interior halos zeroed as the planted fault, a 3-block session with
+         a 2-shard VAE), `vae_split_conv_bf16` (the split's bf16 convs one
+         at a time, and their no-halo fault), `vae_fuseup` (the phase-folded decode in bf16 and
+         int8 against the unfused one, the fused convs' forms at 4x the
+         output channels, both timed in turns) and `vae_multi_gpu` (a VAE
+         pinned to cuda:1, and split over cuda:1..N-1, against one card;
+         `{"ran": false}` on one card);
        - the same tier served by `load_all`'s default text encoder, umT5-xxl
          (random weights from the seed, the fallback tokenizer): its forward
          at L=512 timed with CUDA events beside its bound, the load and
@@ -262,6 +274,7 @@ from __future__ import annotations
 
 import asyncio
 import atexit
+import contextlib
 import ctypes
 import dataclasses
 import faulthandler
@@ -2318,6 +2331,490 @@ def parallel_phases(card: str) -> dict:
     return out
 
 
+#: the VAE split against the same card's unsplit VAE, by tier: relative
+#: Frobenius error of the pixels and latents (an int8 session's frames and a
+#: VAE on other cards: the int8 bar). Set from the first readings on an H100
+#: 80GB HBM3 at 700 W: int8 split and unsplit are bit-equal (0.0: the s8
+#: convs are exact and every other op computes a pixel alike), so its bar
+#: leaves room for a few quanta only; f32 shows the split's arithmetic with
+#: cuDNN in the convs. Interior halos zeroed read 0.21-0.22, so the planted
+#: fault must miss the f32 and int8 bars by 10x. bf16 read 1.9e-2, the same
+#: with cuDNN deterministic, while the convs held one at a time are
+#: bit-equal: which bf16 op rounds otherwise at the shard shapes is not
+#: known (the fold, an exact rewrite, moves bf16 pixels by 1.8e-2 too). So
+#: the bf16 bar is a gross check only, 4x below the fault: the f32 and int8
+#: bars and the split's bf16 convs one at a time (VAE_SPLIT_CONV_BF16_BAR)
+#: hold the split.
+VAE_SPLIT_BARS = {"f32": 1e-4, "int8": 1e-3, "bf16": 5e-2}
+#: one bf16 causal conv of the VAE split into row shards (the walk's halo
+#: exchange on the spliced input, then each shard's cuDNN conv) against the
+#: full-height conv cut to the same rows: relative Frobenius error. Set from
+#: the first readings (H100 80GB HBM3, 700 W): 3.5e-5 at most while an edge
+#: shard padded a copy of its input (one-ulp flips, cuDNN deterministic
+#: alike), bit-equal since it pads both sides and drops a row; interior halos
+#: zeroed read 0.037 (full rows, 2 shards) to 0.18 (latent rows, 4), 37-184x
+#: this bar
+VAE_SPLIT_CONV_BF16_BAR = 1e-3
+#: the phase-folded decode against the unfused one in bf16 (the folded
+#: weights are rounded to bf16 once more)
+FUSEUP_BF16_REL_FRO_BAR = 5e-2
+#: the int8 fused decode's mean abs error against the bf16 unfused decode,
+#: at most this many times the unfused int8 decode's: the fold may add no
+#: error of its own beyond int8's (the JAX test's absolute 0.02, held at tiny
+#: dims on the CPU, does not hold at full width: the unfused int8 decode of
+#: the random Wan 2.1 VAE is itself 0.027 from bf16 on an H100)
+FUSEUP_INT8_ERR_RATIO_BAR = 1.2
+
+
+def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
+               phases=("split", "fuseup", "multi_gpu")) -> dict:
+    """The VAE's placement, row split and upsample fold at 832x480 (480x832
+    pixels, latents 60x104), on the int8 tier's models (`config`, `models`:
+    the static embedding) and the bf16 VAE of `load_vae`:
+
+      * `vae_split_one_card`: the Wan 2.1 VAE in bf16 and int8 (static
+        scales) split by rows into 2 and 4 shards, every shard on this card
+        (`VAEWrapper(mesh=[dev] * n)`), and in f32 into 2: three latents
+        (the first chunk and two warm ones), a T = 1 encode and a 1 + 4
+        encode against the unsplit VAE (VAE_SPLIT_BARS); the conv kernel's
+        launches at the shard shapes, each distinct shard form held against
+        its plain version (int32 sums equal, the fused dequantise
+        bit-equal) and timed beside its bound; interior halos zeroed (the
+        planted fault) must miss the f32 and int8 bars by 10x; a 3-block
+        int8 session whose VAE is the 2-shard wrapper against the unsplit
+        session's frames. Shards that share a card gain nothing: the times
+        are for the record only;
+      * `vae_fuseup`: the phase-folded decode (`fuse_decoder_upsample`)
+        against the unfused one in bf16 (cuDNN; FUSEUP_BF16_REL_FRO_BAR) and
+        in int8 (its mean error against the bf16 decode beside the unfused
+        int8's, FUSEUP_INT8_ERR_RATIO_BAR), the fused convs' forms (4x the
+        output channels) held against the plain version, and a warm
+        latent's decode timed fused against unfused (CUDA events, in turns);
+      * `vae_multi_gpu`: with two or more cards, a session whose VAE is
+        pinned to cuda:1 (pixels there, latents on the DiT's card) and one
+        whose VAE is split over cuda:1..N-1 against the one-card session,
+        with their walls, each after a first, cold session; on one card
+        {"ran": false}.
+    `phases` runs a subset (a probe of the multi-card phase alone)."""
+    import torch
+
+    from realtime_video_tpu_torch.models import vae as vae_mod
+    from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
+    from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.serving.models import Models, load_vae
+    from realtime_video_tpu_torch.serving.params import GenerateParams
+    from realtime_video_tpu_torch.serving.session import GenerationSession
+    from realtime_video_tpu_torch.utils.device import on_card
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    z = torch.randn((1, 3, 16, 60, 104), generator=gen, device=dev).to(torch.bfloat16)
+    px = (torch.rand((1, 5, 3, 480, 832), generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+
+    def reset():
+        for m in kernel_mods:
+            m.reset_launch_counts()
+
+    def counts():
+        return dict(hc.LAUNCHES, **hc.PREPASS_LAUNCHES), dict(hc.PLAIN_ON_CUDA)
+
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    def err(got, want):
+        want = want.float().to(got.device)
+        d = got.float() - want
+        return {"max_abs_err": float(d.abs().max()), "rel_fro_err": float(d.norm() / want.norm())}
+
+    @contextlib.contextmanager
+    def walk_patched(name, fn):
+        """A planted fault: vae._Walk's method `name` replaced by fn."""
+        real = getattr(vae_mod._Walk, name)
+        setattr(vae_mod._Walk, name, fn)
+        try:
+            yield
+        finally:
+            setattr(vae_mod._Walk, name, real)
+
+    def no_halo():
+        """Interior halos zeroed: every shard pads its conv where its
+        neighbours' rows belong."""
+        return walk_patched("halo", lambda self, xs, above, below:
+                            [(x, (above, below)) for x in xs])
+
+    @contextlib.contextmanager
+    def cudnn_deterministic():
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    def conv_rows(p, x, cache, n):
+        """One causal conv through the walk: x [T, H, W, C] and its cache
+        [2, H, W, C] cut into n row shards (n = 1: the unsplit conv), the
+        shards' outputs joined."""
+        caches = [(c,) for c in cache.chunk(n, dim=1)]
+        ys = vae_mod.causal_conv3d(vae_mod._Walk(caches, n), [p] * n, list(x.chunk(n, dim=1)))
+        return torch.cat(ys, dim=1)
+
+    def split_conv_bf16(params):
+        """The split's bf16 convs one at a time: the decoder's first middle
+        conv at the latent rows (384 channels, 60 x 104) and its last full
+        resolution conv (96 channels, 480 x 832), a warm chunk each, split
+        into 2 and 4 shards against the unsplit conv (VAE_SPLIT_CONV_BF16_BAR),
+        with cuDNN as it runs and deterministic, and interior halos zeroed."""
+        rows = []
+        dec = params["decoder"]
+        for name, p, (h, w) in (("middle_res1.conv1", dec["middle_res1"]["conv1"], (60, 104)),
+                                ("upsamples[-1].conv1", dec["upsamples"][-1]["conv1"],
+                                 (480, 832))):
+            c = p["w"].shape[3]
+            x = torch.randn((1, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+            cache = torch.randn((2, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+            want = conv_rows(p, x, cache, 1)
+            for n in (2, 4):
+                row = dict(conv=name, x=[1, h, w, c], shards=n, **err(conv_rows(p, x, cache, n),
+                                                                       want))
+                with cudnn_deterministic():
+                    row["cudnn_deterministic"] = err(conv_rows(p, x, cache, n),
+                                                     conv_rows(p, x, cache, 1))
+                with no_halo():
+                    row["no_halo"] = err(conv_rows(p, x, cache, n), want)
+                row["bar"] = VAE_SPLIT_CONV_BF16_BAR
+                row["fault_times_the_bar"] = row["no_halo"]["rel_fro_err"] / row["bar"]
+                rows.append(row)
+        return rows
+
+    def guard_us(guard):
+        """Host microseconds of a device guard entered and left around a
+        launch on the current card (`guard(t)`), the mean of 20000."""
+        t = torch.empty(1, device=dev)
+        for _ in range(1000):
+            with guard(t):
+                pass
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            with guard(t):
+                pass
+        return (time.perf_counter() - t0) / 20000 * 1e6
+
+    def decode3(vae):
+        """The first chunk, then two warm chunks, a latent each (in the
+        VAE's dtype: it computes in its input's)."""
+        out, cache = [], None
+        for i in range(3):
+            p, cache = vae.decode_block(z[:, i:i + 1].to(vae.dtype), cache)
+            out.append(p)
+        return torch.cat(out, dim=1), cache
+
+    def encodes(vae):
+        """A fresh T = 1 encode (the re-encode) and a fresh 1 + 4."""
+        return torch.cat([vae.encode_stream(px[:, :1].to(vae.dtype))[0],
+                          vae.encode_stream(px.to(vae.dtype))[0]], dim=1)
+
+    def recorded(fn):
+        """(fn(), {conv form: launches}): each conv launch's (x shape, w
+        shape, stride, padding)."""
+        forms, launch = {}, hc._launch
+
+        def record(x, w, stride=(1, 1), padding=((1, 1), (1, 1)), bias=None, fault=0,
+                   dequant=None):
+            key = (tuple(x.shape), tuple(w.shape), tuple(stride),
+                   tuple(tuple(p) for p in padding))
+            forms[key] = forms.get(key, 0) + 1
+            return launch(x, w, stride, padding, bias, fault, dequant)
+
+        hc._launch = record
+        try:
+            return fn(), forms
+        finally:
+            hc._launch = launch
+
+    def hold(form):
+        """A conv form held against the plain version on random s8
+        operands (int32 sums equal, fused dequantise bit-equal) and timed
+        beside its bound."""
+        (t, h, w, c), ws, st, pad = form
+        kt, co = ws[0], ws[-1]
+        x = hc.pad_channels(torch.randint(-127, 128, (t, h, w, c), generator=gen, device=dev,
+                                          dtype=torch.int8))
+        wt = hc.k_major(torch.randint(-127, 128, (kt, 3, 3, c, co), generator=gen, device=dev,
+                                      dtype=torch.int8))
+        scale = torch.rand((co,), generator=gen, device=dev) * 2e-3 + 1e-3
+        a_scale = torch.tensor(2.0 / 127.0, device=dev)
+        bq = torch.randn((co,), generator=gen, device=dev).to(torch.bfloat16)
+        want = hc.conv3x3_plain(x, wt, st, pad)
+        got = hc.conv3x3_dequant(x, wt, a_scale, scale, bq, st, pad)
+        want_dq = hc.dequantize_plain(want, a_scale, scale, bq, torch.bfloat16)
+        row = dict(x=[t, h, w, c], w=list(ws), stride=list(st), padding=[list(p) for p in pad],
+                   equal_int32=torch.equal(hc.conv3x3(x, wt, st, pad), want),
+                   dequant_bit_equal=torch.equal(got.view(torch.int16),
+                                                 want_dq.view(torch.int16)),
+                   ms=event_ms(lambda: hc.conv3x3_dequant(x, wt, a_scale, scale, bq, st, pad),
+                               5))
+        row["bound_ms"], row["bound_by"] = bound(
+            hc.conv3x3_bytes(x.shape, wt.shape, st, pad, in_bytes=1, out_bytes=2, bias=True),
+            hc.conv3x3_ops(x.shape, wt.shape, st, pad), "int8")
+        return row
+
+    def session(vae, devices_seen=None):
+        """A direct 3-block session (the random head) with `vae`: (frames,
+        latents, {"wall_ms": the 3 blocks to a sync of every card, "block_ms":
+        host stamps as each block returns, no sync between them, so a VAE on
+        its own card may still be decoding}."""
+        m = Models(models.text_encoder, models.transformer, models.pipeline, vae, vae)
+        frames, stamps = [], []
+
+        def on_frame(p, ids, ev):
+            frames.append(p.float())
+            if devices_seen is not None:
+                devices_seen.add(str(p.device))
+
+        head = models.transformer.params["head"]["head"]
+        saved = head["w"]
+        head["w"] = head_w.to(saved.dtype)
+        try:
+            s = GenerationSession(GenerateParams(**request), config, models=m,
+                                  frame_callback=on_frame)
+            sync_all()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                s.generate_block_internal(m)
+                stamps.append(time.perf_counter())
+            sync_all()
+            times = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "block_ms": [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]}
+        finally:
+            head["w"] = saved
+        return torch.cat(frames, dim=1), s.all_latents.float(), times
+
+    vaes = {"bf16": load_vae({}, dev, seed=1), "int8": models.vae_decoder}
+    f32 = VAEWrapper(vaes["bf16"].cfg, tree_to(vaes["bf16"].params, dev, torch.float32))
+    out = {"split": {}, "shard_forms": [], "launches": {}}
+    shard_forms = {}
+    with torch.no_grad():
+        reset()
+        one = session(vaes["int8"])  # the one-card session the others are held to
+        # every counted launch passes one device guard in its binding
+        # (`on_card`): its host cost a block, beside the block's time and
+        # that of entering `torch.cuda.device` at every launch
+        per_block = sum(sum(c.values()) for m in kernel_mods
+                        for c in (m.LAUNCHES, getattr(m, "PREPASS_LAUNCHES", {}))) / 3
+        g_us = guard_us(on_card)
+        d_us = guard_us(lambda t: torch.cuda.device(t.device))
+        out["device_guard"] = dict(us_per_on_card=g_us, us_per_cuda_device=d_us,
+                                   launches_per_block=per_block,
+                                   on_card_ms_per_block=g_us * per_block / 1e3,
+                                   cuda_device_ms_per_block=d_us * per_block / 1e3,
+                                   block_ms=one[2]["block_ms"])
+        # the same session's wall with each guard in the bindings, in turns:
+        # none (the bindings before the guard), `on_card`, and
+        # `torch.cuda.device` entered at every launch
+        guards = {"none": lambda t: contextlib.nullcontext(), "on_card": on_card,
+                  "cuda_device": lambda t: torch.cuda.device(t.device)}
+        walls = {k: [] for k in guards}
+        for k in ("none", "on_card", "cuda_device", "cuda_device", "on_card", "none"):
+            saved = [m.on_card for m in kernel_mods]
+            for m in kernel_mods:
+                m.on_card = guards[k]
+            try:
+                walls[k].append(session(vaes["int8"])[2]["wall_ms"])
+            finally:
+                for m, g in zip(kernel_mods, saved):
+                    m.on_card = g
+        out["device_guard"]["session_wall_ms"] = walls
+        phase("device_guard", **out["device_guard"], card=card)
+
+        # ---- vae_split_one_card ----
+        tiers = dict(vaes, f32=f32) if "split" in phases else {}
+        for tier, base in tiers.items():
+            want_px, c1 = decode3(base)
+            want_z = encodes(base)
+            base_ms = event_ms(lambda: base.decode_block(z[:, 1:2].to(base.dtype), c1), 3)
+            for n in (2,) if tier == "f32" else (2, 4):
+                split = VAEWrapper(base.cfg, base.params, mesh=[dev] * n)
+                reset()
+                ((got_px, s1), got_z), forms = recorded(lambda: (decode3(split), encodes(split)))
+                torch.cuda.synchronize()
+                launches, plain = counts()
+                row = dict(pixels=err(got_px, want_px), latents=err(got_z, want_z),
+                           pixel_shape=list(got_px.shape), launches=launches,
+                           plain_on_cuda=plain, unsplit_warm_latent_ms=base_ms,
+                           split_warm_latent_ms=event_ms(
+                               lambda: split.decode_block(z[:, 1:2].to(split.dtype), s1), 3))
+                if tier == "int8":
+                    for f, k in forms.items():
+                        shard_forms[f] = shard_forms.get(f, 0) + k
+                    out["launches"][f"sp{n}"] = launches
+                out["split"][f"{tier}_sp{n}"] = row
+                phase("vae_split_one_card", tier=tier, shards=n, **row, card=card)
+                ok = (row["pixels"]["rel_fro_err"] <= VAE_SPLIT_BARS[tier]
+                      and row["latents"]["rel_fro_err"] <= VAE_SPLIT_BARS[tier]
+                      and tuple(got_px.shape) == (1, 9, 3, 480, 832)
+                      and bool(torch.isfinite(got_px).all()) and not any(plain.values()))
+                if tier == "int8" and not (launches["conv3x3"] > 0
+                                           and launches["conv3x3_temporal"] > 0
+                                           and launches["conv_quantize"] > 0):
+                    ok = False
+                if not ok:
+                    fail(f"vae_split_one_card {tier} sp{n}: {row}")
+                if n == 2:  # the planted fault: interior halos zeroed
+                    with no_halo():
+                        bad = err(decode3(split)[0], want_px)
+                    bar = VAE_SPLIT_BARS[tier]
+                    held = tier != "bf16"  # bf16: held conv by conv below
+                    caught = bad["rel_fro_err"] >= 10 * bar
+                    phase("planted_fault", case=f"vae_split_{tier}_sp2", fault="no_halo",
+                          **bad, bar=bar, times_the_bar=bad["rel_fro_err"] / bar,
+                          held=held, caught=caught)
+                    if held and not caught:
+                        fail(f"the VAE split's check passes interior halos zeroed: {bad}")
+                    if tier == "bf16":
+                        with cudnn_deterministic():
+                            det = err(decode3(split)[0], decode3(base)[0])
+                        out["split"]["bf16_sp2"]["cudnn_deterministic"] = det
+                        phase("vae_split_one_card", tier=tier, shards=n,
+                              cudnn_deterministic=det, card=card)
+                del split
+        if "split" in phases:
+            out["split_conv_bf16"] = split_conv_bf16(vaes["bf16"].params)
+            for row in out["split_conv_bf16"]:
+                phase("vae_split_conv_bf16", **row, card=card)
+                if not (row["rel_fro_err"] <= row["bar"]
+                        and row["no_halo"]["rel_fro_err"] >= 10 * row["bar"]):
+                    fail(f"a bf16 conv split into row shards: {row}")
+        if "split" in phases:
+            for form in sorted(shard_forms):
+                row = dict(hold(form), launches=shard_forms[form])
+                out["shard_forms"].append(row)
+                phase("kernel", kernel="conv3x3", case="vae_shard_form", **row, card=card)
+                if not (row["equal_int32"] and row["dequant_bit_equal"]):
+                    fail(f"conv shard form {row}: kernel disagrees with its plain version")
+
+            sp2 = session(VAEWrapper(vaes["int8"].cfg, vaes["int8"].params, mesh=[dev] * 2))
+            res = dict(frames=err(sp2[0], one[0]), latents=err(sp2[1], one[1]),
+                       frame_count=sp2[0].shape[1], unsplit=one[2], sp2=sp2[2])
+            out["session_sp2"] = res
+            phase("vae_split_one_card", session="3-block int8 session, VAE sp 2", **res,
+                  phase_s=time.perf_counter() - t_phase, card=card)
+            if not (res["frames"]["rel_fro_err"] <= VAE_SPLIT_BARS["int8"]
+                    and res["latents"]["rel_fro_err"] <= VAE_SPLIT_BARS["int8"]
+                    and res["frame_count"] == 30):
+                fail(f"the session with a split VAE does not give the unsplit frames: {res}")
+
+        # ---- vae_fuseup ----
+        if "fuseup" in phases:
+            t_fuse = time.perf_counter()
+            os.environ["RTV_VAE_FUSEUP"] = "1"
+            try:
+                fused = {"bf16": VAEWrapper(vaes["bf16"].cfg, vaes["bf16"].params),
+                         "int8": load_vae(config, dev, seed=1)}
+            finally:
+                os.environ.pop("RTV_VAE_FUSEUP")
+            float_px = decode3(vaes["bf16"])[0]
+            fres = {}
+            for tier in ("bf16", "int8"):
+                reset()
+                ((got_px, fc1), forms) = recorded(lambda: decode3(fused[tier]))
+                torch.cuda.synchronize()
+                launches, plain = counts()
+                (want_px, uc1), unfused_forms = recorded(lambda: decode3(vaes[tier]))
+                row = dict(vs_unfused=err(got_px, want_px), launches=launches,
+                           plain_on_cuda=plain)
+                if tier == "int8":
+                    row["mean_abs_err_vs_bf16"] = float((got_px - float_px).abs().mean())
+                    row["unfused_mean_abs_err_vs_bf16"] = float((want_px - float_px).abs().mean())
+                    # each folded conv (the forms only the fused decode launches:
+                    # 4x Co at the low resolution), and beside it the unfused
+                    # conv it replaces (Co at twice the rows and columns: the
+                    # same operations)
+                    row["fused_forms"] = []
+                    for f, k in sorted(forms.items()):
+                        (t, h, w, c), ws, st, pad = f
+                        if f not in unfused_forms:
+                            plain_form = ((t, 2 * h, 2 * w, c), ws[:-1] + (ws[-1] // 4,), st,
+                                          pad)
+                            row["fused_forms"].append(
+                                dict(hold(f), launches=k, unfused=hold(plain_form)))
+                turns = [event_ms(lambda: vaes[tier].decode_block(z[:, 1:2], uc1), 3),
+                         event_ms(lambda: fused[tier].decode_block(z[:, 1:2], fc1), 3),
+                         event_ms(lambda: fused[tier].decode_block(z[:, 1:2], fc1), 3),
+                         event_ms(lambda: vaes[tier].decode_block(z[:, 1:2], uc1), 3)]
+                row["unfused_warm_latent_ms"], row["fused_warm_latent_ms"] = \
+                    (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                fres[tier] = row
+                phase("vae_fuseup", tier=tier, **row, card=card)
+                ok = tuple(got_px.shape) == (1, 9, 3, 480, 832) and not any(plain.values())
+                if tier == "bf16":
+                    ok = ok and row["vs_unfused"]["rel_fro_err"] <= FUSEUP_BF16_REL_FRO_BAR
+                else:
+                    ok = (ok and row["mean_abs_err_vs_bf16"]
+                          <= FUSEUP_INT8_ERR_RATIO_BAR * row["unfused_mean_abs_err_vs_bf16"]
+                          and row["fused_forms"] and launches["conv3x3"] > 0
+                          and all(r["equal_int32"] and r["dequant_bit_equal"]
+                                  for f in row["fused_forms"] for r in (f, f["unfused"])))
+                if not ok:
+                    fail(f"vae_fuseup {tier}: {row}")
+            fres["phase_s"] = time.perf_counter() - t_fuse
+            out["fuseup"] = fres
+            del fused
+
+        # ---- vae_multi_gpu ----
+        if "multi_gpu" in phases:
+            n_cards = torch.cuda.device_count()
+            if n_cards < 2:
+                phase("vae_multi_gpu", ran=False, devices=n_cards, card=card)
+                out["multi_gpu"] = {"ran": False, "devices": n_cards}
+            else:
+                t_multi = time.perf_counter()
+                base = vaes["int8"]
+                seen = set()
+                pinned = VAEWrapper(base.cfg, base.params, device=torch.device("cuda", 1),
+                                    dit_device=dev)
+                encoded_on = set()
+                encode = pinned.encode_stream
+
+                def spy_encode(*a):
+                    z_, c_ = encode(*a)
+                    encoded_on.add(str(z_.device))
+                    return z_, c_
+
+                pinned.encode_stream = spy_encode
+                # each layout twice: a fresh card's first session pays its
+                # cold start (library handles, kernel loads, allocator growth);
+                # the second is the steady one, as after the server's warm-up
+                cold = session(pinned)
+                got = session(pinned, seen)
+                res = dict(devices=n_cards, pinned_frames=err(got[0], one[0]),
+                           pinned_latents=err(got[1], one[1]),
+                           pinned_cold_frames=err(cold[0], one[0]), frames_on=sorted(seen),
+                           reencoded_latents_on=sorted(encoded_on), one_card=one[2],
+                           pinned=got[2], pinned_cold_wall_ms=cold[2]["wall_ms"])
+                ok = (seen == {"cuda:1"} and encoded_on == {str(dev)}
+                      and max(res["pinned_frames"]["rel_fro_err"],
+                              res["pinned_cold_frames"]["rel_fro_err"]) <= VAE_SPLIT_BARS["int8"])
+                if n_cards >= 3:
+                    cards = [torch.device("cuda", i) for i in range(1, n_cards)]
+                    split = VAEWrapper(base.cfg, base.params, mesh=cards, dit_device=dev)
+                    cold = session(split)
+                    spl = session(split)
+                    res.update(split_cards=[str(c) for c in cards],
+                               split_frames=err(spl[0], one[0]), split=spl[2],
+                               split_cold_wall_ms=cold[2]["wall_ms"])
+                    ok = ok and res["split_frames"]["rel_fro_err"] <= VAE_SPLIT_BARS["int8"]
+                res["phase_s"] = time.perf_counter() - t_multi
+                out["multi_gpu"] = dict(res, ran=True)
+                phase("vae_multi_gpu", ran=True, **res, card=card)
+                if not ok:
+                    fail(f"vae_multi_gpu: {res}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    del vaes
+    return out
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -3809,7 +4306,7 @@ def main() -> None:
             head["w"] = saved
         return out
 
-    tiers, skew_launches, head_w, teacher = {}, {}, None, None
+    tiers, skew_launches, head_w, teacher, vae_res = {}, {}, None, None, None
     kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
                     "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
                              "conv_quantize")}
@@ -3848,6 +4345,8 @@ def main() -> None:
                     fail(f"{switch}: block-0 x0 does not match the default attention: {cos}")
                 skew_launches[key] = got[key]
             teacher = teacher_phases(models, head_w)
+        else:
+            vae_res = vae_phases(card, dev, config, models, request, head_w, kernel_mods)
         del models
         gc.collect()
         torch.cuda.empty_cache()
@@ -4484,6 +4983,17 @@ def main() -> None:
     k5_cases = ("s8_kt3_c96_480x832", "s8_kt3_c384_60x104", "s8_head_kt3_c96_co3_480x832",
                 "s8_first_kt3_c16_co384_60x104", "bf16_kt3_bias_c384_60x104")
 
+    def vae_forms(rows, temporal):
+        """The conv forms held at the VAE's shard (or fused) shapes, compact:
+        [x, w, stride, padding, ms, bound_ms, launches (, the unfused conv's
+        ms)]."""
+        return [[r["x"], r["w"], r["stride"], r["padding"], r["ms"], r["bound_ms"],
+                 r["launches"]] + ([r["unfused"]["ms"]] if "unfused" in r else [])
+                for r in rows if (r["w"][0] > 1) == temporal]
+
+    split_l = vae_res["launches"]
+    fused_l = vae_res["fuseup"]["int8"]["launches"]
+
     def times(results, case, keys=("ms", "earlier_ms")):
         """{case_key: value} of a case's times, for the kernels line."""
         return {f"{case}_{k}": results[case].get(k) for k in keys}
@@ -4599,7 +5109,15 @@ def main() -> None:
                - i2v14["window"]["launches"]["conv3x3_temporal"],
                "launches_webcam_encode_block0": encode_launches["block0"]["kt1"],
                "launches_webcam_encode_warm_block": encode_launches["warm"]["kt1"],
-               "webcam_encoder_forms_held_here": encoder_forms_checked["kt1"]}),
+               "webcam_encoder_forms_held_here": encoder_forms_checked["kt1"],
+               **{f"launches_vae_split_{sp}_decode_and_encode":
+                  split_l[sp]["conv3x3"] - split_l[sp]["conv3x3_temporal"]
+                  for sp in ("sp2", "sp4")},
+               "vae_shard_forms": vae_forms(vae_res["shard_forms"], False),
+               "launches_vae_fuseup_int8_decode":
+               fused_l["conv3x3"] - fused_l["conv3x3_temporal"],
+               "vae_fuseup_forms_co4x": vae_forms(vae_res["fuseup"]["int8"]["fused_forms"],
+                                                  False)}),
         entry("conv3x3, kt x 3 x 3 form (K5: kt 3, the temporal taps inside)", conv_src,
               "realtime_video_tpu/ops/pallas_conv.py:53", int8_l["conv3x3_temporal"],
               conv_results["s8_kt3_c96_480x832"],
@@ -4618,7 +5136,11 @@ def main() -> None:
                i2v14["window"]["launches"]["conv3x3_temporal"],
                "launches_webcam_encode_block0": encode_launches["block0"]["kt3"],
                "launches_webcam_encode_warm_block": encode_launches["warm"]["kt3"],
-               "webcam_encoder_forms_held_here": encoder_forms_checked["kt3"]}),
+               "webcam_encoder_forms_held_here": encoder_forms_checked["kt3"],
+               **{f"launches_vae_split_{sp}_decode_and_encode": split_l[sp]["conv3x3_temporal"]
+                  for sp in ("sp2", "sp4")},
+               "vae_shard_forms": vae_forms(vae_res["shard_forms"], True),
+               "launches_vae_fuseup_int8_decode": fused_l["conv3x3_temporal"]}),
         entry("skew_attention (K6a: the sm90 kernel's running max, QK^T(j) with PV(j-1))",
               sm90_src, "realtime_video_tpu/ops/pallas_attention.py:445",
               skew_launches["window_skew"], mode_results["skew_self"],
@@ -4684,5 +5206,57 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def vae_main(phases) -> None:
+    """`python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]`: the
+    VAE phases alone (`vae_phases`; all three without names), on the 1.3B
+    int8 tier's models with the static embedding, as `main` runs them: the
+    way to run `vae_multi_gpu` on a machine with several cards."""
+    import torch
+
+    from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.ops import cuda_build
+    from realtime_video_tpu_torch.ops import hopper_attention as hk
+    from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
+    from realtime_video_tpu_torch.serving.models import load_all
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the VAE phases need an NVIDIA GPU")
+    unknown = set(phases) - {"split", "fuseup", "multi_gpu"}
+    if unknown:
+        fail(f"unknown VAE phases {sorted(unknown)}: split, fuseup, multi_gpu")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    cuda_build.build_all([*hk.SOURCES, hm.SOURCE, hc.SOURCE])
+    phase("device", card=card, kind=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), kernel_build_s=time.perf_counter() - t0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
+    os.environ["RTV_QUANT_CACHE"] = "0"
+    dev = torch.device("cuda", 0)
+    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                timestep_shift=5.0, enable_int8=True, enable_int8_dit=True,
+                                int8_static_scales=True)
+    models = load_all(config, dev, seed=0)
+    shape = models.transformer.params["head"]["head"]["w"].shape
+    head_w = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(11),
+                         device=dev) * 0.05
+    request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
+               "seed": 7, "num_blocks": 3, "num_denoising_steps": 4, "kv_cache_num_frames": 3}
+    vae_phases(card, dev, config, models, request, head_w, (hk, hm, hc),
+               tuple(phases) or ("split", "fuseup", "multi_gpu"))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--vae-phases"]:
+        vae_main(sys.argv[2:])
+    else:
+        main()

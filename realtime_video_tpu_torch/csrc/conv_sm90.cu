@@ -95,6 +95,7 @@ namespace {
 constexpr int MB = 64;               // output pixels of one m-block: 64 rows of a wgmma
 constexpr int BK = 128;              // bytes of C per ring stage: one 128-byte swizzled row
 constexpr int NTHREADS = 384;
+constexpr int MAX_DEVICES = 64;  // cards whose SM count is kept
 constexpr int CONSUMER_WARPS = 8;
 constexpr int SMEM_RING = 216 * 1024;
 
@@ -394,15 +395,17 @@ conv_quantize_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x
   }
 }
 
+// The current device's SM count, kept per device: one process may launch on
+// several cards (a VAE on a card of its own, or split over cards), and the
+// binding makes the tensor's card current around each launch.
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-  }
-  return sms;
+  static int sms[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
 }
 
 template <bool INT8, int BN, bool REUSE, int KS>

@@ -69,6 +69,7 @@ namespace {
 constexpr int BM = 128;  // rows of x per thread block: two consumer warpgroups of 64
 constexpr int BN = 256;  // output columns per thread block
 constexpr int BK = 128;  // k bytes per stage: one 128-byte swizzled row
+constexpr int MAX_DEVICES = 64;  // cards whose SM count is kept
 constexpr int NSTAGES = 4;
 constexpr int NTHREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
@@ -267,13 +268,17 @@ extern "C" int rtv_int8_linear(const void* x, const void* w_q, const void* w_sca
   e = cudaFuncSetAttribute(int8_linear_kernel_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // per device: the binding makes the tensor's card current around the launch
+  static int sm_counts[MAX_DEVICES] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sm_counts[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sm_counts[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
   }
+  const int sms = sm_counts[dev];
   const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
   const int tiles = m_tiles * n_tiles;
   const int blocks = tiles <= 2 * sms ? tiles : sms;

@@ -8,7 +8,17 @@ Same architecture, layout and cache semantics as the JAX package:
     the zero-padded taps and runs only the last one (vae.py:395-409);
   * CausalConv3d splices up to CACHE_T = 2 cached input frames in front of
     the chunk, and each conv's new cache is the last CACHE_T frames
-    (vae.py:379-428); caches are a flat tuple in a fixed traversal order.
+    (vae.py:379-428); caches are a flat tuple in a fixed traversal order;
+  * `fuse_decoder_upsample` folds each decoder upsample's nearest 2x and
+    3x3 conv into one phase conv at the low resolution (vae.py:724-759),
+    which `upsample_conv` recognises by its 2c output channels;
+  * the graph runs over a list of row shards of the activations, each on
+    its device (`parallel/vae_sp.py` places them), the unsplit VAE as one
+    shard: before every conv that reads neighbouring rows each shard takes
+    its halo rows from its neighbours (`_Walk.halo`), and at the image's top
+    and bottom edges the conv's own zero padding stands in, so one shard
+    runs the unsplit convs as they are; the mid-block attention gathers
+    every shard's keys and values.
 
 The bf16 tier's 2D convs are `torch.nn.functional.conv2d` on a channels-last
 view of the THWC tensor (no copy), as the JAX package leaves them to
@@ -38,6 +48,8 @@ from realtime_video_tpu_torch.ops import hopper_conv, hopper_int8_mm
 
 Params = Dict[str, Any]
 Cache = Tuple[torch.Tensor, ...]
+#: an activation cut along H into row shards, in row order
+Shards = List[torch.Tensor]
 #: calibration records: id(param dict) -> max|input| over the calls
 Calib = Dict[int, torch.Tensor]
 
@@ -65,6 +77,69 @@ class _CacheIO:
         self.out.append(v)
 
 
+class _Walk:
+    """The row shards through the graph: each shard's `_CacheIO` (the
+    calibration records shared), the halo rows each shard takes from its
+    neighbours, and the int8 convs' dynamic scales. The unsplit VAE is one
+    shard: it takes no rows and its convs pad as they always did."""
+
+    def __init__(self, caches: Optional[Sequence[Cache]], n: int,
+                 calib: Optional[Calib] = None):
+        if caches is not None and len(caches) != n:
+            raise ValueError(f"a cache of {len(caches)} shards for {n} shards")
+        self.ios = [_CacheIO(c, calib) for c in (caches or [None] * n)]
+        self.calib = calib
+
+    def get(self) -> List[Optional[torch.Tensor]]:
+        return [io.get() for io in self.ios]
+
+    def put(self, vs: Sequence[torch.Tensor]) -> None:
+        for io, v in zip(self.ios, vs):
+            io.put(v)
+
+    def caches(self) -> Tuple[Cache, ...]:
+        return tuple(tuple(io.out) for io in self.ios)
+
+    def halo(self, xs: Shards, above: int, below: int
+             ) -> List[Tuple[torch.Tensor, Tuple[int, int]]]:
+        """Each shard [T, h, W, C] with `above` rows of the shard above it
+        and `below` of the one below (a peer copy when they lie on other
+        devices), and the H padding (top, bottom) its conv adds in their
+        place at the image's edges."""
+        n, out = len(xs), []
+        for s, x in enumerate(xs):
+            parts = [x]
+            if above and s > 0:
+                parts.insert(0, xs[s - 1][:, -above:].to(x.device, non_blocking=True))
+            if below and s < n - 1:
+                parts.append(xs[s + 1][:, :below].to(x.device, non_blocking=True))
+            pad = (above if s == 0 else 0, below if s == n - 1 else 0)
+            out.append((torch.cat(parts, dim=1) if len(parts) > 1 else x, pad))
+        return out
+
+    def scales(self, ps: Sequence[Params], xs: Shards) -> List[Params]:
+        """The conv params of each shard: split, an int8 conv without a
+        static activation scale takes the unsplit input's, the largest of the
+        shards' per-call scales (a halo'd shard holds rows of the image
+        only)."""
+        if len(xs) == 1 or "w_q" not in ps[0] or "a_scale" in ps[0]:
+            return list(ps)
+        own = [hopper_int8_mm.dynamic_scale(x).reshape(()) for x in xs]
+        top = torch.stack([a.to(xs[0].device) for a in own]).amax()
+        return [dict(p, a_scale=top.to(x.device, non_blocking=True)) for p, x in zip(ps, xs)]
+
+
+def _sub(ps: Sequence[Params], key) -> List[Params]:
+    return [p[key] for p in ps]
+
+
+def join_rows(xs: Shards, device, dim: int) -> torch.Tensor:
+    """The row shards joined along `dim` on `device` (one shard as it is)."""
+    if len(xs) == 1:
+        return xs[0].to(device, non_blocking=True)
+    return torch.cat([x.to(device, non_blocking=True) for x in xs], dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # primitives (THWC)
 # ---------------------------------------------------------------------------
@@ -76,6 +151,13 @@ def _spatial_conv(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     padding: ((h_lo, h_hi), (w_lo, w_hi))."""
     (ph0, ph1), (pw0, pw1) = padding
     xc = x.permute(0, 3, 1, 2)  # NCHW view of the channels-last memory
+    if ph0 != ph1 and pw0 == pw1 and stride[0] == 1:
+        # a row shard at the image's edge: cuDNN pads both sides alike, so
+        # pad both by the larger and drop the rows the other side's made
+        # (no padded copy of the input)
+        p = max(ph0, ph1)
+        y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=(p, pw0))
+        return y[:, :, p - ph0:y.shape[2] - (p - ph1)].permute(0, 2, 3, 1)
     if ph0 != ph1 or pw0 != pw1:
         xc = F.pad(xc, (pw0, pw1, ph0, ph1))
         pad = (0, 0)
@@ -161,39 +243,53 @@ def conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
     return y + p["b"].to(x.dtype)
 
 
-def causal_conv3d(p: Params, x: torch.Tensor, cache: Optional[torch.Tensor],
-                  io: _CacheIO, stride=(1, 1, 1)) -> torch.Tensor:
-    """CausalConv3d with the cache splice (vae.py:17-36) and cache update
-    (the last CACHE_T input frames, carrying a cached frame over when the
-    chunk is shorter)."""
+def causal_splice(p: Params, x: torch.Tensor, cache: Optional[torch.Tensor],
+                  calib: Optional[Calib] = None):
+    """The temporal half of CausalConv3d (vae.py:17-36): (the conv's input,
+    the param dict to run it with, the new cache or None). The cache splice
+    puts up to CACHE_T cached input frames in front of the chunk; the new
+    cache is the last CACHE_T input frames, carrying a cached frame over
+    when the chunk is shorter. A fresh single-frame chunk (the anti-drift
+    re-encode and the first decode chunk) skips the zero-padded taps: only
+    the last tap's 2D conv runs."""
     key = "w_q" if "w_q" in p else "w"
-    kt, kh, kw = p[key].shape[:3]
-    pad_t, pad_h, pad_w = 2 * (kt // 2), kh // 2, kw // 2
-    spad = ((pad_h, pad_h), (pad_w, pad_w))
-    if pad_t > 0:
-        if cache is None and x.shape[0] == 1:
-            # fresh single-frame chunk (the anti-drift re-encode and the first
-            # decode chunk): the zero-padded taps contribute nothing, so only
-            # the last tap's 2D conv runs
-            _record_calib(io.calib, p, x)  # under the original param dict
-            io.put(torch.cat([torch.zeros_like(x), x], dim=0)[-CACHE_T:])
-            return conv3d(dict(p, **{key: p[key][kt - 1:]}), x, stride=stride,
-                          padding=spad, calib=io.calib)
-        if cache is None:
-            xin = F.pad(x, (0, 0, 0, 0, 0, 0, pad_t, 0))
-            new_cache = x[-CACHE_T:]
-            if new_cache.shape[0] < CACHE_T:
-                new_cache = torch.cat([torch.zeros_like(new_cache), new_cache],
-                                      dim=0)[-CACHE_T:]
-        else:
-            xin = torch.cat([cache.to(x.dtype), x], dim=0)
-            if xin.shape[0] < x.shape[0] + pad_t:
-                xin = F.pad(xin, (0, 0, 0, 0, 0, 0, x.shape[0] + pad_t - xin.shape[0], 0))
-            new_cache = torch.cat([cache.to(x.dtype), x], dim=0)[-CACHE_T:]
-        io.put(new_cache)
+    kt = p[key].shape[0]
+    pad_t = 2 * (kt // 2)
+    if pad_t == 0:
+        return x, p, None
+    if cache is None and x.shape[0] == 1:
+        _record_calib(calib, p, x)  # under the original param dict
+        return (x, dict(p, **{key: p[key][kt - 1:]}),
+                torch.cat([torch.zeros_like(x), x], dim=0)[-CACHE_T:])
+    if cache is None:
+        xin = F.pad(x, (0, 0, 0, 0, 0, 0, pad_t, 0))
+        new_cache = x[-CACHE_T:]
+        if new_cache.shape[0] < CACHE_T:
+            new_cache = torch.cat([torch.zeros_like(new_cache), new_cache],
+                                  dim=0)[-CACHE_T:]
     else:
-        xin = x
-    return conv3d(p, xin, stride=stride, padding=spad, calib=io.calib)
+        xin = torch.cat([cache.to(x.dtype), x], dim=0)
+        if xin.shape[0] < x.shape[0] + pad_t:
+            xin = F.pad(xin, (0, 0, 0, 0, 0, 0, x.shape[0] + pad_t - xin.shape[0], 0))
+        new_cache = torch.cat([cache.to(x.dtype), x], dim=0)[-CACHE_T:]
+    return xin, p, new_cache
+
+
+def causal_conv3d(walk: "_Walk", ps: Sequence[Params], xs: Shards) -> Shards:
+    """CausalConv3d over row shards: each shard's cache splice and update
+    (`causal_splice`), the halo taken on the spliced input, so that the
+    neighbours' cached rows come across too and each shard caches its own
+    rows only, then the conv with zero padding of half the kernel where no
+    neighbour's rows stand in."""
+    spliced = [causal_splice(p, x, c, walk.calib) for p, x, c in zip(ps, xs, walk.get())]
+    if spliced[0][2] is not None:
+        walk.put([c for _, _, c in spliced])
+    key = "w_q" if "w_q" in ps[0] else "w"
+    kh, kw = ps[0][key].shape[1:3]
+    rows = walk.halo([xin for xin, _, _ in spliced], kh // 2, kh // 2)
+    runs = walk.scales([p for _, p, _ in spliced], [x for x, _ in rows])
+    return [conv3d(p, x, padding=(pad, (kw // 2, kw // 2)), calib=walk.calib)
+            for p, (x, pad) in zip(runs, rows)]
 
 
 def rms_norm_image(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -207,25 +303,32 @@ def rms_norm_image(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def residual_block(p: Params, x: torch.Tensor, io: _CacheIO) -> torch.Tensor:
+def _norm_silu(ps: Sequence[Params], key: str, xs: Shards) -> Shards:
+    return [F.silu(rms_norm_image(p[key], x)) for p, x in zip(ps, xs)]
+
+
+def residual_block(walk: _Walk, ps: Sequence[Params], xs: Shards) -> Shards:
     """ResidualBlock (vae.py:175-209): RMS-SiLU-conv x2 + shortcut."""
-    h = x
-    if "shortcut" in p:
-        h = conv3d(p["shortcut"], x, calib=io.calib)
-    y = F.silu(rms_norm_image(p["norm1"], x))
-    y = causal_conv3d(p["conv1"], y, io.get(), io)
-    y = F.silu(rms_norm_image(p["norm2"], y))
-    y = causal_conv3d(p["conv2"], y, io.get(), io)
-    return y + h
+    hs = [conv3d(p["shortcut"], x, calib=walk.calib) if "shortcut" in p else x
+          for p, x in zip(ps, xs)]
+    ys = causal_conv3d(walk, _sub(ps, "conv1"), _norm_silu(ps, "norm1", xs))
+    ys = causal_conv3d(walk, _sub(ps, "conv2"), _norm_silu(ps, "norm2", ys))
+    return [y + h for y, h in zip(ys, hs)]
 
 
-def attention_block(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Single-head per-frame spatial attention (vae.py:212-251); logits and
-    softmax in f32."""
+def attention_qkv(p: Params, x: torch.Tensor):
+    """The mid-block attention's q, k, v [t, h*w, c] of x [t, h, w, c]."""
     t, hh, ww, c = x.shape
     y = rms_norm_image(p["norm"], x).reshape(t, hh * ww, c)
     qkv = torch.matmul(y, p["to_qkv"]["w"].to(y.dtype)) + p["to_qkv"]["b"].to(y.dtype)
-    q, k, v = qkv.chunk(3, dim=-1)
+    return qkv.chunk(3, dim=-1)
+
+
+def attention_out(p: Params, x: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """x plus the projected attention of x's queries q over the keys k and
+    values v of the whole frame; logits and softmax in f32."""
+    t, hh, ww, c = x.shape
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (c ** -0.5)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.matmul(probs, v)
@@ -233,50 +336,93 @@ def attention_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + o.reshape(t, hh, ww, c)
 
 
-def resample(p: Params, mode: str, x: torch.Tensor, io: _CacheIO,
-             first: bool) -> torch.Tensor:
-    """Resample up/down 2d/3d with time-conv caches (vae.py:66-149)."""
+def attention_block(ps: Sequence[Params], xs: Shards) -> Shards:
+    """Single-head per-frame spatial attention (vae.py:212-251): each row
+    shard's queries against the keys and values of the whole frame (every
+    shard's, in row order)."""
+    qkvs = [attention_qkv(p, x) for p, x in zip(ps, xs)]
+    return [attention_out(p, x, q, join_rows([kv[1] for kv in qkvs], x.device, 1),
+                          join_rows([kv[2] for kv in qkvs], x.device, 1))
+            for p, x, (q, _, _) in zip(ps, xs, qkvs)]
+
+
+def upsample_time(p: Params, x: torch.Tensor, io: _CacheIO, first: bool) -> torch.Tensor:
+    """upsample3d's time conv with its cache (vae.py:100-125): frames double
+    (each frame's two halves interleaved over time) except on the first
+    chunk, which caches zeros and skips the conv."""
     t, hh, ww, c = x.shape
+    if first:
+        # first chunk: zero cache, no time conv (vae.py:109-111)
+        io.put(torch.zeros((CACHE_T, hh, ww, c), dtype=x.dtype, device=x.device))
+        return x
+    cache = io.get()
+    xin = torch.cat([cache.to(x.dtype), x], dim=0)
+    # (3,1,1) valid -> t frames, 2c channels
+    y = conv3d(p["time_conv"], xin, calib=io.calib)
+    if t >= CACHE_T:
+        new_cache = x[-CACHE_T:]
+    else:
+        last = x[-1:]
+        padding = torch.where(cache[-1:] == 0, torch.zeros_like(last),
+                              last.to(cache.dtype))
+        new_cache = torch.cat([padding.to(x.dtype), last], dim=0)
+    io.put(new_cache)
+    # interleave the two halves over time (vae.py:123-125)
+    return y.reshape(t, hh, ww, 2, c).permute(0, 3, 1, 2, 4).reshape(t * 2, hh, ww, c)
+
+
+def upsample_conv(conv: Params, x: torch.Tensor, pad=(1, 1),
+                  calib: Optional[Calib] = None) -> torch.Tensor:
+    """Nearest 2x, then the 3x3 conv dim -> dim // 2 (vae.py:66-99); with a
+    phase-folded conv (`fuse_decoder_upsample`), one conv at the original
+    resolution that writes the four (dy, dx) output phases, then
+    depth-to-space, the same numbers without the 4x upsampled input. A row
+    shard's x carries a row of its neighbour above where pad[0] is 0, and
+    below where pad[1] is 0: one upsampled row of it is read in place of the
+    conv's zero row."""
+    t, hh, ww, c = x.shape
+    w = conv["w_q"] if "w_q" in conv else conv["w"]
+    if w.shape[-1] == 2 * c:  # 4 (c // 2) output channels: folded (vae.py:509-518)
+        y = conv2d(conv, x, (1, 1), padding=(pad, (1, 1)), calib=calib)
+        h2, co = y.shape[1], y.shape[-1] // 4
+        return y.reshape(t, h2, ww, 2, 2, co).permute(0, 1, 3, 2, 4, 5).reshape(
+            t, 2 * h2, 2 * ww, co)
+    up = x[:, :, None, :, None, :].expand(t, hh, 2, ww, 2, c).reshape(t, 2 * hh, 2 * ww, c)
+    up = up[:, 1 - pad[0]:2 * hh - 1 + pad[1]]
+    return conv2d(conv, up, (1, 1), padding=(pad, (1, 1)), calib=calib)
+
+
+def downsample_time(p: Params, x: torch.Tensor, io: _CacheIO, first: bool) -> torch.Tensor:
+    """downsample3d's stride-2 time conv with its cache (vae.py:126-149)."""
+    if first:
+        io.put(x)  # the whole chunk is cached (vae.py:135-137)
+        return x
+    cache = io.get()
+    xin = torch.cat([cache[-1:].to(x.dtype), x], dim=0)
+    y = conv3d(p["time_conv"], xin, stride=(2, 1, 1), calib=io.calib)
+    io.put(x[-1:])
+    return y
+
+
+def resample(walk: _Walk, ps: Sequence[Params], mode: str, xs: Shards,
+             first: bool) -> Shards:
+    """Resample up/down 2d/3d with time-conv caches (vae.py:66-149). The
+    upsample's halo is one row each way at the low resolution; the
+    downsample's ZeroPad2d (0, 1, 0, 1) reads one row from below only."""
     if mode == "upsample3d":
-        if first:
-            # first chunk: zero cache, no time conv (vae.py:109-111)
-            io.put(torch.zeros((CACHE_T, hh, ww, c), dtype=x.dtype, device=x.device))
-        else:
-            cache = io.get()
-            xin = torch.cat([cache.to(x.dtype), x], dim=0)
-            # (3,1,1) valid -> t frames, 2c channels
-            y = conv3d(p["time_conv"], xin, calib=io.calib)
-            if t >= CACHE_T:
-                new_cache = x[-CACHE_T:]
-            else:
-                last = x[-1:]
-                padding = torch.where(cache[-1:] == 0, torch.zeros_like(last),
-                                      last.to(cache.dtype))
-                new_cache = torch.cat([padding.to(x.dtype), last], dim=0)
-            io.put(new_cache)
-            # interleave the two halves over time (vae.py:123-125)
-            x = y.reshape(t, hh, ww, 2, c).permute(0, 3, 1, 2, 4).reshape(t * 2, hh, ww, c)
-            t = x.shape[0]
-
+        xs = [upsample_time(p, x, io, first) for p, x, io in zip(ps, xs, walk.ios)]
     if mode in ("upsample2d", "upsample3d"):
-        # nearest 2x, then a 3x3 conv dim -> dim // 2
-        up = x[:, :, None, :, None, :].expand(t, hh, 2, ww, 2, c).reshape(
-            t, 2 * hh, 2 * ww, c)
-        x = conv2d(p["conv"], up, (1, 1), padding=((1, 1), (1, 1)), calib=io.calib)
+        rows = walk.halo(xs, 1, 1)
+        convs = walk.scales(_sub(ps, "conv"), [x for x, _ in rows])
+        xs = [upsample_conv(c, x, pad, walk.calib) for c, (x, pad) in zip(convs, rows)]
     elif mode in ("downsample2d", "downsample3d"):
-        # ZeroPad2d (0,1,0,1) + 3x3 stride-2 conv (vae.py:90-98)
-        x = conv2d(p["conv"], x, (2, 2), padding=((0, 1), (0, 1)), calib=io.calib)
-
+        rows = walk.halo(xs, 0, 1)
+        convs = walk.scales(_sub(ps, "conv"), [x for x, _ in rows])
+        xs = [conv2d(c, x, (2, 2), padding=(pad, (0, 1)), calib=walk.calib)
+              for c, (x, pad) in zip(convs, rows)]
     if mode == "downsample3d":
-        if first:
-            io.put(x)  # the whole chunk is cached (vae.py:135-137)
-        else:
-            cache = io.get()
-            pre = x
-            xin = torch.cat([cache[-1:].to(x.dtype), x], dim=0)
-            x = conv3d(p["time_conv"], xin, stride=(2, 1, 1), calib=io.calib)
-            io.put(pre[-1:])
-    return x
+        xs = [downsample_time(p, x, io, first) for p, x, io in zip(ps, xs, walk.ios)]
+    return xs
 
 
 # ---------------------------------------------------------------------------
@@ -312,44 +458,43 @@ def _decoder_plan(cfg: VAEConfig):
     return dims, plan
 
 
-def encoder_apply(cfg: VAEConfig, params: Params, x: torch.Tensor,
-                  cache: Optional[Cache], first: bool,
-                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
-    """Encoder3d (vae.py:254-345). x [T, H, W, 3] -> [T', H/8, W/8, 2z]."""
-    io = _CacheIO(cache, calib)
-    x = causal_conv3d(params["conv1"], x, io.get(), io)
-    _, plan = _encoder_plan(cfg)
-    for spec, p in zip(plan, params["downsamples"]):
-        if spec[0] == "res":
-            x = residual_block(p, x, io)
-        else:
-            x = resample(p, spec[1], x, io, first)
-    x = residual_block(params["middle_res1"], x, io)
-    x = attention_block(params["middle_attn"], x)
-    x = residual_block(params["middle_res2"], x, io)
-    x = F.silu(rms_norm_image(params["head_norm"], x))
-    x = causal_conv3d(params["head_conv"], x, io.get(), io)
-    return x, tuple(io.out)
+def _stages(walk: _Walk, plan, stage_ps: Sequence[Sequence[Params]], xs: Shards,
+            first: bool) -> Shards:
+    for i, spec in enumerate(plan):
+        pi = [p[i] for p in stage_ps]
+        xs = residual_block(walk, pi, xs) if spec[0] == "res" else \
+            resample(walk, pi, spec[1], xs, first)
+    return xs
 
 
-def decoder_apply(cfg: VAEConfig, params: Params, x: torch.Tensor,
-                  cache: Optional[Cache], first: bool,
-                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
-    """Decoder3d (vae.py:348-446). x [T, h, w, z] -> [~4T, 8h, 8w, 3]."""
-    io = _CacheIO(cache, calib)
-    x = causal_conv3d(params["conv1"], x, io.get(), io)
-    x = residual_block(params["middle_res1"], x, io)
-    x = attention_block(params["middle_attn"], x)
-    x = residual_block(params["middle_res2"], x, io)
-    _, plan = _decoder_plan(cfg)
-    for spec, p in zip(plan, params["upsamples"]):
-        if spec[0] == "res":
-            x = residual_block(p, x, io)
-        else:
-            x = resample(p, spec[1], x, io, first)
-    x = F.silu(rms_norm_image(params["head_norm"], x))
-    x = causal_conv3d(params["head_conv"], x, io.get(), io)
-    return x, tuple(io.out)
+def encoder_apply(cfg: VAEConfig, ps: Sequence[Params], xs: Shards,
+                  caches: Optional[Sequence[Cache]], first: bool,
+                  calib: Optional[Calib] = None) -> Tuple[Shards, Tuple[Cache, ...]]:
+    """Encoder3d (vae.py:254-345) over row shards of x [T, H, W, 3] ->
+    [T', H/8, W/8, 2z], one cache per shard."""
+    walk = _Walk(caches, len(xs), calib)
+    xs = causal_conv3d(walk, _sub(ps, "conv1"), xs)
+    xs = _stages(walk, _encoder_plan(cfg)[1], _sub(ps, "downsamples"), xs, first)
+    xs = residual_block(walk, _sub(ps, "middle_res1"), xs)
+    xs = attention_block(_sub(ps, "middle_attn"), xs)
+    xs = residual_block(walk, _sub(ps, "middle_res2"), xs)
+    xs = causal_conv3d(walk, _sub(ps, "head_conv"), _norm_silu(ps, "head_norm", xs))
+    return xs, walk.caches()
+
+
+def decoder_apply(cfg: VAEConfig, ps: Sequence[Params], xs: Shards,
+                  caches: Optional[Sequence[Cache]], first: bool,
+                  calib: Optional[Calib] = None) -> Tuple[Shards, Tuple[Cache, ...]]:
+    """Decoder3d (vae.py:348-446) over row shards of x [T, h, w, z] ->
+    [~4T, 8h, 8w, 3], one cache per shard."""
+    walk = _Walk(caches, len(xs), calib)
+    xs = causal_conv3d(walk, _sub(ps, "conv1"), xs)
+    xs = residual_block(walk, _sub(ps, "middle_res1"), xs)
+    xs = attention_block(_sub(ps, "middle_attn"), xs)
+    xs = residual_block(walk, _sub(ps, "middle_res2"), xs)
+    xs = _stages(walk, _decoder_plan(cfg)[1], _sub(ps, "upsamples"), xs, first)
+    xs = causal_conv3d(walk, _sub(ps, "head_conv"), _norm_silu(ps, "head_norm", xs))
+    return xs, walk.caches()
 
 
 # ---------------------------------------------------------------------------
@@ -457,69 +602,131 @@ def latent_scale(cfg: VAEConfig, device=None) -> Tuple[torch.Tensor, torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
-                  cache: Optional[Cache] = None, stream: bool = False,
-                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
-    """Chunked encode of video [1, T, H, W, 3]: chunks 1,4,4,... fresh
-    (vae.py:491-517) or 4,4,... streaming. Returns normalised latents
-    [1, Tz, h, w, z] and the cache."""
-    if video.shape[0] != 1:
+def encode_rows(cfg: VAEConfig, ps: Sequence[Params], videos: Shards,
+                caches: Optional[Sequence[Cache]] = None, stream: bool = False,
+                calib: Optional[Calib] = None) -> Tuple[Shards, Tuple[Cache, ...]]:
+    """Chunked encode of row shards of video [1, T, H, W, 3], shard s with
+    params ps[s] on its device: chunks 1,4,4,... fresh (vae.py:491-517) or
+    4,4,... streaming. Returns the shards of the normalised latents [1, Tz,
+    h, w, z] and one cache per shard."""
+    if videos[0].shape[0] != 1:
         raise ValueError("streaming VAE paths are single-stream (B=1)")
-    vid = video[0]
-    t = vid.shape[0]
+    if len(videos) > 1 and any(v.shape[2] % 8 for v in videos):
+        raise ValueError(f"row shards of heights {[v.shape[2] for v in videos]}: each must "
+                         f"divide by 8, the encoder's three stride-2 downsamples")
+    vids = [v[0] for v in videos]
+    t = vids[0].shape[0]
+    enc = _sub(ps, "encoder")
     outs = []
     if not stream:
-        if cache is not None:
+        if caches is not None:
             raise ValueError("pass stream=True to continue a warm encode")
-        z, cache = encoder_apply(cfg, params["encoder"], vid[:1], None, first=True,
-                                 calib=calib)
-        outs.append(z)
+        zs, caches = encoder_apply(cfg, enc, [v[:1] for v in vids], None, True, calib)
+        outs.append(zs)
         rest = range(1, t, 4)
     else:
-        if cache is None:
+        if caches is None:
             raise ValueError("streaming encode needs a warm cache")
         rest = range(0, t, 4)
     for s in rest:
-        z, cache = encoder_apply(cfg, params["encoder"], vid[s:s + 4], cache, first=False,
-                                 calib=calib)
-        outs.append(z)
-    out = torch.cat(outs, dim=0)
-    mu, _log_var = conv3d(params["conv1"], out, calib=calib).chunk(2, dim=-1)
-    mean, std = latent_scale(cfg, video.device)
-    mu = (mu.float() - mean) / std
-    return mu.to(video.dtype)[None], cache
+        zs, caches = encoder_apply(cfg, enc, [v[s:s + 4] for v in vids], caches, False, calib)
+        outs.append(zs)
+    mus = []
+    for p, zs, v in zip(ps, zip(*outs), videos):
+        mu, _log_var = conv3d(p["conv1"], torch.cat(zs, dim=0), calib=calib).chunk(2, dim=-1)
+        mean, std = latent_scale(cfg, v.device)
+        mus.append(((mu.float() - mean) / std).to(v.dtype)[None])
+    return mus, caches
+
+
+def decode_rows(cfg: VAEConfig, ps: Sequence[Params], latents: Shards,
+                caches: Optional[Sequence[Cache]] = None, first: Optional[bool] = None,
+                chunk: int = 1, calib: Optional[Calib] = None
+                ) -> Tuple[Shards, Tuple[Cache, ...]]:
+    """Streaming decode of row shards of normalised latents [1, Tz, h, w, z]
+    (vae.py:519-567), shard s with params ps[s] on its device.
+
+    The first chunk of a stream (caches None) skips temporal upsampling for
+    frame 0: 1 + 4*(Tz-1) output frames; later calls give 4*Tz. Returns the
+    shards of the pixels, f32 in [-1, 1], [1, T, H, W, 3], and one cache per
+    shard."""
+    if first is None:
+        first = caches is None
+    if latents[0].shape[0] != 1:
+        raise ValueError("streaming VAE paths are single-stream (B=1)")
+    xs = []
+    for p, z in zip(ps, latents):
+        mean, std = latent_scale(cfg, z.device)
+        xs.append(conv3d(p["conv2"], (z[0].float() * std + mean).to(z.dtype), calib=calib))
+    dec = _sub(ps, "decoder")
+    outs = []
+    start, tz = 0, xs[0].shape[0]
+    if first:
+        ys, caches = decoder_apply(cfg, dec, [x[:1] for x in xs], caches, True, calib)
+        outs.append(ys)
+        start = 1
+    while start < tz:
+        stop = min(start + chunk, tz)
+        ys, caches = decoder_apply(cfg, dec, [x[start:stop] for x in xs], caches, False, calib)
+        outs.append(ys)
+        start = stop
+    return [torch.clamp(join_rows(list(ys), ys[0].device, 0).float(), -1.0, 1.0)[None]
+            for ys in zip(*outs)], caches
+
+
+def encode_chunks(cfg: VAEConfig, params: Params, video: torch.Tensor,
+                  cache: Optional[Cache] = None, stream: bool = False,
+                  calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
+    """`encode_rows` of the whole video [1, T, H, W, 3] as one shard:
+    normalised latents [1, Tz, h, w, z] and the cache."""
+    zs, caches = encode_rows(cfg, [params], [video], None if cache is None else [cache],
+                             stream, calib)
+    return zs[0], caches[0]
 
 
 def decode_chunks(cfg: VAEConfig, params: Params, latents: torch.Tensor,
                   cache: Optional[Cache] = None, first: Optional[bool] = None,
                   chunk: int = 1, calib: Optional[Calib] = None) -> Tuple[torch.Tensor, Cache]:
-    """Streaming decode of normalised latents [1, Tz, h, w, z] (vae.py:519-567).
+    """`decode_rows` of the whole latents [1, Tz, h, w, z] as one shard:
+    pixels [1, T, H, W, 3] and the cache."""
+    pxs, caches = decode_rows(cfg, [params], [latents], None if cache is None else [cache],
+                              first, chunk, calib)
+    return pxs[0], caches[0]
 
-    The first chunk of a stream (cache None) skips temporal upsampling for
-    frame 0: 1 + 4*(Tz-1) output frames; later calls give 4*Tz. Pixels come
-    back as f32 in [-1, 1], [1, T, H, W, 3]."""
-    if first is None:
-        first = cache is None
-    if latents.shape[0] != 1:
-        raise ValueError("streaming VAE paths are single-stream (B=1)")
-    mean, std = latent_scale(cfg, latents.device)
-    z = (latents[0].float() * std + mean).to(latents.dtype)
-    x = conv3d(params["conv2"], z, calib=calib)
-    outs = []
-    start = 0
-    if first:
-        y, cache = decoder_apply(cfg, params["decoder"], x[:1], cache, first=True,
-                                 calib=calib)
-        outs.append(y)
-        start = 1
-    while start < x.shape[0]:
-        stop = min(start + chunk, x.shape[0])
-        y, cache = decoder_apply(cfg, params["decoder"], x[start:stop], cache, first=False,
-                                 calib=calib)
-        outs.append(y)
-        start = stop
-    out = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
-    return torch.clamp(out.float(), -1.0, 1.0)[None], cache
+
+def fuse_decoder_upsample(params: Params) -> Params:
+    """Fold each decoder upsample's nearest 2x + 3x3 conv into one conv at
+    the original resolution that writes the four (dy, dx) output phases
+    (vae.py:724-759 of the JAX package; `upsample_conv` de-interleaves them).
+    An exact rewrite: phase (dy, dx) reads a 2x2 original-pixel support, its
+    kernel the rows and columns of w folded with T0 = [[1,0,0],[0,1,1],[0,0,0]]
+    (even outputs) or T1 = [[0,0,0],[1,1,0],[0,0,1]] (odd), zero-padded back
+    to 3x3: w [3, 3, ci, co] -> [3, 3, ci, 4 co] (phases 2 dy + dx), the bias
+    tiled 4 times. Float convs only, so run it before `quantize_vae_params`;
+    an int8 tree passes through untouched."""
+
+    def fuse_conv(conv: Params) -> Params:
+        w = conv["w"]
+        # in f32, rounded once to w's dtype: each folded tap sums <= 4 taps
+        t0 = torch.tensor([[1, 0, 0], [0, 1, 1], [0, 0, 0]], dtype=torch.float32,
+                          device=w.device)
+        t1 = torch.tensor([[0, 0, 0], [1, 1, 0], [0, 0, 1]], dtype=torch.float32,
+                          device=w.device)
+        phases = [torch.einsum("ak,bl,klio->abio", ty, tx, w.float())
+                  for ty in (t0, t1) for tx in (t0, t1)]
+        return {"w": torch.cat(phases, dim=-1).to(w.dtype), "b": conv["b"].repeat(4)}
+
+    out = dict(params)
+    dec = dict(out["decoder"])
+    ups = []
+    for p in dec["upsamples"]:
+        if isinstance(p, dict) and "conv" in p and "w" in p["conv"] \
+                and p["conv"]["w"].dim() == 4 and p["conv"]["w"].shape[0] == 3:
+            p = dict(p, conv=fuse_conv(p["conv"]))
+        ups.append(p)
+    dec["upsamples"] = ups
+    out["decoder"] = dec
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,7 @@ import torch
 
 from realtime_video_tpu_torch.ops import cuda_build
 from realtime_video_tpu_torch.parallel import collectives as coll
+from realtime_video_tpu_torch.utils.device import on_card
 
 LOG2E = 1.4426950408889634
 #: exp2(s - M) cannot underflow a whole row while M stays below this bound
@@ -565,11 +566,12 @@ def _launch_sm90(q, k, v, scale: float, maxima, mode, lo, hi, block_tokens, kv_l
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=v.device) if with_lse else None
-    err = lib.rtv_attention_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1], n, d,
-        qscale(scale), None if maxima is None else maxima.data_ptr(),
-        None if lse is None else lse.data_ptr(), mode, lo, hi, block_tokens, kv_len,
-        local_window, fault, torch.cuda.current_stream(v.device).cuda_stream)
+    with on_card(v):  # the .cu side acts on the current device
+        err = lib.rtv_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, k.shape[1], n, d,
+            qscale(scale), None if maxima is None else maxima.data_ptr(),
+            None if lse is None else lse.data_ptr(), mode, lo, hi, block_tokens, kv_len,
+            local_window, fault, torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_attention_sm90 launch failed: cudaError {err}")
     return (out, lse) if with_lse else out
@@ -588,9 +590,11 @@ def _maxima_launch(q, k, scale: float) -> torch.Tensor:
     """The bound pre-pass on checked CUDA tensors (it zeroes its output)."""
     lib = _load()
     maxima = torch.empty(2, dtype=torch.float32, device=q.device)
-    err = lib.rtv_logit_bound(q.data_ptr(), k.data_ptr(), maxima.data_ptr(),
-                              q.numel() // q.shape[-1], k.numel() // k.shape[-1], q.shape[-1],
-                              qscale(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q):
+        err = lib.rtv_logit_bound(q.data_ptr(), k.data_ptr(), maxima.data_ptr(),
+                                  q.numel() // q.shape[-1], k.numel() // k.shape[-1],
+                                  q.shape[-1], qscale(scale),
+                                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_logit_bound launch failed: cudaError {err}")
     PREPASS_LAUNCHES["logit_bound"] += 1
@@ -610,10 +614,11 @@ def _quantize_launch(q, k, seg: int, scale: float):
     sq = torch.empty((b, n, lq), dtype=torch.float32, device=dev)
     sk = torch.empty((b, n, _round_up(lk, 4)), dtype=torch.float32, device=dev)
     km = torch.empty((b, -(-lk // seg), n, d), dtype=torch.float32, device=dev)
-    err = lib.rtv_int8_qk_quantize(
-        q.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
-        sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg, qscale(scale), sk.shape[-1],
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(q):
+        err = lib.rtv_int8_qk_quantize(
+            q.data_ptr(), k.data_ptr(), q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+            sk.data_ptr(), km.data_ptr(), b, lq, lk, n, d, seg, qscale(scale), sk.shape[-1],
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_int8_qk_quantize launch failed: cudaError {err}")
     return q8, sq, k8, sk[..., :lk]
@@ -636,10 +641,11 @@ def _launch_int8(q, k, v, scale: float, mode, lo, hi, block_tokens, kv_len, loca
     lib = _load()
     b, lq, n, d = q.shape
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
-    err = lib.rtv_attention_sm90_int8(
-        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), sq.data_ptr(),
-        sk.data_ptr(), sk.stride(1), b, lq, k.shape[1], n, d, mode, lo, hi, block_tokens,
-        kv_len, local_window, seg, fault, torch.cuda.current_stream(v.device).cuda_stream)
+    with on_card(v):
+        err = lib.rtv_attention_sm90_int8(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), sq.data_ptr(),
+            sk.data_ptr(), sk.stride(1), b, lq, k.shape[1], n, d, mode, lo, hi, block_tokens,
+            kv_len, local_window, seg, fault, torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_attention_sm90_int8 launch failed: cudaError {err}")
     return out
@@ -669,11 +675,13 @@ def attention_backward(q, k, v, o, do, lse, scale: float, mask: Mask, need_kv: b
     # per row lse * log2 e and D = rowsum(dO * o), rows padded to 16 bytes for TMA
     stats = torch.empty((b, n, 2, _round_up(lq, 4)), dtype=torch.float32, device=q.device)
     qc = torch.empty_like(q)
-    err = lib.rtv_attention_bwd_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        stats.data_ptr(), qc.data_ptr(), dq.data_ptr(), None if dk is None else dk.data_ptr(),
-        None if dv is None else dv.data_ptr(), b, lq, k.shape[1], n, d, qscale(scale),
-        *mask.kernel_args(), int(need_kv), fault, torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q):
+        err = lib.rtv_attention_bwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), qc.data_ptr(), dq.data_ptr(),
+            None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(), b,
+            lq, k.shape[1], n, d, qscale(scale), *mask.kernel_args(), int(need_kv), fault,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_attention_bwd_sm90 launch failed: cudaError {err}")
     LAUNCHES[f"{mask.key}_bwd"] += 1

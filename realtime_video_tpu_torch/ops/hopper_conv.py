@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from realtime_video_tpu_torch.ops import cuda_build, hopper_int8_mm
+from realtime_video_tpu_torch.utils.device import on_card
 
 SOURCE = cuda_build.CSRC / "conv_sm90.cu"
 
@@ -290,13 +291,15 @@ def _launch(x, w, stride=(1, 1), padding: Padding = ((1, 1), (1, 1)), bias=None,
     t, h, w_, c = x.shape
     (ph0, ph1), (pw0, pw1) = padding
     a_scale, scale = dequant if dequant is not None else (None, None)
-    err = lib.rtv_conv3x3_sm90(
-        x.data_ptr(), w.data_ptr(), None if a_scale is None else a_scale.data_ptr(),
-        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), int(int8), mode,
-        t, h, w_, c, x.stride(2), w.shape[-1], w.stride(2), w.stride(4), w.shape[0],
-        stride[0], stride[1], ph0, ph1, pw0, pw1, fault,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x):  # the .cu side acts on the current device
+        err = lib.rtv_conv3x3_sm90(
+            x.data_ptr(), w.data_ptr(), None if a_scale is None else a_scale.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), int(int8), mode,
+            t, h, w_, c, x.stride(2), w.shape[-1], w.stride(2), w.stride(4), w.shape[0],
+            stride[0], stride[1], ph0, ph1, pw0, pw1, fault,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_conv3x3_sm90 launch failed: cudaError {err}")
     LAUNCHES["conv3x3"] += 1
@@ -348,8 +351,10 @@ def _quantize_launch(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
     t, h, w_, c = x.shape
     cp = channel_pad(c, torch.int8)
     xq = torch.empty((t, h, w_, cp), dtype=torch.int8, device=x.device)
-    err = lib.rtv_conv_quantize(x.data_ptr(), xq.data_ptr(), a_scale.data_ptr(), t * h * w_, c,
-                                cp, torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x):
+        err = lib.rtv_conv_quantize(x.data_ptr(), xq.data_ptr(), a_scale.data_ptr(),
+                                    t * h * w_, c, cp,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rtv_conv_quantize launch failed: cudaError {err}")
     PREPASS_LAUNCHES["conv_quantize"] += 1

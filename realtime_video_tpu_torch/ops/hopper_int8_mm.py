@@ -40,6 +40,7 @@ from typing import Dict, Optional
 import torch
 
 from realtime_video_tpu_torch.ops import cuda_build
+from realtime_video_tpu_torch.utils.device import on_card
 
 SOURCE = cuda_build.CSRC / "int8_mm.cu"
 
@@ -187,11 +188,12 @@ def _launch(x, w_q, w_scale, a_scale, bias=None, fault: int = 0) -> torch.Tensor
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)  # the quanta of x
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.rtv_int8_linear(
-        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), xq.data_ptr(),
-        m, k, n, fault, stream)
+    with on_card(x):  # the .cu side acts on the current device
+        err = lib.rtv_int8_linear(
+            x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            0 if bias is None else _BIAS_KIND[bias.dtype], out.data_ptr(), xq.data_ptr(),
+            m, k, n, fault, stream)
     if err != 0:
         raise RuntimeError(f"rtv_int8_linear launch failed: cudaError {err}")
     return out

@@ -26,6 +26,7 @@ import logging
 import math
 import os
 import time
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,11 +43,12 @@ from realtime_video_tpu_torch.models import vae as vae_mod
 from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
 from realtime_video_tpu_torch.models.text_encoder import StaticTextEncoder, WanTextEncoder
-from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
+from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper, fuseup_enabled
 from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv, hopper_int8_mm
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
 from realtime_video_tpu_torch.utils import qcache
+from realtime_video_tpu_torch.utils.device import indexed
 
 log = logging.getLogger(__name__)
 
@@ -119,37 +121,93 @@ def load_transformer(config, device, seed: int = 0) -> WanDiffusion:
     return WanDiffusion(cfg=entry["cfg"], params=entry["params"], timestep_shift=shift)
 
 
+def vae_placement(config, n_cards: int, env=None) -> Tuple[Optional[int], Tuple[int, ...]]:
+    """(the card the VAE is pinned to, or None; the cards its row split runs
+    on, or ()), as the JAX loader chooses (serving/models.py:145-178 of the
+    JAX package): RTV_VAE_DEVICE, else the config's `vae_device_index` (0 is
+    a card, null none), pins it; RTV_VAE_SP_DEVICES, else `vae_sp_devices`,
+    N >= 2 splits it over cards 1..N while card 0 runs the DiT, and then no
+    pin applies. Unlike the JAX loader, which warns and leaves the VAE on the
+    default chip, a card that is not attached raises: nothing runs on
+    another device in silence. `env` defaults to os.environ."""
+    env = os.environ if env is None else env
+    env_dev, cfg_dev = env.get("RTV_VAE_DEVICE"), config.get("vae_device_index")
+    dev = int(env_dev) if env_dev not in (None, "") else (
+        int(cfg_dev) if cfg_dev is not None else -1)
+    if dev >= n_cards:
+        raise ValueError(f"VAE device {dev} requested (RTV_VAE_DEVICE / vae_device_index) "
+                         f"but {n_cards} CUDA devices are attached")
+    env_sp = env.get("RTV_VAE_SP_DEVICES")
+    n_sp = int(env_sp) if env_sp not in (None, "") else int(
+        config.get("vae_sp_devices", 0) or 0)
+    if n_sp >= 2:
+        if n_cards <= n_sp:
+            raise ValueError(f"a VAE split over {n_sp} devices (RTV_VAE_SP_DEVICES / "
+                             f"vae_sp_devices) takes cards 1..{n_sp} beside the DiT's card "
+                             f"0, but {n_cards} CUDA devices are attached")
+        return None, tuple(range(1, 1 + n_sp))
+    return (dev if dev >= 0 else None), ()
+
+
+def _card(index: int) -> torch.device:
+    return torch.device("cuda", index)
+
+
 def load_vae(config, device, seed: int = 0) -> VAEWrapper:
-    """The Wan 2.1 VAE in bf16 on `device` (Wan2.1_VAE.pth under MODEL_FOLDER,
-    or random init); with `enable_int8`, its 3x3 convs calibrated (static
+    """The Wan 2.1 VAE in bf16 (Wan2.1_VAE.pth under MODEL_FOLDER, or random
+    init) beside the DiT on `device`, or on the card `vae_placement` pins it
+    to, or split by rows over the cards it names (built on the first, then
+    copied to each); with `enable_int8`, its 3x3 convs calibrated (static
     scales: a float decode of 2 latents (1, 2, 8, 8, 16) and an encode of one
-    (1, 1, 64, 64, 3) frame, the JAX loader's shapes) and quantised there, the
-    encoder's included."""
-    device = torch.device(device)
+    (1, 1, 64, 64, 3) frame, the JAX loader's shapes) and quantised on the
+    VAE's card, the encoder's included. Encoded latents come back to
+    `device`."""
+    device = indexed(device)
+    pin, split = vae_placement(config, torch.cuda.device_count())
+    cards = [_card(i) for i in split]
+    home = cards[0] if cards else (_card(pin) if pin is not None else device)
+    if pin is not None:
+        log.info("VAE pinned to %s (its decode runs beside the DiT's denoise)", home)
+    if cards:
+        log.info("VAE split by rows over %s", ", ".join(map(str, cards)))
+    place = dict(mesh=cards, dit_device=device) if cards else dict(device=home,
+                                                                    dit_device=device)
     if not config.get("enable_int8", False):
-        return VAEWrapper.from_model_folder(dtype=torch.bfloat16, device=device, seed=seed)
+        return VAEWrapper.from_model_folder(dtype=torch.bfloat16, seed=seed, **place)
     static = bool(config.get("int8_static_scales", True))
     ckpt = os.path.join(MODEL_FOLDER, "Wan2.1-T2V-1.3B", "Wan2.1_VAE.pth")
     src = (qcache.file_sig(ckpt) if os.path.exists(ckpt)
-           else f"random:wan2.1:{seed}:{device.type}")
-    key = qcache.cache_key(src, static, qcache.code_hash(vae_mod),
+           else f"random:wan2.1:{seed}:{home.type}")
+    key = qcache.cache_key(src, static, fuseup_enabled(), qcache.code_hash(vae_mod),
                            qcache.code_hash(config_mod), qcache.code_hash(hopper_conv), "vq1")
 
     def build():
-        vae = VAEWrapper.from_model_folder(dtype=torch.bfloat16, device=device, seed=seed)
+        # the constructor folds the upsamples first under RTV_VAE_FUSEUP
+        vae = VAEWrapper.from_model_folder(dtype=torch.bfloat16, device=home, seed=seed)
         act_scales = None
         if static:
-            gen = torch.Generator(device=device).manual_seed(seed)
-            zc = torch.randn((1, 2, 8, 8, vae.cfg.z_dim), generator=gen, device=device)
-            pxc = torch.rand((1, 1, 64, 64, 3), generator=gen, device=device) * 2.0 - 1.0
+            gen = torch.Generator(device=home).manual_seed(seed)
+            zc = torch.randn((1, 2, 8, 8, vae.cfg.z_dim), generator=gen, device=home)
+            pxc = torch.rand((1, 1, 64, 64, 3), generator=gen, device=home) * 2.0 - 1.0
             act_scales = vae_mod.calibrate_vae_act_scales(
                 vae.cfg, vae.params, zc.to(torch.bfloat16), pxc.to(torch.bfloat16))
         return {"cfg": vae.cfg,
                 "params": vae_mod.quantize_vae_params(vae.params, act_scales=act_scales)}
 
-    entry = qcache.cached_tree("vae_qparams", key, build, device, log)
+    entry = qcache.cached_tree("vae_qparams", key, build, home, log)
     log.info("VAE convs quantised to int8 (static scales: %s)", static)
-    return VAEWrapper(cfg=entry["cfg"], params=entry["params"])
+    return VAEWrapper(cfg=entry["cfg"], params=entry["params"], **place)
+
+
+def vae_devices(vae: VAEWrapper) -> tuple:
+    """Every device the VAE computes on."""
+    return getattr(vae, "devices", None) or (vae.device,)
+
+
+def _sync(*devices) -> None:
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _env_flag(name: str, default: str, true=("true", "1", "yes")) -> bool:
@@ -211,18 +269,18 @@ def check_mesh_shape(config) -> None:
 def load_all(config, device, seed: int = 0) -> Models:
     """DiT (`checkpoint_path`, else config["model_name"] from `seed`), Wan 2.1
     VAE (seed + 1), text encoder (seed + 2) and, with `use_taehv`, TAEHV on
-    `device`, in the tier the config asks for (one device: see
-    `check_mesh_shape`). The Models carry each component's load seconds."""
+    `device`, in the tier the config asks for (the DiT on one device: see
+    `check_mesh_shape`; the VAE where `vae_placement` puts it). The Models
+    carry each component's load seconds."""
     check_mesh_shape(config)
     t0 = time.time()
-    device = torch.device(device)
+    device = indexed(device)
     seconds = {}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device, *(vae_devices(out) if isinstance(out, VAEWrapper) else ()))
         seconds[name] = time.perf_counter() - t
         return out
 
@@ -271,7 +329,9 @@ def warmup_models(models: Models, config, shapes=None) -> dict:
     context), block 0's decode per latent (twice, the second with the
     cache), the steady block's decode as a session decodes it (the Wan VAE
     per latent, or TAEHV with `use_taehv`) and one frame of the stream
-    encode.
+    encode; the VAE's work on its own card or cards where it is placed
+    there, each of them synchronised with the DiT's before a shape's time
+    is read.
 
     Scratch KV, VAE and TAEHV caches only, and a zero [1, 512, text_dim]
     context for the text K/V: the models' and the pipeline's state stay as
@@ -293,9 +353,8 @@ def warmup_models(models: Models, config, shapes=None) -> dict:
     use_taehv = bool(config.get("use_taehv", False))
     vae = models.vae_decoder
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    def sync():  # the DiT's card and every VAE card
+        _sync(dev, *vae_devices(vae), *vae_devices(models.vae_encoder))
 
     t0 = time.perf_counter()
     if dev.type == "cuda":

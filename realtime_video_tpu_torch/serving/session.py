@@ -26,6 +26,16 @@ Video in, as in the JAX session:
   * `resume_latents`: .npy bytes of [Tz, z, h, w] latents that block 0
     takes as its context.
 
+Where the VAE lies on a card of its own, or is split over cards by rows
+(`VAEWrapper(device=)` / `mesh=`, chosen by `serving/models.load_vae`), the
+per-latent decode runs there and its pixels stay there, in the frame deque
+too; the anti-drift re-encode, the webcam, start-frame and v2v encodes read
+pixels from wherever they lie and return latents on the DiT's card (the
+wrapper's `dit_device`). TAEHV stays on the DiT's card, as in the JAX
+session. The re-encode of block n + 1 reads block n's pixels, so it queues
+behind block n's decodes on the VAE's card and the DiT's prefill waits for
+it.
+
 Random numbers come from a `torch.Generator` seeded with the request's seed
 (the JAX package's `jax.random` stream gives other numbers); `noise` injects
 the initial latents noise and `noise_fn` every later draw, in the JAX

@@ -60,7 +60,7 @@ def _path(prefix: str, key: str) -> str:
     return os.path.join(base, f".rtv_{prefix}_{key}.pt")
 
 
-def _move(tree: Any, device) -> Any:
+def move_tree(tree: Any, device) -> Any:
     """The tree with every tensor on `device` in its layout: each storage is
     copied whole, once, and every tensor over it rebuilt as the same view
     (size, stride, offset). Other leaves pass through."""
@@ -93,7 +93,7 @@ def cached_tree(prefix: str, key: str, build: Callable[[], Any], device="cpu",
     if enabled() and os.path.exists(path):
         try:
             # the entry is one this program wrote (its configs need pickle)
-            tree = _move(torch.load(path, map_location="cpu", weights_only=False), device)
+            tree = move_tree(torch.load(path, map_location="cpu", weights_only=False), device)
             if log is not None:
                 log.info("quantised-param cache HIT %s", path)
             return tree
@@ -108,7 +108,7 @@ def cached_tree(prefix: str, key: str, build: Callable[[], Any], device="cpu",
     if enabled():
         tmp = f"{path}.tmp.{os.getpid()}"
         try:
-            torch.save(_move(tree, "cpu"), tmp)
+            torch.save(move_tree(tree, "cpu"), tmp)
             os.replace(tmp, path)
             if log is not None:
                 log.info("quantised-param cache stored %s", path)

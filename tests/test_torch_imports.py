@@ -4,8 +4,9 @@ solvers, the teacher pipelines, `WanT2V` and `WanI2V`, the CLIP towers, the
 image and prompt-extension utilities, the training stack (`train`,
 `training/` with GAN, the self-forcing rollout, the datasets), the ODE-pair
 scripts (`scripts/`), the parallel layer (`parallel/`: mesh, launch,
-collectives, sharding, sequence, plan) and every other module of it, and
-neither `jax` nor the JAX package enters sys.modules. Also holds
+collectives, sharding, sequence, plan, the VAE's row split) and every
+other module of it, and neither `jax` nor the JAX package enters
+sys.modules. Also holds
 that the port's kernel wrappers take a CUDA tensor only to their kernels (on
 a CPU-only host they must raise, not fall back), and that its entry points
 (TAEHV's init and `sample_videos` among them, and `parallel/launch.run`,
@@ -59,7 +60,8 @@ def test_port_imports_no_jax():
             "realtime_video_tpu_torch.parallel.collectives",
             "realtime_video_tpu_torch.parallel.sharding",
             "realtime_video_tpu_torch.parallel.sequence",
-            "realtime_video_tpu_torch.parallel.plan"} <= set(mods)
+            "realtime_video_tpu_torch.parallel.plan",
+            "realtime_video_tpu_torch.parallel.vae_sp"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -98,8 +98,8 @@ def test_int8_t1_tapskip_matches_jax(static):
     the new cache holds a zero frame and the input."""
     jp, tp = both(params(3, 8, 12, static, 5))
     x = act((1, 6, 7, 8), 6)
-    jio, tio = jvae._CacheIO(None), tvae._CacheIO(None)
+    jio, walk = jvae._CacheIO(None), tvae._Walk(None, 1)  # the port's graph: one row shard
     want = jvae.causal_conv3d(jp, jnp.asarray(x), None, jio)
-    got = tvae.causal_conv3d(tp, torch.from_numpy(x), None, tio)
+    (got,) = tvae.causal_conv3d(walk, [tp], [torch.from_numpy(x)])
     close(got, want)
-    close(tio.out[0], jio.out[0])
+    close(walk.caches()[0][0], jio.out[0])

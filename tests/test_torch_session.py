@@ -175,6 +175,36 @@ def test_taehv_session_matches_jax(stacks, monkeypatch):
     assert len(ts.decode_vae_cache) == 9  # one carried frame per MemBlock
 
 
+def test_three_block_session_with_a_split_vae(stacks):
+    """The same 3 blocks (prompt lerp and block 2's anti-drift re-encode
+    included) with the VAE split over 2 row shards (`VAEWrapper(mesh=)`,
+    both on the CPU) against the unsplit VAE: the port's session twice, the
+    same seed. Latents and frames must agree to 1e-5: the row split changes
+    no arithmetic of a pixel."""
+    config, _, tm = stacks
+    split = TVAE(VAEC, tm.vae_decoder.params, mesh=["cpu", "cpu"])
+    tm_split = TModels(tm.text_encoder, tm.transformer, TPipe(config, tm.transformer),
+                       split, split)
+
+    def run(models):
+        frames = []
+        session = TSession(TParams(**REQ), config, models=models,
+                           frame_callback=lambda px, ids, ev: frames.append(px.float()))
+        for b in range(3):
+            session.generate_block_internal(models)
+            if b == 0:
+                session.interpolate_prompt_embeds(models, "a dog", 2)
+        return session, torch.cat(frames, dim=1)
+
+    want_s, want = run(tm)
+    got_s, got = run(tm_split)
+    assert got.shape == (1, 30, 3, 64, 64) and torch.isfinite(got).all()
+    torch.testing.assert_close(got_s.all_latents.float(), want_s.all_latents.float(),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert len(got_s.decode_vae_cache) == 2  # one cache tuple per shard
+
+
 def _png_bytes() -> bytes:
     from io import BytesIO
 
