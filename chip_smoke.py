@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]   (those alone)
+    python3 chip_smoke.py --session-phases   (session_megafuse alone, bf16 then int8)
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), the build of the
@@ -141,8 +142,16 @@ Phases, each reported on its own lines:
        - t2v-1.3B in bf16, two sessions; then, on the same models, one
          session with RTV_ATTN_SKEW2's switch (K6b) and one with
          RTV_ATTN_SKEW's (K6a), whose block-0 x0 must match the default
-         attention's (cosine > 0.999); then the teacher path on the same
-         models (the teacher's precision, a random head, prompts from
+         attention's (cosine > 0.999); then `session_megafuse`
+         (`session_megafuse_phase`: the session's throughput mode,
+         RTV_SESSION_MEGAFUSE, against the switch at 0 over four 5-block
+         sessions, latents and frames bit-equal, their TTFF, block walls
+         and host-queue against device time; a warm block under
+         `torch.cuda.set_sync_debug_mode("error")`, and the same block with
+         the former host-built formulas planted back, which must raise
+         there and be counted under "warn": `planted_sync`); then the
+         teacher path
+         on the same models (the teacher's precision, a random head, prompts from
          SeededTextEncoder) over a whole 81-frame clip, 21 latents of
          32760 tokens: `WanT2V.generate` (4 UniPC steps, guidance 5), the
          few-step `BidirectionalInferencePipeline` (the default step list,
@@ -154,18 +163,23 @@ Phases, each reported on its own lines:
          `int8_static_scales`: calibrated and quantised on the card), two
          sessions; block 0's x0 must correlate with the bf16 tier's (> 0.99)
          on the same seed and request, with a random head so that the DiT's
-         output is not zero; then on its models the VAE's placement
-         (`vae_phases`): `device_guard` (the bindings' device guard's host
+         output is not zero; then `session_megafuse` on its models, its
+         sync check also for TAEHV and a 2-shard VAE on this card; then the
+         VAE's placement (`vae_phases`): `device_guard` (the bindings' device guard's host
          cost a block), `vae_split_one_card` (the VAE in bf16 and int8
          split by rows into 2 and 4 shards on this card against the
          unsplit one, K4/K5 at every shard form against the plain version,
          interior halos zeroed as the planted fault, a 3-block session with
-         a 2-shard VAE), `vae_split_conv_bf16` (the split's bf16 convs one
-         at a time, and their no-halo fault), `vae_fuseup` (the phase-folded decode in bf16 and
+         a 2-shard VAE; `vae_split_op_divergence`: each op of a bf16 split
+         decode on its own inputs, where only cuDNN's convs may differ, each
+         within the per-conv bar), `vae_split_conv_bf16` (the split's bf16
+         convs one at a time, warm and first chunks, and their no-halo
+         fault), `vae_fuseup` (the phase-folded decode in bf16 and
          int8 against the unfused one, the fused convs' forms at 4x the
          output channels, both timed in turns) and `vae_multi_gpu` (a VAE
-         pinned to cuda:1, and split over cuda:1..N-1, against one card;
-         `{"ran": false}` on one card);
+         pinned to cuda:1, and split over cuda:1..N-1, against one card,
+         each layout's sessions timed in both session modes; `{"ran":
+         false}` on one card);
        - the same tier served by `load_all`'s default text encoder, umT5-xxl
          (random weights from the seed, the fallback tokenizer): its forward
          at L=512 timed with CUDA events beside its bound, the load and
@@ -280,6 +294,7 @@ import dataclasses
 import faulthandler
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -2339,12 +2354,13 @@ def parallel_phases(card: str) -> dict:
 #: leaves room for a few quanta only; f32 shows the split's arithmetic with
 #: cuDNN in the convs. Interior halos zeroed read 0.21-0.22, so the planted
 #: fault must miss the f32 and int8 bars by 10x. bf16 read 1.9e-2, the same
-#: with cuDNN deterministic, while the convs held one at a time are
-#: bit-equal: which bf16 op rounds otherwise at the shard shapes is not
-#: known (the fold, an exact rewrite, moves bf16 pixels by 1.8e-2 too). So
-#: the bf16 bar is a gross check only, 4x below the fault: the f32 and int8
-#: bars and the split's bf16 convs one at a time (VAE_SPLIT_CONV_BF16_BAR)
-#: hold the split.
+#: with cuDNN deterministic: cuDNN's bf16 3x3 convs at some shard forms of
+#: the latent and 2x rows round 1-2 ulps otherwise (up to 7.9e-5 each on
+#: equal inputs, `split_op_divergence`; every other op is bit-equal), and the
+#: random VAE amplifies that (the fold, an exact rewrite, moves bf16 pixels
+#: by 1.8e-2 too). So the bf16 bar is a gross check only, 4x below the
+#: fault: the f32 and int8 bars and the split's bf16 convs on their own
+#: inputs (VAE_SPLIT_CONV_BF16_BAR) hold the split.
 VAE_SPLIT_BARS = {"f32": 1e-4, "int8": 1e-3, "bf16": 5e-2}
 #: one bf16 causal conv of the VAE split into row shards (the walk's halo
 #: exchange on the spliced input, then each shard's cuDNN conv) against the
@@ -2353,7 +2369,11 @@ VAE_SPLIT_BARS = {"f32": 1e-4, "int8": 1e-3, "bf16": 5e-2}
 #: shard padded a copy of its input (one-ulp flips, cuDNN deterministic
 #: alike), bit-equal since it pads both sides and drops a row; interior halos
 #: zeroed read 0.037 (full rows, 2 shards) to 0.18 (latent rows, 4), 37-184x
-#: this bar
+#: this bar; it holds a stream's first chunk (one frame through the last
+#: temporal tap alone) too, and each cuDNN conv of a whole split decode on
+#: its own inputs (`split_op_divergence`), where the shard forms at the latent
+#: and 2x rows read up to 7.9e-5 (1-2 ulp flips: cuDNN picks its algorithm by
+#: shape, deterministic or not) and every other op is bit-equal
 VAE_SPLIT_CONV_BF16_BAR = 1e-3
 #: the phase-folded decode against the unfused one in bf16 (the folded
 #: weights are rounded to bf16 once more)
@@ -2364,6 +2384,313 @@ FUSEUP_BF16_REL_FRO_BAR = 5e-2
 #: dims on the CPU, does not hold at full width: the unfused int8 decode of
 #: the random Wan 2.1 VAE is itself 0.027 from bf16 on an H100)
 FUSEUP_INT8_ERR_RATIO_BAR = 1.2
+
+
+#: the decoder ops `split_op_divergence` holds one at a time
+SPLIT_TRACED_OPS = ("conv3d", "conv2d", "rms_norm_image", "attention_qkv", "attention_out")
+
+
+def split_op_divergence(base, split, z) -> dict:
+    """Each traced op of the VAE decoder (SPLIT_TRACED_OPS of
+    models/vae.py) in the split wrapper's decode of z (its first latent,
+    then two warm ones, one `decode_block` call each), held on its own
+    inputs: the unsplit decode runs first and keeps every op's output; the
+    split decode then runs with each shard's output of an op compared bit
+    for bit with the same rows of the unsplit op's output and replaced by
+    them, so that every op sees the unsplit rows as its input. Returns, per
+    op, its calls, how many shard outputs differ, the largest difference,
+    and the first differing calls (op, call, rows, shapes); and per form
+    (op, weight shape, input shape: the conv's input rows with their halo)
+    its shard outputs, how many differ and the largest relative Frobenius
+    error among them."""
+    import torch
+
+    from realtime_video_tpu_torch.models import vae as vae_mod
+
+    real = {n: getattr(vae_mod, n) for n in SPLIT_TRACED_OPS}
+    want = {n: [] for n in SPLIT_TRACED_OPS}
+
+    def decode3(vae):
+        cache = None
+        for i in range(3):
+            _, cache = vae.decode_block(z[:, i:i + 1].to(vae.dtype), cache)
+
+    def record(n):
+        def op(*a, **k):
+            y = real[n](*a, **k)
+            want[n].append(y)
+            return y
+        return op
+
+    at = {n: [0, 0] for n in SPLIT_TRACED_OPS}  # per op: unsplit call, row offset
+    stats = {n: dict(calls=0, shard_outputs=0, differing=0, max_abs_diff=0.0)
+             for n in SPLIT_TRACED_OPS}
+    forms = {}  # "op w=... in=...": shard outputs, differing, largest relative error
+    first = []
+
+    def substitute(n):
+        def op(*a, **k):
+            y = real[n](*a, **k)
+            call, off = at[n]
+            w = want[n][call]
+            ys, ws = (y, w) if isinstance(y, tuple) else ((y,), (w,))
+            h = ys[0].shape[1]
+            cut = tuple(t[:, off:off + h] for t in ws)
+            same = all(torch.equal(g, c) for g, c in zip(ys, cut))
+            st = stats[n]
+            st["shard_outputs"] += 1
+            p = a[0]
+            w_ = p.get("w", p.get("w_q")) if isinstance(p, dict) else None
+            key = (f"{n} w={'-' if w_ is None else list(w_.shape)} "
+                   f"in={list(a[1].shape) if n.startswith('conv') else list(ys[0].shape)}")
+            form = forms.setdefault(key, dict(shard_outputs=0, differing=0, max_rel_fro=0.0))
+            form["shard_outputs"] += 1
+            if not same:
+                diff = max(float((g.float() - c.float()).abs().max()) for g, c in zip(ys, cut))
+                rel = max(float((g.float() - c.float()).norm() / c.float().norm())
+                          for g, c in zip(ys, cut))
+                st["differing"] += 1
+                st["max_abs_diff"] = max(st["max_abs_diff"], diff)
+                form["differing"] += 1
+                form["max_rel_fro"] = max(form["max_rel_fro"], rel)
+                if len(first) < 4:
+                    first.append(dict(op=n, call=call, rows=[off, off + h],
+                                      out=list(ys[0].shape), max_abs_diff=diff,
+                                      rel_fro_err=rel, w=None if w_ is None else list(w_.shape)))
+            at[n][1] = off + h
+            if at[n][1] == ws[0].shape[1]:
+                at[n] = [call + 1, 0]
+                st["calls"] += 1
+            out = tuple(c.contiguous() for c in cut)
+            return out if isinstance(y, tuple) else out[0]
+        return op
+
+    try:
+        with torch.no_grad():
+            for n in SPLIT_TRACED_OPS:
+                setattr(vae_mod, n, record(n))
+            decode3(base)
+            for n in SPLIT_TRACED_OPS:
+                setattr(vae_mod, n, substitute(n))
+            decode3(split)
+    finally:
+        for n, fn in real.items():
+            setattr(vae_mod, n, fn)
+    return {"ops": stats, "forms": forms, "first_differing": first}
+
+
+#: the kernels each 1.3B tier's session must launch
+KERNEL_PATHS = {"bf16": ("window", "logit_bound", "block_causal"),
+                "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
+                         "conv_quantize")}
+#: the server config flags of the int8 tier (calibrated and quantised on the card)
+INT8_FLAGS = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
+#: a warm block with the former formulas planted back must make at least
+#: this many synchronising calls: the former `latent_scale` builds 2 tensors
+#: from host lists at each of its 3 decodes and its re-encode, the former
+#: time embedding 1 at each of its 5 DiT forwards (13 on one card)
+PLANTED_SYNCS_MIN = 4
+
+
+def former_latent_scale(cfg, device=None):
+    """`vae.latent_scale` as it was before it kept its tensors: (mean, std)
+    built from the host lists at every call, a blocking copy to the card."""
+    import torch
+
+    from realtime_video_tpu_torch.models import vae as vae_mod
+
+    if cfg.z_dim == len(vae_mod.VAE_LATENT_MEAN):
+        return (torch.tensor(vae_mod.VAE_LATENT_MEAN, dtype=torch.float32, device=device),
+                torch.tensor(vae_mod.VAE_LATENT_STD, dtype=torch.float32, device=device))
+    return (torch.zeros((cfg.z_dim,), dtype=torch.float32, device=device),
+            torch.ones((cfg.z_dim,), dtype=torch.float32, device=device))
+
+
+def former_time_embedding(dim, position):
+    """`rope.sinusoidal_embedding_1d` as it was before its base became a
+    Python scalar: a 0-d tensor built on the card at every call."""
+    import torch
+
+    half = dim // 2
+    p = position.to(torch.float32).reshape(-1)
+    inv = torch.pow(torch.tensor(10000.0, dtype=torch.float32, device=p.device),
+                    -torch.arange(half, dtype=torch.float32, device=p.device) / half)
+    sinusoid = p[:, None] * inv[None, :]
+    return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=1)
+
+
+@contextlib.contextmanager
+def former_sync_formulas():
+    """The two former formulas planted back where the session calls them
+    (`vae.latent_scale`, `wan_dit.sinusoidal_embedding_1d`): the parent
+    commit's host syncs, the same values."""
+    from realtime_video_tpu_torch.models import vae as vae_mod
+    from realtime_video_tpu_torch.models import wan_dit
+
+    real = vae_mod.latent_scale, wan_dit.sinusoidal_embedding_1d
+    vae_mod.latent_scale, wan_dit.sinusoidal_embedding_1d = (former_latent_scale,
+                                                             former_time_embedding)
+    try:
+        yield
+    finally:
+        vae_mod.latent_scale, wan_dit.sinusoidal_embedding_1d = real
+
+
+def planted_sync_check(card: str, label: str, models, config) -> dict:
+    """The no-sync check shown to see a sync in this run: one warm block
+    (`session_syncs.warm_block_syncs`, block 2) with the former formulas
+    planted back must raise under sync debug "error" and make at least
+    PLANTED_SYNCS_MIN synchronising calls under "warn" (the parent commit's
+    count of this case)."""
+    from realtime_video_tpu_torch.tools import session_syncs as ss
+
+    with former_sync_formulas():
+        try:
+            ss.warm_block_syncs(models, config, mode="error")
+            raised = None
+        except RuntimeError as e:
+            raised = str(e).splitlines()[0]
+        warn = ss.warm_block_syncs(models, config)
+    row = dict(error_mode_raised=raised, warn_count=warn["count"], warn_sites=warn["sites"])
+    phase("planted_sync", case=label, **row, card=card)
+    if raised is None or warn["count"] < PLANTED_SYNCS_MIN:
+        fail(f"planted_sync {label}: the former formulas' syncs were not seen: {row}")
+    return row
+
+
+def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, kernel_mods,
+                           read_counts, required) -> dict:
+    """The session's throughput mode (RTV_SESSION_MEGAFUSE) at t2v-1.3B
+    832x480 on `models` (`tier`: "bf16" or "int8"), the DiT head random
+    (`head_w`), the same seed throughout
+    (`tools/session_syncs.timed_session`: frames to the host on a worker
+    thread, as the server's callback does):
+
+      * after an untimed 3-block session, four sessions of 5 blocks, the
+        switch at 1, 0, 0, 1: each one's
+        TTFF, block walls and warm fps on the host's clock, and per block
+        the host's time to queue it (entry to return of
+        `generate_block_internal`) beside the card's time between CUDA
+        events at those two points; every launch count set to 0 before
+        them and read after: each kernel of `required` must have launched
+        and no plain version may have seen a CUDA tensor;
+      * the first two sessions' latents and frames (switch 1 against 0)
+        must be bit-equal, and are stated beside each mode against its own
+        repeat (sessions 2 and 3 against 1 and 0);
+      * one warm block (block 2, the first with the anti-drift re-encode)
+        under `torch.cuda.set_sync_debug_mode("error")` (reset after) with
+        the switch at 1, which must make no synchronising call, and the same
+        block with the switch at 0 counted under "warn", for the record: of
+        this tier's models, and on the int8 tier also of TAEHV
+        (`use_taehv`) and of a VAE split into 2 row shards on this card;
+        then each such block with the former formulas planted back
+        (`planted_sync_check`), which must raise under "error" and make at
+        least PLANTED_SYNCS_MIN synchronising calls under "warn";
+      * on bf16, `sinusoidal_embedding_1d` and `latent_scale` on the card
+        against the formulas they replaced (bit-equal)."""
+    import torch
+
+    from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.models import rope as rope_mod
+    from realtime_video_tpu_torch.models import vae as vae_mod
+    from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
+    from realtime_video_tpu_torch.serving.models import Models
+    from realtime_video_tpu_torch.serving.session import _ensure_taehv_params
+    from realtime_video_tpu_torch.tools import session_syncs as ss
+
+    t_phase = time.perf_counter()
+    head = models.transformer.params["head"]["head"]
+    saved, head["w"] = head["w"], head_w.to(head["w"].dtype)
+    out = {}
+    def compare(a, b):
+        px = (a["frames"] - b["frames"]).abs()
+        blocks = a["latents"].shape[1] // 3
+        return dict(latents=torch.equal(a["latents"], b["latents"]),
+                    frames=torch.equal(a["frames"], b["frames"]),
+                    latents_max_abs_diff=float((a["latents"] - b["latents"]).abs().max()),
+                    frames_max_abs_diff=float(px.max()), frames_mean_abs_diff=float(px.mean()),
+                    blocks_equal=[torch.equal(a["latents"][:, 3 * i:3 * i + 3],
+                                              b["latents"][:, 3 * i:3 * i + 3])
+                                  for i in range(blocks)],
+                    first_differing_frame=next((i for i in range(px.shape[1])
+                                                if px[:, i].max() > 0), None))
+
+    try:
+        ss.timed_session(models, config, blocks=3)  # warm both kinds of block first
+        for m in kernel_mods:
+            m.reset_launch_counts()
+        runs = [ss.timed_session(models, config, megafuse=mf, keep_frames=True)
+                for mf in ("1", "0", "0", "1")]
+        launches, plain = read_counts()
+        # the switch at 1 against 0, then each mode against its own repeat
+        equal = compare(runs[0], runs[1])
+        repeats = {"streamed": compare(runs[1], runs[2]), "fused": compare(runs[0], runs[3])}
+        timing = [{k: r[k] for k in ("megafuse", "ttff_ms", "block_ms", "fps_warm", "host_ms",
+                                     "device_ms", "frames_per_callback")} for r in runs]
+        finite = bool(all(torch.isfinite(r["frames"]).all() for r in runs))
+        frames_n = [r["frames"].shape[1] for r in runs[:2]]
+        del runs
+        out.update(equal=equal, repeats=repeats, sessions=timing, launches=launches,
+                   plain_on_cuda=plain)
+        phase("session_megafuse", tier=tier, sessions=timing, equal=equal, repeats=repeats,
+              frames=frames_n, finite=finite, launches=launches, plain_on_cuda=plain, card=card)
+        missing = [k for k in required if launches.get(k, 0) <= 0]
+        if missing or any(plain.values()) or not finite or frames_n != [54, 54]:
+            fail(f"session_megafuse {tier}: kernels not launched {missing}, plain on CUDA "
+                 f"{plain}, finite {finite}, frames {frames_n}")
+        if timing[0]["frames_per_callback"] != [2, 4] + [12] * 4 or \
+                timing[1]["frames_per_callback"] != [2, 4] + [4] * 12:
+            fail(f"session_megafuse {tier}: frames per callback "
+                 f"{[t['frames_per_callback'] for t in timing[:2]]}")
+        if not (equal["latents"] and equal["frames"]):
+            fail(f"session_megafuse {tier}: the switch at 1 and at 0 differ: {equal}")
+
+        cases = {tier: (models, config)}
+        if tier == "int8":
+            vae = models.vae_decoder
+            split = VAEWrapper(vae.cfg, vae.params, mesh=[dev, dev], dit_device=dev)
+            cases["split2"] = (Models(models.text_encoder, models.transformer, models.pipeline,
+                                      split, split), config)
+            _ensure_taehv_params(models)
+            cases["taehv"] = (models, load_server_config(model_name="t2v-1.3B",
+                                                         num_frame_per_block=3,
+                                                         timestep_shift=5.0, use_taehv=True,
+                                                         **INT8_FLAGS))
+        syncs = {}
+        for case, (m, cfg) in cases.items():
+            row = {}
+            try:
+                row["error_mode"] = ss.warm_block_syncs(m, cfg, megafuse="1", mode="error")
+                row["error_mode_raised"] = None
+            except RuntimeError as e:
+                row["error_mode_raised"] = str(e).splitlines()[0]
+                row["warn_megafuse_1"] = ss.warm_block_syncs(m, cfg, megafuse="1")
+            row["warn_megafuse_0"] = ss.warm_block_syncs(m, cfg, megafuse="0")
+            phase("session_megafuse_syncs", case=case, **row, card=card)
+            row["planted"] = planted_sync_check(card, case, m, cfg)
+            syncs[case] = row
+        out["syncs"] = syncs
+        raised = {c: r["error_mode_raised"] for c, r in syncs.items() if r["error_mode_raised"]}
+        if raised:
+            fail(f"session_megafuse: a warm block made a synchronising call: {raised}")
+        if tier == "bf16":
+            t = torch.tensor([[999.0, 937.5, 833.25]], device=dev)
+            emb_equal = torch.equal(rope_mod.sinusoidal_embedding_1d(256, t),
+                                    former_time_embedding(256, t))
+            vcfg = models.vae_decoder.cfg
+            scale_equal = all(torch.equal(a, b) for a, b in zip(
+                vae_mod.latent_scale(vcfg, dev), former_latent_scale(vcfg, dev)))
+            out["formulas_equal"] = dict(sinusoidal_embedding_1d=emb_equal,
+                                         latent_scale=scale_equal)
+            phase("session_megafuse_formulas", **out["formulas_equal"], card=card)
+            if not (emb_equal and scale_equal):
+                fail(f"session_megafuse: a repaired formula changed its values: "
+                     f"{out['formulas_equal']}")
+    finally:
+        head["w"] = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase("session_megafuse_done", tier=tier, phase_s=out["phase_s"], card=card)
+    return out
 
 
 def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
@@ -2393,7 +2720,13 @@ def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
       * `vae_multi_gpu`: with two or more cards, a session whose VAE is
         pinned to cuda:1 (pixels there, latents on the DiT's card) and one
         whose VAE is split over cuda:1..N-1 against the one-card session,
-        with their walls, each after a first, cold session; on one card
+        with their walls, each after a first, cold session; then one
+        card's, the pinned and the split layout's 5-block sessions
+        timed as the server meets them (`tools/session_syncs.timed_session`)
+        with the switch at 1 and at 0, and a warm block of the pinned and
+        the split layout counted under sync debug "warn", which must find
+        no synchronising call, and must find the former formulas' when
+        they are planted back (`planted_sync_check`); on one card
         {"ran": false}.
     `phases` runs a subset (a probe of the multi-card phase alone)."""
     import torch
@@ -2404,6 +2737,7 @@ def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
     from realtime_video_tpu_torch.serving.models import Models, load_vae
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
+    from realtime_video_tpu_torch.tools import session_syncs
     from realtime_video_tpu_torch.utils.device import on_card
 
     t_phase = time.perf_counter()
@@ -2454,30 +2788,35 @@ def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
 
     def conv_rows(p, x, cache, n):
         """One causal conv through the walk: x [T, H, W, C] and its cache
-        [2, H, W, C] cut into n row shards (n = 1: the unsplit conv), the
-        shards' outputs joined."""
-        caches = [(c,) for c in cache.chunk(n, dim=1)]
+        [2, H, W, C] (None: a stream's first chunk, whose one frame runs the
+        last temporal tap only) cut into n row shards (n = 1: the unsplit
+        conv), the shards' outputs joined."""
+        caches = None if cache is None else [(c,) for c in cache.chunk(n, dim=1)]
         ys = vae_mod.causal_conv3d(vae_mod._Walk(caches, n), [p] * n, list(x.chunk(n, dim=1)))
         return torch.cat(ys, dim=1)
 
     def split_conv_bf16(params):
         """The split's bf16 convs one at a time: the decoder's first middle
         conv at the latent rows (384 channels, 60 x 104) and its last full
-        resolution conv (96 channels, 480 x 832), a warm chunk each, split
-        into 2 and 4 shards against the unsplit conv (VAE_SPLIT_CONV_BF16_BAR),
-        with cuDNN as it runs and deterministic, and interior halos zeroed."""
+        resolution conv (96 channels, 480 x 832), a warm chunk (the three
+        temporal taps) and a stream's first chunk (the last tap alone) each,
+        split into 2 and 4 shards against the unsplit conv
+        (VAE_SPLIT_CONV_BF16_BAR), with cuDNN as it runs and deterministic,
+        and interior halos zeroed."""
         rows = []
         dec = params["decoder"]
-        for name, p, (h, w) in (("middle_res1.conv1", dec["middle_res1"]["conv1"], (60, 104)),
-                                ("upsamples[-1].conv1", dec["upsamples"][-1]["conv1"],
-                                 (480, 832))):
+        for (name, p, (h, w)), chunk in itertools.product(
+                (("middle_res1.conv1", dec["middle_res1"]["conv1"], (60, 104)),
+                 ("upsamples[-1].conv1", dec["upsamples"][-1]["conv1"], (480, 832))),
+                ("warm", "first")):
             c = p["w"].shape[3]
             x = torch.randn((1, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
-            cache = torch.randn((2, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+            cache = (torch.randn((2, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+                     if chunk == "warm" else None)
             want = conv_rows(p, x, cache, 1)
             for n in (2, 4):
-                row = dict(conv=name, x=[1, h, w, c], shards=n, **err(conv_rows(p, x, cache, n),
-                                                                       want))
+                row = dict(conv=name, chunk=chunk, x=[1, h, w, c], shards=n,
+                           **err(conv_rows(p, x, cache, n), want))
                 with cudnn_deterministic():
                     row["cudnn_deterministic"] = err(conv_rows(p, x, cache, n),
                                                      conv_rows(p, x, cache, 1))
@@ -2678,6 +3017,23 @@ def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
                         out["split"]["bf16_sp2"]["cudnn_deterministic"] = det
                         phase("vae_split_one_card", tier=tier, shards=n,
                               cudnn_deterministic=det, card=card)
+                        # each op on its own inputs: only cuDNN's convs may
+                        # differ, each within the per-conv bar; zeroed halos
+                        # must miss it by 10x
+                        div = split_op_divergence(base, split, z)
+                        with no_halo():
+                            planted = split_op_divergence(base, split, z)
+                        worst = max(f["max_rel_fro"] for f in planted["forms"].values())
+                        div["no_halo_max_rel_fro"] = worst
+                        out["split"]["bf16_sp2"]["op_divergence"] = div
+                        phase("vae_split_op_divergence", tier=tier, shards=n, **div,
+                              bar=VAE_SPLIT_CONV_BF16_BAR, card=card)
+                        over = {k: f for k, f in div["forms"].items() if f["differing"] and (
+                            not k.startswith("conv")
+                            or f["max_rel_fro"] > VAE_SPLIT_CONV_BF16_BAR)}
+                        if over or worst < 10 * VAE_SPLIT_CONV_BF16_BAR:
+                            fail(f"the bf16 split's ops on their own inputs: {over}; zeroed "
+                                 f"halos {worst}")
                 del split
         if "split" in phases:
             out["split_conv_bf16"] = split_conv_bf16(vaes["bf16"].params)
@@ -2805,6 +3161,41 @@ def vae_phases(card: str, dev, config, models, request, head_w, kernel_mods,
                                split_frames=err(spl[0], one[0]), split=spl[2],
                                split_cold_wall_ms=cold[2]["wall_ms"])
                     ok = ok and res["split_frames"]["rel_fro_err"] <= VAE_SPLIT_BARS["int8"]
+                # each layout's 5-block session as the server meets it (frames
+                # to the host on a worker thread), the switch at 1 and at 0
+                layouts = {"one_card": vaes["int8"], "pinned": pinned}
+                if n_cards >= 3:
+                    layouts["split"] = split
+                res["timed"] = {}
+                head = models.transformer.params["head"]["head"]
+                saved = head["w"]
+                head["w"] = head_w.to(saved.dtype)
+                try:
+                    for (label, v), mf in itertools.product(layouts.items(), ("1", "0")):
+                        r = session_syncs.timed_session(
+                            Models(models.text_encoder, models.transformer, models.pipeline,
+                                   v, v), config, megafuse=mf)
+                        res["timed"][f"{label}_megafuse{mf}"] = {
+                            k: r[k] for k in ("ttff_ms", "block_ms", "fps_warm", "host_ms",
+                                              "device_ms")}
+                    # a warm block with the VAE on other cards (the copies to
+                    # and from them included) must make no synchronising call
+                    res["syncs"] = {
+                        label: session_syncs.warm_block_syncs(
+                            Models(models.text_encoder, models.transformer,
+                                   models.pipeline, v, v), config)
+                        for label, v in layouts.items() if label != "one_card"}
+                    # ... and the same count sees the former formulas' syncs
+                    # there
+                    res["planted"] = {
+                        label: planted_sync_check(
+                            card, f"vae_{label}", Models(models.text_encoder,
+                                                         models.transformer, models.pipeline,
+                                                         v, v), config)
+                        for label, v in layouts.items() if label != "one_card"}
+                finally:
+                    head["w"] = saved
+                ok = ok and not any(r["count"] for r in res["syncs"].values())
                 res["phase_s"] = time.perf_counter() - t_multi
                 out["multi_gpu"] = dict(res, ran=True)
                 phase("vae_multi_gpu", ran=True, **res, card=card)
@@ -3689,9 +4080,8 @@ def main() -> None:
     # the cache: 4, 4, 4) at 480x832 is recorded by its form; each form that
     # the cases above do not hold is held the same way (int32 sums equal,
     # fused dequantise bit-equal) on random s8 operands of its shapes.
-    int8_flags = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
     int8_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                     timestep_shift=5.0, **int8_flags)
+                                     timestep_shift=5.0, **INT8_FLAGS)
     vae8 = load_vae(int8_config, dev, seed=1)
 
     def recorded_forms(fn):
@@ -4307,10 +4697,8 @@ def main() -> None:
         return out
 
     tiers, skew_launches, head_w, teacher, vae_res = {}, {}, None, None, None
-    kernel_paths = {"bf16": ("window", "logit_bound", "block_causal"),
-                    "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
-                             "conv_quantize")}
-    for tier, flags in (("bf16", {}), ("int8", int8_flags)):
+    megafuse_res = {}
+    for tier, flags in (("bf16", {}), ("int8", INT8_FLAGS)):
         config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
                                     timestep_shift=5.0, **flags)
         torch.cuda.synchronize()
@@ -4320,7 +4708,7 @@ def main() -> None:
         load_s = time.perf_counter() - t0
         head_w = random_head(models) if head_w is None else head_w
         launches, plain_on_cuda, peak_gb, stats = serve(
-            config, models, t2v_specs((f"{tier}-0", f"{tier}-1")), tier, kernel_paths[tier])
+            config, models, t2v_specs((f"{tier}-0", f"{tier}-1")), tier, KERNEL_PATHS[tier])
         phase("server", model="t2v-1.3B", tier=tier, load_and_calibrate_s=load_s,
               peak_mem_gib=peak_gb, launches=launches, plain_on_cuda=plain_on_cuda,
               card=card)
@@ -4344,8 +4732,14 @@ def main() -> None:
                 if not (cos > 0.999 and torch.isfinite(x0).all()):
                     fail(f"{switch}: block-0 x0 does not match the default attention: {cos}")
                 skew_launches[key] = got[key]
+            megafuse_res[tier] = session_megafuse_phase(card, dev, tier, config, models, head_w,
+                                                        kernel_mods, read_counts,
+                                                        KERNEL_PATHS[tier])
             teacher = teacher_phases(models, head_w)
         else:
+            megafuse_res[tier] = session_megafuse_phase(card, dev, tier, config, models, head_w,
+                                                        kernel_mods, read_counts,
+                                                        KERNEL_PATHS[tier])
             vae_res = vae_phases(card, dev, config, models, request, head_w, kernel_mods)
         del models
         gc.collect()
@@ -4392,7 +4786,7 @@ def main() -> None:
     change = {"prompt": "a white owl flying over a pine forest", "interp_steps": 2}
     launches_u, plain_u, peak_u, stats_u = serve(
         int8_config, models, [("int8-umt5-0", request, None), ("int8-umt5-1", request, change)],
-        "int8 + umT5", kernel_paths["int8"])
+        "int8 + umT5", KERNEL_PATHS["int8"])
     phase("server", model="t2v-1.3B", tier="int8 + umT5-xxl", peak_mem_gib=peak_u,
           launches=launches_u, plain_on_cuda=plain_u, encoder_calls=encoder_calls,
           ttff_ms_umt5=[s_["ttff_ms"] for s_ in stats_u],
@@ -4475,7 +4869,7 @@ def main() -> None:
           push_fps=pushed / push_s, fps_warm=cam_stats["fps_warm"],
           encode_ms_per_block=encode_block_ms, launches=cam_launches,
           plain_on_cuda=cam_plain, card=card)
-    missing = [k for k in kernel_paths["int8"] if cam_launches.get(k, 0) <= 0]
+    missing = [k for k in KERNEL_PATHS["int8"] if cam_launches.get(k, 0) <= 0]
     if missing or any(cam_plain.values()) or len(encode_block_ms) != 3:
         fail(f"webcam session: kernels not launched {missing}, plain on CUDA {cam_plain}, "
              f"{len(encode_block_ms)} encodes")
@@ -4524,7 +4918,7 @@ def main() -> None:
         v2v_note = f"not run: cv2 is not installed on this host ({e}); the webcam session ran " \
                    "the same encode-and-mix path"
     ingest_launches, ingest_plain, ingest_peak, ingest_stats = serve(
-        int8_config, models, specs, "int8 + umT5, video in", kernel_paths["int8"], blocks=2)
+        int8_config, models, specs, "int8 + umT5, video in", KERNEL_PATHS["int8"], blocks=2)
     phase("ingest_sessions", sessions=[s_[0] for s_ in specs], input_video=v2v_note,
           launches=ingest_launches, plain_on_cuda=ingest_plain, peak_mem_gib=ingest_peak,
           card=card)
@@ -4545,14 +4939,14 @@ def main() -> None:
         ckpt_gib = os.path.getsize(ckpt) / 2**30
         del base_dit
         ckpt_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                         timestep_shift=5.0, checkpoint_path=ckpt, **int8_flags)
+                                         timestep_shift=5.0, checkpoint_path=ckpt, **INT8_FLAGS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         models = load(ckpt_config)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     launches_ck, plain_ck, peak_ck, _ = serve(ckpt_config, models, t2v_specs(("ckpt-0",)),
-                                              "int8 from checkpoint_path", kernel_paths["int8"])
+                                              "int8 from checkpoint_path", KERNEL_PATHS["int8"])
     x0_ck = block0_x0(ckpt_config, models, head_w)
     ck_equal = torch.equal(x0_ck, tiers["int8"]["x0"])
     phase("checkpoint_path", file_gib=ckpt_gib, load_convert_and_calibrate_s=load_s,
@@ -4589,7 +4983,7 @@ def main() -> None:
         return None if a == b else path
 
     taehv_config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                      timestep_shift=5.0, use_taehv=True, **int8_flags)
+                                      timestep_shift=5.0, use_taehv=True, **INT8_FLAGS)
     os.environ["RTV_QUANT_CACHE"] = "1"
     try:
         cache_loads, cache_s = [], []
@@ -4641,7 +5035,7 @@ def main() -> None:
     try:
         launches_tv, plain_tv, peak_tv, stats_tv = serve(
             taehv_config, models, t2v_specs(("taehv-0", "taehv-1")), "int8 + TAEHV",
-            kernel_paths["int8"], first=9)
+            KERNEL_PATHS["int8"], first=9)
     finally:
         taehv_mod.taehv_decode = taehv_decode
     torch.cuda.synchronize()
@@ -4668,7 +5062,7 @@ def main() -> None:
     offline_config = load_server_config(
         model_name="t2v-1.3B", num_frame_per_block=3, timestep_shift=5.0,
         denoising_step_list=[1000, 750, 500, 250], warp_denoising_step=True, context_noise=0,
-        **int8_flags)
+        **INT8_FLAGS)
     pipe = CausalInferencePipeline(offline_config, models.transformer, models.text_encoder,
                                    models.vae_decoder)
     emb = models.text_encoder(text_prompts=[request["prompt"]])["prompt_embeds"]
@@ -4742,7 +5136,7 @@ def main() -> None:
         head["w"] = saved_head
     phase("sample_videos", frames=vids[0].shape[0], seconds=sample_s, written=written,
           launches=launches_sv, plain_on_cuda=plain_sv, card=card)
-    missing_sv = [k for k in kernel_paths["int8"] if launches_sv.get(k, 0) <= 0]
+    missing_sv = [k for k in KERNEL_PATHS["int8"] if launches_sv.get(k, 0) <= 0]
     if not (vids[0].shape == (30, 3, 480, 832) and np.isfinite(vids[0]).all()
             and len(written) == 1 and next(iter(written)) in ("video_000.mp4", "video_000.npy")):
         fail(f"sample_videos: {vids[0].shape}, files {written}")
@@ -4819,7 +5213,7 @@ def main() -> None:
 
     # -- t2v-14B in the int8 tier with the int8 QK^T attention on --
     config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
-                                timestep_shift=5.0, **int8_flags)
+                                timestep_shift=5.0, **INT8_FLAGS)
     plan = serving_memory_plan(WAN_CONFIGS["t2v-14B"], window_frames=6)
     hk.INT8_QK = True
     try:
@@ -4843,7 +5237,7 @@ def main() -> None:
         # the session so that block 0 pays no build
         models.taehv_params = load_taehv(dev)
         taehv14_config = load_server_config(model_name="t2v-14B", num_frame_per_block=3,
-                                            timestep_shift=5.0, use_taehv=True, **int8_flags)
+                                            timestep_shift=5.0, use_taehv=True, **INT8_FLAGS)
         launches14t, plain14t, peak14t, stats14t = serve(
             taehv14_config, models, t2v_specs(("14b-taehv-0",)),
             "t2v-14B int8 + int8 QK^T + TAEHV", path14, first=9)
@@ -4879,7 +5273,7 @@ def main() -> None:
     # forward: exactly 2 x 3 x 40 x steps.
     def i2v_14b():
         i2v_steps = 2
-        config = load_server_config(model_name="i2v-14B", timestep_shift=5.0, **int8_flags)
+        config = load_server_config(model_name="i2v-14B", timestep_shift=5.0, **INT8_FLAGS)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -5206,25 +5600,20 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def vae_main(phases) -> None:
-    """`python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]`: the
-    VAE phases alone (`vae_phases`; all three without names), on the 1.3B
-    int8 tier's models with the static embedding, as `main` runs them: the
-    way to run `vae_multi_gpu` on a machine with several cards."""
+def _phases_alone(what: str):
+    """The start of a run of some phases alone, as `main` starts: the card
+    (printed), the kernels built, TF32 off, the static text embedding, no
+    quantised-tree cache. Returns (card, device, kernel modules,
+    read_counts: (launches, plain-on-CUDA counts))."""
     import torch
 
-    from realtime_video_tpu_torch.config import load_server_config
     from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
     from realtime_video_tpu_torch.ops import hopper_conv as hc
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
-    from realtime_video_tpu_torch.serving.models import load_all
 
     if not torch.cuda.is_available():
-        fail("no CUDA device: the VAE phases need an NVIDIA GPU")
-    unknown = set(phases) - {"split", "fuseup", "multi_gpu"}
-    if unknown:
-        fail(f"unknown VAE phases {sorted(unknown)}: split, fuseup, multi_gpu")
+        fail(f"no CUDA device: the {what} need an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -5238,25 +5627,84 @@ def vae_main(phases) -> None:
     torch.backends.cudnn.allow_tf32 = False
     os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
     os.environ["RTV_QUANT_CACHE"] = "0"
-    dev = torch.device("cuda", 0)
-    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
-                                timestep_shift=5.0, enable_int8=True, enable_int8_dit=True,
-                                int8_static_scales=True)
-    models = load_all(config, dev, seed=0)
+    kernel_mods = (hk, hm, hc)
+
+    def read_counts():
+        launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+        launches.update(hk.PREPASS_LAUNCHES)
+        launches.update(hc.PREPASS_LAUNCHES)
+        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+
+    return card, torch.device("cuda", 0), kernel_mods, read_counts
+
+
+def _head_w(models, dev):
+    """The random head the phases run alone put on the DiT (seed 11)."""
+    import torch
+
     shape = models.transformer.params["head"]["head"]["w"].shape
-    head_w = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(11),
-                         device=dev) * 0.05
-    request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
-               "seed": 7, "num_blocks": 3, "num_denoising_steps": 4, "kv_cache_num_frames": 3}
-    vae_phases(card, dev, config, models, request, head_w, (hk, hm, hc),
-               tuple(phases) or ("split", "fuseup", "multi_gpu"))
+    return torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(11),
+                       device=dev) * 0.05
+
+
+def _ok_line() -> None:
+    import torch
+
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def vae_main(phases) -> None:
+    """`python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]`: the
+    VAE phases alone (`vae_phases`; all three without names), on the 1.3B
+    int8 tier's models with the static embedding, as `main` runs them: the
+    way to run `vae_multi_gpu` on a machine with several cards."""
+    from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.serving.models import load_all
+
+    unknown = set(phases) - {"split", "fuseup", "multi_gpu"}
+    if unknown:
+        fail(f"unknown VAE phases {sorted(unknown)}: split, fuseup, multi_gpu")
+    card, dev, kernel_mods, _ = _phases_alone("VAE phases")
+    config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                timestep_shift=5.0, **INT8_FLAGS)
+    models = load_all(config, dev, seed=0)
+    request = {"prompt": "a red fox running through snow", "width": 832, "height": 480,
+               "seed": 7, "num_blocks": 3, "num_denoising_steps": 4, "kv_cache_num_frames": 3}
+    vae_phases(card, dev, config, models, request, _head_w(models, dev), kernel_mods,
+               tuple(phases) or ("split", "fuseup", "multi_gpu"))
+    _ok_line()
+
+
+def megafuse_main() -> None:
+    """`python3 chip_smoke.py --session-phases`: `session_megafuse_phase` alone
+    on the 1.3B bf16 tier, then the int8 tier, each loaded as `main` loads
+    it (the static embedding)."""
+    import torch
+
+    from realtime_video_tpu_torch.config import load_server_config
+    from realtime_video_tpu_torch.serving.models import load_all
+
+    card, dev, kernel_mods, read_counts = _phases_alone("session phases")
+    head_w = None
+    for tier, flags in (("bf16", {}), ("int8", INT8_FLAGS)):
+        config = load_server_config(model_name="t2v-1.3B", num_frame_per_block=3,
+                                    timestep_shift=5.0, **flags)
+        models = load_all(config, dev, seed=0)
+        head_w = _head_w(models, dev) if head_w is None else head_w
+        session_megafuse_phase(card, dev, tier, config, models, head_w, kernel_mods,
+                               read_counts, KERNEL_PATHS[tier])
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+    _ok_line()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--vae-phases"]:
         vae_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--session-phases"]:
+        megafuse_main()
     else:
         main()

@@ -98,9 +98,8 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     assert dim % 2 == 0
     half = dim // 2
     p = position.to(torch.float32).reshape(-1)
-    inv = torch.pow(
-        torch.tensor(10000.0, dtype=torch.float32, device=p.device),
-        -torch.arange(half, dtype=torch.float32, device=p.device) / half,
-    )
+    # a Python scalar base: a 0-d tensor built on a card would copy from the
+    # host and wait for the card's queue at every forward
+    inv = torch.pow(10000.0, -torch.arange(half, dtype=torch.float32, device=p.device) / half)
     sinusoid = p[:, None] * inv[None, :]
     return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=1)

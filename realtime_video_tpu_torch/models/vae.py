@@ -586,15 +586,25 @@ def init_vae_params(cfg: VAEConfig, generator: torch.Generator, device=None,
     }
 
 
+#: (z_dim, device) -> the latent (mean, std) built there
+_LATENT_SCALES: Dict[Tuple[int, Any], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def latent_scale(cfg: VAEConfig, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel latent (mean, std), f32; zeros/ones for tiny test configs."""
-    if cfg.z_dim == len(VAE_LATENT_MEAN):
-        mean = torch.tensor(VAE_LATENT_MEAN, dtype=torch.float32, device=device)
-        std = torch.tensor(VAE_LATENT_STD, dtype=torch.float32, device=device)
-    else:
-        mean = torch.zeros((cfg.z_dim,), dtype=torch.float32, device=device)
-        std = torch.ones((cfg.z_dim,), dtype=torch.float32, device=device)
-    return mean, std
+    """Per-channel latent (mean, std), f32; zeros/ones for tiny test configs.
+    Built once per (z_dim, device) and kept: the host-to-card copy of the
+    lists waits for the card's queue, and every encode and decode reads
+    them. Callers must not write to them."""
+    key = (cfg.z_dim, None if device is None else torch.device(device))
+    if key not in _LATENT_SCALES:
+        if cfg.z_dim == len(VAE_LATENT_MEAN):
+            mean = torch.tensor(VAE_LATENT_MEAN, dtype=torch.float32, device=device)
+            std = torch.tensor(VAE_LATENT_STD, dtype=torch.float32, device=device)
+        else:
+            mean = torch.zeros((cfg.z_dim,), dtype=torch.float32, device=device)
+            std = torch.ones((cfg.z_dim,), dtype=torch.float32, device=device)
+        _LATENT_SCALES[key] = (mean, std)
+    return _LATENT_SCALES[key]
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,14 @@ frame at a time. Block 0 drops its first 3 pixel frames, so a session of n
 blocks sends 6 + 12 (n - 1) frames. A prompt change lerps the text embedding
 over `interp_steps` blocks.
 
+Throughput mode (RTV_SESSION_MEGAFUSE, default 1, as in the JAX session): a
+warm block (any block after block 0, outside webcam mode) is decoded latent
+by latent as above, and its 12 frames go out in one `frame_callback` after
+the last latent's decode is queued. No call of a block waits for a card, in
+either mode, so the host queues a block and returns while the card(s) still
+run it. Block 0 stays streamed for the first frame's latency.
+RTV_SESSION_MEGAFUSE=0 sends every latent's frames as they are decoded.
+
 The TAEHV preview tier (server config `use_taehv`) decodes each block whole
 with the tiny autoencoder instead (`models/taehv.py`, its MemBlock state kept
 where the Wan decoder keeps its cache): 12 frames a block, of which block 0
@@ -47,6 +55,7 @@ from __future__ import annotations
 import asyncio
 import io
 import logging
+import os
 import queue
 import threading
 import time
@@ -135,6 +144,12 @@ def _image_to_array(image) -> np.ndarray:
         image = Image.open(image if isinstance(image, str) else io.BytesIO(image)).convert("RGB")
     arr = np.asarray(image, np.float32).transpose(2, 0, 1) / 255.0
     return (arr - 0.5) * 2.0
+
+
+def megafuse_enabled() -> bool:
+    """RTV_SESSION_MEGAFUSE, read at each block as the JAX session reads it:
+    on (the default) for "1" or "true"."""
+    return os.getenv("RTV_SESSION_MEGAFUSE", "1") in ("1", "true")
 
 
 def block_step(gen, kv_cache, cross, steps: Tuple[float, ...],
@@ -441,7 +456,12 @@ class GenerationSession:
 
         # stream the decode per latent frame: the block's first pixel frames
         # reach the client before the rest of the block is decoded (the
-        # streaming conv cache makes it the whole-block decode's math)
+        # streaming conv cache makes it the whole-block decode's math); in
+        # throughput mode a warm block's frames go out in one callback
+        # (session.py:674-760 of the JAX package; block 0 has no decode cache
+        # yet)
+        whole = (megafuse_enabled() and not self.params.webcam_mode
+                 and self.decode_vae_cache is not None)
         vae = models.vae_decoder
         drop = 3 if idx == 0 else 0
         parts = []
@@ -453,13 +473,17 @@ class GenerationSession:
             out_i = px_i[:, drop:]
             drop = max(0, drop - px_i.shape[1])
             parts.append(out_i)
-            if out_i.shape[1]:
+            if out_i.shape[1] and not whole:
                 self.frame_callback(out_i, [], None)
                 self.total_frames_sent += out_i.shape[1]
+        pixels = torch.cat(parts, dim=1)
+        if whole:
+            self.frame_callback(pixels, [], None)
+            self.total_frames_sent += pixels.shape[1]
         self.current_start_frame += nfpb
         self.block_idx += 1
         self.resume_latents = None
-        return torch.cat(parts, dim=1)
+        return pixels
 
     def _emit_taehv_block(self, models, x0: torch.Tensor, idx: int) -> torch.Tensor:
         """Decode the block whole with TAEHV in bf16, its state carried in

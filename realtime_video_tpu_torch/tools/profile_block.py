@@ -18,7 +18,12 @@ re-encode). Then:
 
   * block 3 runs unprofiled: its host wall time, with a device sync at both
     ends, and the device time of each phase (anti-drift VAE re-encode, KV
-    prefill, 4-step denoise, streamed VAE decode) from CUDA events;
+    prefill, 4-step denoise, VAE decode) from CUDA events. The session runs
+    its default throughput mode (RTV_SESSION_MEGAFUSE=1: a warm block's
+    frames sent by one callback); with RTV_SESSION_MEGAFUSE=0 in the
+    environment it sends each latent's frames, and the reports' names end
+    in `_streamed`. Either way each latent's decode is its own
+    `decode_block` call, timed as `vae_decode`;
   * block 4 runs under torch.profiler inside the range `warm_block`, which
     ends with a device sync: device time by kernel and by category, and the
     device's busy time against that range's own span. The span carries the
@@ -45,7 +50,7 @@ bucketed with the other cuDNN convs (`conv`), beside the decode's bound
 (`taehv_decode_bound`: its conv operations over 989 TFLOP/s bf16 or its
 bytes over 3.35 TB/s, the larger).
 
-Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5][_taehv].json and
+Writes profile_block_<model>_<tier>[_int8qk][_webcam][_umt5][_taehv][_streamed].json and
 the op table (.txt) under --out and prints the JSON summary. Quantised trees
 are not cached on disk unless RTV_QUANT_CACHE asks for it.
 
@@ -267,11 +272,11 @@ def teacher_categories(events) -> Dict[str, float]:
 
 
 def report_stem(model: str, tier: str, int8_qk=False, webcam=False, umt5=False,
-                taehv=False) -> str:
+                taehv=False, streamed=False) -> str:
     """The reports' file name, without its extension."""
     return (f"profile_block_{model}_{tier}" + ("_int8qk" if int8_qk else "")
             + ("_webcam" if webcam else "") + ("_umt5" if umt5 else "")
-            + ("_taehv" if taehv else ""))
+            + ("_taehv" if taehv else "") + ("_streamed" if streamed else ""))
 
 
 def taehv_decode_bound(latent_frames: int, lat_h: int, lat_w: int) -> dict:
@@ -553,6 +558,7 @@ def main() -> None:
     summary = {
         "card": card, "model": args.model, "tier": args.tier, "int8_qk": args.int8_qk,
         "webcam": args.webcam, "text_encoder": "umt5-xxl" if args.umt5 else "static",
+        "megafuse": session_mod.megafuse_enabled(),
         "load_peak_mem_gib": load_peak_gib,
         "warm_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "blocks": BLOCKS, "timed_block": BLOCKS - 2,
@@ -588,7 +594,8 @@ def main() -> None:
         tables.append(prof_t5)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    stem = report_stem(args.model, args.tier, args.int8_qk, args.webcam, args.umt5, args.taehv)
+    stem = report_stem(args.model, args.tier, args.int8_qk, args.webcam, args.umt5, args.taehv,
+                       not session_mod.megafuse_enabled())
     (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     (out / f"{stem}.txt").write_text(op_table(tables))
     print(json.dumps({k: (v if k != "umt5" else {kk: vv for kk, vv in v.items()

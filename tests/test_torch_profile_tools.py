@@ -84,6 +84,7 @@ def test_agreement_passes_rounding_and_catches_dropped_columns():
     ({"taehv": True}, "profile_block_t2v-1.3B_int8_taehv"),
     ({"int8_qk": True, "webcam": True, "umt5": True, "taehv": True},
      "profile_block_t2v-1.3B_int8_int8qk_webcam_umt5_taehv"),
+    ({"streamed": True}, "profile_block_t2v-1.3B_int8_streamed"),
 ])
 def test_report_stem(flags, stem):
     assert pb.report_stem("t2v-1.3B", "int8", **flags) == stem

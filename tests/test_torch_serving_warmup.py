@@ -7,7 +7,9 @@ bf16 models:
     cache), the steady block's per-latent decode continuing that cache (or,
     with `use_taehv`, TAEHV's whole-block decode, fresh then with state) and
     one frame of the stream encode, each at the shape's latent size, and it
-    leaves the pipeline's caches as it found them;
+    leaves the pipeline's caches as it found them; with the VAE split away
+    from the DiT the steady block is decoded per latent too, in either
+    session mode (RTV_SESSION_MEGAFUSE);
   * a session on warmed models gives frames bit-equal to one on fresh
     models;
   * `create_app` runs the warm-up under DO_COMPILE=1 and not without it;
@@ -26,7 +28,7 @@ from realtime_video_tpu_torch.serving import server as server_mod
 from realtime_video_tpu_torch.serving import session as session_mod
 from realtime_video_tpu_torch.serving.params import GenerateParams
 from realtime_video_tpu_torch.serving.session import GenerationSession
-from test_torch_session import REQ, stacks  # noqa: F401
+from test_torch_session import REQ, one_torch_thread, stacks  # noqa: F401
 
 SHAPES = ((64, 64), (64, 32))
 
@@ -80,6 +82,28 @@ def test_warmup_runs_each_shape_once(stacks, monkeypatch, use_taehv):  # noqa: F
             assert all(tuple(c[1][1].shape) == (1, 3, 16, h // 8, w // 8) for c in taehv)
 
 
+@pytest.mark.parametrize("megafuse", ["1", "0"])
+def test_warmup_decodes_as_a_session_with_the_vae_apart(stacks, monkeypatch,  # noqa: F811
+                                                       megafuse):
+    """With the VAE split over 2 row shards (away from the DiT), a session
+    decodes a warm block per latent in either mode (throughput mode only
+    sends its frames at once), so the warm-up does too: block 0's two
+    per-latent decodes, then the steady block's 3, each continuing the
+    cache."""
+    from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
+
+    monkeypatch.setenv("RTV_SESSION_MEGAFUSE", megafuse)
+    config, _, tm = stacks
+    split = VAEWrapper(tm.vae_decoder.cfg, tm.vae_decoder.params, mesh=["cpu", "cpu"])
+    models = models_mod.Models(tm.text_encoder, tm.transformer, tm.pipeline, split, split)
+    calls = []
+    _spy(monkeypatch, split, "decode_block", calls, "decode")
+    models_mod.warmup_models(models, config, shapes=SHAPES[:1])
+    latents = [c[1][0].shape[1] for c in calls]
+    assert latents == [1] * 5
+    assert calls[0][1][1:] == () and all(len(c[1]) == 2 for c in calls[1:])
+
+
 def _session_frames(config, tm):
     frames = []
     s = GenerationSession(GenerateParams(**dict(REQ, num_blocks=2)), config, models=tm,
@@ -94,7 +118,7 @@ def test_warmed_session_equals_fresh_session(stacks):  # noqa: F811
     fresh = _session_frames(config, tm)
     models_mod.warmup_models(tm, config, shapes=SHAPES)
     warm = _session_frames(config, tm)
-    assert len(fresh) == len(warm) == 5  # 2 + 4 + 4 + 4 + 4 frames, block 0 drops 3
+    assert len(fresh) == len(warm) == 3  # 2 + 4, then block 1's 12 in one callback
     for a, b in zip(fresh, warm):
         assert torch.equal(a, b)
 

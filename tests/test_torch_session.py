@@ -6,11 +6,14 @@ the same initial noise and the same per-step renoise (the JAX session's own
 
 Both sessions run bf16, as serving does, so they cover the block step (KV
 reset, context prefill, 4-step denoise), the streamed decode with the block-0
-drop, the anti-drift re-encode of block 2 and a prompt lerp. XLA and torch
-round bf16 at different places on the CPU, so the bars are bf16 ones:
+drop, the warm blocks' frames sent whole (RTV_SESSION_MEGAFUSE, on by
+default on both sides) or per latent, the anti-drift re-encode of block 2
+and a prompt lerp. XLA and torch round bf16 at different places on the CPU, so the bars are bf16 ones:
 latents atol 5e-2 with rtol 2e-2 (a few bf16 ulps at |x| <= 4); pixels mean
 abs difference < 3e-2, because the random-init VAE amplifies bf16 rounding
 (the same decode agrees to 1e-5 in f32, tests/test_torch_vae.py)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +31,7 @@ from realtime_video_tpu.serving.models import Models as JModels
 from realtime_video_tpu.serving.params import GenerateParams as JParams
 from realtime_video_tpu.serving.session import GenerationSession as JSession
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion as TGen
+from realtime_video_tpu_torch.models.taehv import init_taehv_params as taehv_init
 from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper as TVAE
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline as TPipe
 from realtime_video_tpu_torch.serving.models import Models as TModels
@@ -74,6 +78,18 @@ class Encoder:
 
     def __call__(self, text_prompts):
         return {"prompt_embeds": self.to_tensor(self.embs[text_prompts[0]])}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread while this module's tests run: the tier-1 run puts
+    several workers on the machine's cores, and torch's thread pools, each
+    as wide as the machine, then wait on one another (two tiny-dim sessions
+    took ~10x as long on 8 threads as on 1 with every core busy)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +143,17 @@ def run_sessions(config, jm, tm):
     return js, ts, jframes, tframes, encodes
 
 
-def test_three_block_session_matches_jax(stacks):
+#: frames per callback over the 3 blocks: block 0 decodes 1 + 4 + 4 and
+#: drops its first 3, sent per latent frame; then 12 per block, sent whole
+#: in throughput mode (RTV_SESSION_MEGAFUSE, the default) or per latent
+CALLBACK_SIZES = {"1": [2, 4, 12, 12], "0": [2, 4] + [4] * 6}
+
+
+@pytest.mark.parametrize("megafuse", ["1", "0"])
+def test_three_block_session_matches_jax(stacks, monkeypatch, megafuse):
+    """Both sessions with RTV_SESSION_MEGAFUSE at `megafuse`: the JAX
+    session's fused warm blocks (its default) or its streamed ones."""
+    monkeypatch.setenv("RTV_SESSION_MEGAFUSE", megafuse)
     config, jm, tm = stacks
     js, ts, jframes, tframes, encodes = run_sessions(config, jm, tm)
     jl = np.asarray(js.all_latents.astype(jnp.float32))
@@ -135,9 +161,8 @@ def test_three_block_session_matches_jax(stacks):
     for b in range(3):
         np.testing.assert_allclose(tl[:, 3 * b:3 * b + 3], jl[:, 3 * b:3 * b + 3],
                                    rtol=2e-2, atol=5e-2, err_msg=f"block {b}")
-    # frames: block 0 decodes 1 + 4 + 4 and drops its first 3, then 12 per
-    # block, sent per latent frame
-    assert [f.shape[1] for f in tframes] == [2, 4] + [4] * 6
+    assert [f.shape[1] for f in tframes] == [f.shape[1] for f in jframes] \
+        == CALLBACK_SIZES[megafuse]
     J, T = np.concatenate(jframes, 1), np.concatenate(tframes, 1)
     assert J.shape == T.shape == (1, 30, 3, 64, 64)
     assert np.isfinite(T).all()
@@ -175,34 +200,119 @@ def test_taehv_session_matches_jax(stacks, monkeypatch):
     assert len(ts.decode_vae_cache) == 9  # one carried frame per MemBlock
 
 
-def test_three_block_session_with_a_split_vae(stacks):
+def port_session(config, models, req=REQ):
+    """The port's session over 3 blocks, the prompt lerped after block 0:
+    (session, frames concatenated, frames per callback)."""
+    frames = []
+    session = TSession(TParams(**req), config, models=models,
+                       frame_callback=lambda px, ids, ev: frames.append(px.float()))
+    for b in range(3):
+        session.generate_block_internal(models)
+        if b == 0:
+            session.interpolate_prompt_embeds(models, "a dog", 2)
+    return session, torch.cat(frames, dim=1), [f.shape[1] for f in frames]
+
+
+def test_three_block_session_with_a_split_vae(stacks, monkeypatch):
     """The same 3 blocks (prompt lerp and block 2's anti-drift re-encode
     included) with the VAE split over 2 row shards (`VAEWrapper(mesh=)`,
     both on the CPU) against the unsplit VAE: the port's session twice, the
-    same seed. Latents and frames must agree to 1e-5: the row split changes
-    no arithmetic of a pixel."""
+    same seed, in throughput mode (the default), each VAE decoding a warm
+    block latent by latent and sending it in one callback. Latents and
+    frames must agree to 1e-5: the row split changes no arithmetic of a
+    pixel."""
+    monkeypatch.setenv("RTV_SESSION_MEGAFUSE", "1")
     config, _, tm = stacks
     split = TVAE(VAEC, tm.vae_decoder.params, mesh=["cpu", "cpu"])
     tm_split = TModels(tm.text_encoder, tm.transformer, TPipe(config, tm.transformer),
                        split, split)
-
-    def run(models):
-        frames = []
-        session = TSession(TParams(**REQ), config, models=models,
-                           frame_callback=lambda px, ids, ev: frames.append(px.float()))
-        for b in range(3):
-            session.generate_block_internal(models)
-            if b == 0:
-                session.interpolate_prompt_embeds(models, "a dog", 2)
-        return session, torch.cat(frames, dim=1)
-
-    want_s, want = run(tm)
-    got_s, got = run(tm_split)
+    want_s, want, want_sizes = port_session(config, tm)
+    got_s, got, got_sizes = port_session(config, tm_split)
+    assert got_sizes == want_sizes == CALLBACK_SIZES["1"]
     assert got.shape == (1, 30, 3, 64, 64) and torch.isfinite(got).all()
     torch.testing.assert_close(got_s.all_latents.float(), want_s.all_latents.float(),
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert len(got_s.decode_vae_cache) == 2  # one cache tuple per shard
+
+
+def test_megafused_session_equals_streamed(stacks, monkeypatch):
+    """The port's throughput mode against its streamed mode, the same seed
+    and noise: a warm block makes the same per-latent decode calls and
+    only sends its frames at once, so latents and frames are equal bit for
+    bit."""
+    config, _, tm = stacks
+    runs = {}
+    for megafuse in ("1", "0"):
+        monkeypatch.setenv("RTV_SESSION_MEGAFUSE", megafuse)
+        runs[megafuse] = port_session(config, tm)
+    (fs, fused, fsizes), (ss, streamed, ssizes) = runs["1"], runs["0"]
+    assert (fsizes, ssizes) == (CALLBACK_SIZES["1"], CALLBACK_SIZES["0"])
+    assert torch.equal(fs.all_latents, ss.all_latents)
+    assert fused.shape == (1, 30, 3, 64, 64) and torch.equal(fused, streamed)
+    assert fs.total_frames_sent == ss.total_frames_sent == 30
+    # the anti-drift re-encode reads the same pixels (frame 3 of block 1) in
+    # the same layout: a bf16 cuDNN conv on the card rounds by layout, so a
+    # frame deque fed from the joined block would change the next block
+    assert torch.equal(torch.cat([b[:, i] for b, i in fs.frame_context_cache]),
+                       torch.cat([b[:, i] for b, i in ss.frame_context_cache]))
+
+    def layout(t):
+        return [st for st, n in zip(t.stride(), t.shape) if n > 1]
+
+    assert [layout(b[:, i:i + 1]) for b, i in fs.frame_context_cache] == \
+        [layout(b[:, i:i + 1]) for b, i in ss.frame_context_cache]
+
+
+def test_megafused_taehv_session_equals_streamed(stacks, monkeypatch):
+    """The TAEHV tier with the switch at 1 against 0: it decodes and sends
+    each block whole either way (as JAX's fused TAEHV step does), so
+    latents and frames are bit-equal, 9 + 12 + 12 frames in one callback a
+    block."""
+    config, _, tm = stacks
+    monkeypatch.setattr(tm, "taehv_params", taehv_init(torch.Generator().manual_seed(0), "cpu",
+                                                       torch.bfloat16))
+    taehv = load_server_config(num_frame_per_block=3, use_taehv=True)
+    runs = {}
+    for megafuse in ("1", "0"):
+        monkeypatch.setenv("RTV_SESSION_MEGAFUSE", megafuse)
+        runs[megafuse] = port_session(taehv, tm)
+    (fs, fused, fsizes), (ss, streamed, ssizes) = runs["1"], runs["0"]
+    assert fsizes == ssizes == [9, 12, 12]
+    assert torch.equal(fs.all_latents, ss.all_latents)
+    assert torch.isfinite(fused).all() and torch.equal(fused, streamed)
+
+
+def test_latent_scale_and_time_embedding_keep_their_values():
+    """The two tensors a block used to build from host lists at every call:
+    the latent (mean, std), now built once per (z_dim, device), and the
+    time embedding's frequencies, now a power of a Python scalar, both equal
+    to their former formulas bit for bit; the embedding held against JAX's
+    in f32."""
+    from realtime_video_tpu.models import rope as jrope
+    from realtime_video_tpu_torch.config import VAE_CONFIGS, VAE_LATENT_MEAN, VAE_LATENT_STD
+    from realtime_video_tpu_torch.models import rope as trope
+    from realtime_video_tpu_torch.models import vae as tvae
+
+    mean, std = tvae.latent_scale(VAE_CONFIGS["wan2.1"], "cpu")
+    assert torch.equal(mean, torch.tensor(VAE_LATENT_MEAN, dtype=torch.float32))
+    assert torch.equal(std, torch.tensor(VAE_LATENT_STD, dtype=torch.float32))
+    assert tvae.latent_scale(VAE_CONFIGS["wan2.1"], "cpu")[0] is mean  # built once
+    assert tvae.latent_scale(VAEC, torch.device("cpu"))[1] is std  # z_dim 16 too
+    narrow = dataclasses.replace(VAEC, z_dim=4)
+    tiny_mean, tiny_std = tvae.latent_scale(narrow, "cpu")
+    assert torch.equal(tiny_mean, torch.zeros(4)) and torch.equal(tiny_std, torch.ones(4))
+
+    pos = np.random.default_rng(3).uniform(0, 1000, size=(2, 7)).astype(np.float32)
+    got = trope.sinusoidal_embedding_1d(256, torch.from_numpy(pos))
+    p = torch.from_numpy(pos).reshape(-1)
+    inv = torch.pow(torch.tensor(10000.0, dtype=torch.float32),
+                    -torch.arange(128, dtype=torch.float32) / 128)
+    sinusoid = p[:, None] * inv[None, :]
+    assert torch.equal(got, torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=1))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jrope.sinusoidal_embedding_1d(256, jnp.asarray(pos))),
+        rtol=1e-5, atol=1e-4)
 
 
 def _png_bytes() -> bytes:
