@@ -14,6 +14,7 @@ from realtime_video_tpu_torch.models.rope import RopeTables
 from realtime_video_tpu_torch.ops import kv_cache as kvc
 from realtime_video_tpu_torch.parallel import sharding
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule
+from realtime_video_tpu_torch.utils import trace
 from realtime_video_tpu_torch.utils.device import resolve_device
 
 #: draws renoise for one denoising step: (shape, dtype, device) -> tensor
@@ -178,7 +179,8 @@ class WanDiffusion:
 
         Returns fn(kv, cross, noisy, current_start, noise_fn) -> (x0, kv).
         noise_fn is called once per step, the last included (its draw is
-        discarded there), as the JAX loop splits its key every step."""
+        discarded there), as the JAX loop splits its key every step. Each
+        step (its forward and renoise) is the span `dit.step`."""
         schedule = schedule or self.schedule
         steps = tuple(float(s) for s in steps)
         nexts = steps[1:] + (0.0,)
@@ -187,14 +189,15 @@ class WanDiffusion:
             b, f = noisy.shape[:2]
             x0 = noisy
             for i, (t_val, t_next) in enumerate(zip(steps, nexts)):
-                t = torch.full((b, f), t_val, dtype=torch.float32, device=noisy.device)
-                _, x0, kv = self.forward(noisy, cross, t, kv, current_start, "decode",
-                                         max_attention_size, schedule)
-                nz = noise_fn(tuple(x0.shape), x0.dtype, x0.device)
-                if i < len(steps) - 1:
-                    tn = torch.full((b, f), t_next, dtype=torch.float32,
-                                    device=noisy.device)
-                    noisy = schedule.add_noise(x0, nz, tn)
+                with trace.span("dit.step"):
+                    t = torch.full((b, f), t_val, dtype=torch.float32, device=noisy.device)
+                    _, x0, kv = self.forward(noisy, cross, t, kv, current_start, "decode",
+                                             max_attention_size, schedule)
+                    nz = noise_fn(tuple(x0.shape), x0.dtype, x0.device)
+                    if i < len(steps) - 1:
+                        tn = torch.full((b, f), t_next, dtype=torch.float32,
+                                        device=noisy.device)
+                        noisy = schedule.add_noise(x0, nz, tn)
             if refresh_t is not None:
                 t = torch.full((b, f), float(refresh_t), dtype=torch.float32,
                                device=noisy.device)

@@ -25,6 +25,7 @@ from realtime_video_tpu_torch.config import MODEL_FOLDER, VAE_CONFIGS, VAEConfig
 from realtime_video_tpu_torch.models import vae as vae_mod
 from realtime_video_tpu_torch.parallel import vae_sp
 from realtime_video_tpu_torch.utils.device import indexed, resolve_device
+from realtime_video_tpu_torch.utils import trace
 from realtime_video_tpu_torch.utils.qcache import move_tree
 
 
@@ -128,24 +129,27 @@ class VAEWrapper:
                      cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
         """[B, Tz, z, h, w] + cache -> ([B, T, 3, H, W] f32 on the VAE's
         device, cache). The first call (cache None) yields 1 + 4(Tz-1)
-        frames, later calls 4*Tz."""
-        outs, caches = vae_mod.decode_rows(
-            self.cfg, self.shard_params, self._to_vae(latents.permute(0, 1, 3, 4, 2)),
-            self._shard_caches(cache), first=cache is None, chunk=self.chunk)
-        out = vae_mod.join_rows(outs, self.device, dim=2)
-        return out.permute(0, 1, 4, 2, 3), self._cache(caches)
+        frames, later calls 4*Tz. Its span: `vae.decode`."""
+        with trace.span("vae.decode"):
+            outs, caches = vae_mod.decode_rows(
+                self.cfg, self.shard_params, self._to_vae(latents.permute(0, 1, 3, 4, 2)),
+                self._shard_caches(cache), first=cache is None, chunk=self.chunk)
+            out = vae_mod.join_rows(outs, self.device, dim=2)
+            return out.permute(0, 1, 4, 2, 3), self._cache(caches)
 
     def encode_stream(self, pixels: torch.Tensor,
                       cache: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
         """[B, T, C, H, W] + cache -> ([B, Tz, z, h, w] on `dit_device`,
         cache). cache None expects T = 1 + 4k (chunks 1, 4, 4, ...); a warm
-        cache expects T = 4k."""
+        cache expects T = 4k. Its span: `vae.encode`."""
         video = pixels.permute(0, 1, 3, 4, 2)
         if self.split:
             if video.shape[2] % 8:
                 raise ValueError(f"pixel height {video.shape[2]} is not a multiple of 8")
             vae_sp.check_rows(video.shape[2] // 8, len(self.devices))
-        zs, caches = vae_mod.encode_rows(self.cfg, self.shard_params, self._to_vae(video),
-                                         self._shard_caches(cache), stream=cache is not None)
-        z = vae_mod.join_rows(zs, self.dit_device or self.device, dim=2)
-        return z.permute(0, 1, 4, 2, 3), self._cache(caches)
+        with trace.span("vae.encode"):
+            zs, caches = vae_mod.encode_rows(self.cfg, self.shard_params, self._to_vae(video),
+                                             self._shard_caches(cache),
+                                             stream=cache is not None)
+            z = vae_mod.join_rows(zs, self.dit_device or self.device, dim=2)
+            return z.permute(0, 1, 4, 2, 3), self._cache(caches)

@@ -90,6 +90,7 @@ from realtime_video_tpu_torch.ops import kv_cache as kvc
 from realtime_video_tpu_torch.parallel import collectives as coll
 from realtime_video_tpu_torch.parallel import mesh as mesh_mod
 from realtime_video_tpu_torch.parallel import sharding
+from realtime_video_tpu_torch.utils import trace
 
 Params = Dict[str, Any]
 
@@ -865,12 +866,14 @@ def context_prefill(
     The JAX package takes a decode-mode forward at current_start=0 when the
     context fits in one block, because that compiled program is faster on the
     TPU. The math is the same: over one block the block-causal mask is dense,
-    and both forms write K/V at [0, L) and leave both cache ends at L."""
-    b, f = clean_ctx.shape[:2]
-    t0 = torch.zeros((b, f), dtype=torch.float32, device=clean_ctx.device)
-    _, kv = dit_forward(cfg, params, clean_ctx, t0, rope_tables, crossattn_cache,
-                        mode="prefill", kv_cache=kv_cache,
-                        prefill_block_tokens=block_tokens, layers=layers, mesh=mesh)
+    and both forms write K/V at [0, L) and leave both cache ends at L. Its
+    span: `dit.prefill`."""
+    with trace.span("dit.prefill"):
+        b, f = clean_ctx.shape[:2]
+        t0 = torch.zeros((b, f), dtype=torch.float32, device=clean_ctx.device)
+        _, kv = dit_forward(cfg, params, clean_ctx, t0, rope_tables, crossattn_cache,
+                            mode="prefill", kv_cache=kv_cache,
+                            prefill_block_tokens=block_tokens, layers=layers, mesh=mesh)
     return kv
 
 

@@ -47,7 +47,7 @@ from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper, fuseup_enabl
 from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv, hopper_int8_mm
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
-from realtime_video_tpu_torch.utils import qcache
+from realtime_video_tpu_torch.utils import qcache, trace
 from realtime_video_tpu_torch.utils.device import indexed
 
 log = logging.getLogger(__name__)
@@ -66,7 +66,7 @@ class Models:
         #: for a `use_taehv` config, else at a preview session's start
         self.taehv_params = taehv_params
         #: seconds `load_all` took per component (transformer, text_encoder,
-        #: vae), the device synchronised after each
+        #: vae), the device synchronised after each: its spans `setup.load.*`
         self.load_seconds = load_seconds
 
 
@@ -271,17 +271,17 @@ def load_all(config, device, seed: int = 0) -> Models:
     VAE (seed + 1), text encoder (seed + 2) and, with `use_taehv`, TAEHV on
     `device`, in the tier the config asks for (the DiT on one device: see
     `check_mesh_shape`; the VAE where `vae_placement` puts it). The Models
-    carry each component's load seconds."""
+    carry each component's load seconds, the spans `setup.load.<name>`."""
     check_mesh_shape(config)
     t0 = time.time()
     device = indexed(device)
     seconds = {}
 
     def timed(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        _sync(device, *(vae_devices(out) if isinstance(out, VAEWrapper) else ()))
-        seconds[name] = time.perf_counter() - t
+        with trace.timed(f"setup.load.{name}") as span:
+            out = fn(*args)
+            _sync(device, *(vae_devices(out) if isinstance(out, VAEWrapper) else ()))
+        seconds[name] = span.seconds
         return out
 
     transformer = timed("transformer", load_transformer, config, device, seed)
@@ -337,7 +337,8 @@ def warmup_models(models: Models, config, shapes=None) -> dict:
     context for the text K/V: the models' and the pipeline's state stay as
     they were, except TAEHV's params, which a `use_taehv` config without them
     gets here as its first session would. Returns {"build_s": seconds of the
-    library builds and loads, "shapes": {"WxH": seconds}}."""
+    library builds and loads, "shapes": {"WxH": seconds}}, the seconds of
+    the spans `setup.warmup.build` and `setup.warmup.<W>x<H>`."""
     from realtime_video_tpu_torch.ops import cuda_build, kv_cache as kvc
     from realtime_video_tpu_torch.serving.session import _ensure_taehv_params, block_step
 
@@ -357,53 +358,57 @@ def warmup_models(models: Models, config, shapes=None) -> dict:
         _sync(dev, *vae_devices(vae), *vae_devices(models.vae_encoder))
 
     t0 = time.perf_counter()
-    if dev.type == "cuda":
-        sources = kernel_sources(models)
-        libs = cuda_build.build_all(sources)
-        hopper_attention._load()
-        if hopper_int8_mm.SOURCE in libs:
-            hopper_int8_mm._load()
-        if hopper_conv.SOURCE in libs:
-            hopper_conv._load()
-    out = {"build_s": time.perf_counter() - t0, "shapes": {}}
+    with trace.timed("setup.warmup.build") as build:
+        if dev.type == "cuda":
+            sources = kernel_sources(models)
+            libs = cuda_build.build_all(sources)
+            hopper_attention._load()
+            if hopper_int8_mm.SOURCE in libs:
+                hopper_int8_mm._load()
+            if hopper_conv.SOURCE in libs:
+                hopper_conv._load()
+    out = {"build_s": build.seconds, "shapes": {}}
     if use_taehv:
         _ensure_taehv_params(models)
 
     def zeros_like_draw(shape, dtype_, device):
         return torch.zeros(shape, dtype=dtype_, device=device)
 
+    def warm_shape(w, h, cross):
+        lat_h, lat_w = h // 8, w // 8
+        fsl = cfg.frame_seq_length(lat_h, lat_w)
+        max_attn = (kv_frames + nfpb) * fsl
+        kv = kvc.init_kv_cache(cfg.num_layers, 1, max_attn, cfg.num_heads, cfg.head_dim,
+                               dtype=dtype, device=dev)
+        noisy = torch.zeros((1, nfpb, cfg.in_dim, lat_h, lat_w), dtype=dtype, device=dev)
+        for nctx in (0, kv_frames):
+            clean = (torch.zeros((1, nctx, cfg.in_dim, lat_h, lat_w), dtype=dtype,
+                                 device=dev) if nctx else None)
+            x0, kv = block_step(gen, kv, cross, steps, clean, noisy, nctx * fsl, fsl,
+                                nfpb, max_attn, schedule, zeros_like_draw)
+            if nctx == 0:
+                # block 0 decodes per latent frame (the streamed path)
+                _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype))
+                _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype), vcache)
+        if use_taehv:
+            # a TAEHV session decodes each block whole: fresh, then with state
+            _, tstate = taehv_mod.taehv_decode(models.taehv_params,
+                                               x0.to(torch.bfloat16), None)
+            taehv_mod.taehv_decode(models.taehv_params, x0.to(torch.bfloat16), tstate)
+        else:
+            for i in range(x0.shape[1]):
+                _, vcache = vae.decode_block(x0[:, i:i + 1].to(vae.dtype), vcache)
+        models.vae_encoder.encode_stream(
+            torch.zeros((1, 1, 3, h, w), dtype=models.vae_encoder.dtype, device=dev))
+        sync()
+
     with torch.no_grad():
         cross = gen.compute_crossattn_cache(
             torch.zeros((1, 512, cfg.text_dim), dtype=dtype, device=dev))
         for w, h in shapes:
-            t1 = time.perf_counter()
-            lat_h, lat_w = h // 8, w // 8
-            fsl = cfg.frame_seq_length(lat_h, lat_w)
-            max_attn = (kv_frames + nfpb) * fsl
-            kv = kvc.init_kv_cache(cfg.num_layers, 1, max_attn, cfg.num_heads, cfg.head_dim,
-                                   dtype=dtype, device=dev)
-            noisy = torch.zeros((1, nfpb, cfg.in_dim, lat_h, lat_w), dtype=dtype, device=dev)
-            for nctx in (0, kv_frames):
-                clean = (torch.zeros((1, nctx, cfg.in_dim, lat_h, lat_w), dtype=dtype,
-                                     device=dev) if nctx else None)
-                x0, kv = block_step(gen, kv, cross, steps, clean, noisy, nctx * fsl, fsl,
-                                    nfpb, max_attn, schedule, zeros_like_draw)
-                if nctx == 0:
-                    # block 0 decodes per latent frame (the streamed path)
-                    _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype))
-                    _, vcache = vae.decode_block(x0[:, :1].to(vae.dtype), vcache)
-            if use_taehv:
-                # a TAEHV session decodes each block whole: fresh, then with state
-                _, tstate = taehv_mod.taehv_decode(models.taehv_params,
-                                                   x0.to(torch.bfloat16), None)
-                taehv_mod.taehv_decode(models.taehv_params, x0.to(torch.bfloat16), tstate)
-            else:
-                for i in range(x0.shape[1]):
-                    _, vcache = vae.decode_block(x0[:, i:i + 1].to(vae.dtype), vcache)
-            models.vae_encoder.encode_stream(
-                torch.zeros((1, 1, 3, h, w), dtype=models.vae_encoder.dtype, device=dev))
-            sync()
-            out["shapes"][f"{w}x{h}"] = time.perf_counter() - t1
-            log.info("warmup %dx%d done (%.1fs)", w, h, out["shapes"][f"{w}x{h}"])
+            with trace.timed(f"setup.warmup.{w}x{h}") as span:
+                warm_shape(w, h, cross)
+            out["shapes"][f"{w}x{h}"] = span.seconds
+            log.info("warmup %dx%d done (%.1fs)", w, h, span.seconds)
     log.info("warmup complete in %.1fs", time.perf_counter() - t0)
     return out

@@ -74,6 +74,7 @@ from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_
 from realtime_video_tpu_torch.serving.models import load_taehv
 from realtime_video_tpu_torch.serving.params import GenerateParams
 from realtime_video_tpu_torch.serving.video_io import load_video_as_rgb, resample_array
+from realtime_video_tpu_torch.utils import trace
 from realtime_video_tpu_torch.utils.image import resize_bicubic
 from realtime_video_tpu_torch.utils.misc import AtomicCounter
 
@@ -159,13 +160,15 @@ def block_step(gen, kv_cache, cross, steps: Tuple[float, ...],
     """One serving block on `kv_cache` (zeroed, then prefilled from the clean
     context when there is one) and the text K/V `cross`: the few-step
     denoise of `noisy`. Returns (x0 [1, nfpb, 16, h, w], kv_cache). The
-    session runs it on its pipeline's caches, the warm-up on scratch ones."""
-    kvc.reset_kv_cache(kv_cache)
-    if clean_context is not None:
-        wan_dit.context_prefill(gen.cfg, gen.params, clean_context, gen.rope, cross, kv_cache,
-                                block_tokens=fsl * nfpb, layers=gen.layers)
-    denoise = gen.make_denoise_block_fn(steps, max_attn, schedule=schedule)
-    return denoise(kv_cache, cross, noisy, current_start, noise_fn)
+    session runs it on its pipeline's caches, the warm-up on scratch ones.
+    Its span: `dit.block_step`."""
+    with trace.span("dit.block_step"):
+        kvc.reset_kv_cache(kv_cache)
+        if clean_context is not None:
+            wan_dit.context_prefill(gen.cfg, gen.params, clean_context, gen.rope, cross,
+                                    kv_cache, block_tokens=fsl * nfpb, layers=gen.layers)
+        denoise = gen.make_denoise_block_fn(steps, max_attn, schedule=schedule)
+        return denoise(kv_cache, cross, noisy, current_start, noise_fn)
 
 
 class GenerationSession:
@@ -175,10 +178,14 @@ class GenerationSession:
                  frame_callback: Optional[Callable] = None, models=None,
                  noise: Optional[torch.Tensor] = None,
                  noise_fn: Optional[NoiseFn] = None):
+        self.session_id = self.SESSION_COUNTER.increment()
+        with trace.span("session.setup", self.session_id):
+            self._setup(params, config, frame_callback, models, noise, noise_fn)
+
+    def _setup(self, params, config, frame_callback, models, noise, noise_fn):
         self.use_taehv = bool(config.get("use_taehv", False))
         self.frame_callback = frame_callback or (
             lambda *a, **k: log.warning("No frame callback set!"))
-        self.session_id = self.SESSION_COUNTER.increment()
         #: webcam frames pushed by the client: ([3, H, W] in [-1, 1], request id)
         self.frame_queue: "queue.Queue" = queue.Queue()
         self.block_idx = 0
@@ -283,7 +290,8 @@ class GenerationSession:
         if self.current_prompt_embeds is None:
             return
         p1 = self.current_prompt_embeds
-        p2 = models.text_encoder(text_prompts=[new_prompt])["prompt_embeds"].to(self.dtype)
+        with trace.span("session.text_encode"):
+            p2 = models.text_encoder(text_prompts=[new_prompt])["prompt_embeds"].to(self.dtype)
         if interpolation_steps == 1:
             ws = torch.ones((1,), device=p1.device)
         else:
@@ -327,9 +335,10 @@ class GenerationSession:
         if len(frame_list) < num_frames_to_encode:
             return None
         frames = np.stack(resample_array(frame_list, num_frames_to_encode))
-        latents, self.encode_vae_cache = encode_video_latent(
-            models.vae_encoder, self.encode_vae_cache, frames=frames,
-            height=self.params.height, width=self.params.width, stream=idx > 0)
+        with trace.span("session.webcam_encode"):
+            latents, self.encode_vae_cache = encode_video_latent(
+                models.vae_encoder, self.encode_vae_cache, frames=frames,
+                height=self.params.height, width=self.params.width, stream=idx > 0)
         return latents
 
     def encode_v2v(self, video_path_or_url: str, max_frames=None,
@@ -372,15 +381,17 @@ class GenerationSession:
     def plan_block_context(self, models) -> Tuple[Optional[torch.Tensor], int]:
         """(clean context latents or None, model input start frame) for this
         block's KV recompute (release_server.py:588-633). Block 0 takes the
-        resume latents, when there are any, as its context."""
-        if self.block_idx == 0:
-            if self.resume_latents is None:
-                return None, self.current_start_frame
-            self.current_start_frame = self.resume_latents.shape[1]
-            self.all_latents[:, :self.current_start_frame] = self.resume_latents.to(
-                self.all_latents.dtype)
-        k = self.params.kv_cache_num_frames
-        return self.get_clean_context_frames(models), min(self.current_start_frame, k)
+        resume latents, when there are any, as its context. Its span:
+        `session.context`."""
+        with trace.span("session.context"):
+            if self.block_idx == 0:
+                if self.resume_latents is None:
+                    return None, self.current_start_frame
+                self.current_start_frame = self.resume_latents.shape[1]
+                self.all_latents[:, :self.current_start_frame] = self.resume_latents.to(
+                    self.all_latents.dtype)
+            k = self.params.kv_cache_num_frames
+            return self.get_clean_context_frames(models), min(self.current_start_frame, k)
 
     def recompute_kv_cache(self, models) -> int:
         """Zero the KV cache and re-prefill it from this block's clean context
@@ -410,15 +421,30 @@ class GenerationSession:
         return x0
 
     def generate_block_internal(self, models) -> Optional[torch.Tensor]:
-        """The per-block hot loop (release_server.py:635-736)."""
+        """The per-block hot loop (release_server.py:635-736) in the span
+        `session.block`."""
+        with trace.span("session.block", self.session_id, self.block_idx):
+            return self._generate_block(models)
+
+    def _set_text_cache(self, models) -> None:
+        with trace.span("session.cross_cache"):
+            models.pipeline._initialize_crossattn_cache(self.current_prompt_embeds)
+
+    def _emit(self, pixels: torch.Tensor) -> None:
+        with trace.span("session.emit"):
+            self.frame_callback(pixels, [], None)
+        self.total_frames_sent += pixels.shape[1]
+
+    def _generate_block(self, models) -> Optional[torch.Tensor]:
         idx = self.block_idx
         if idx >= self.num_blocks:
             return None
         nfpb = self.num_frame_per_block
         if self.current_prompt_embeds is None:
-            cond = models.text_encoder(text_prompts=[self.params.prompt])
+            with trace.span("session.text_encode"):
+                cond = models.text_encoder(text_prompts=[self.params.prompt])
             self.current_prompt_embeds = cond["prompt_embeds"].to(self.dtype)
-            models.pipeline._initialize_crossattn_cache(self.current_prompt_embeds)
+            self._set_text_cache(models)
         if idx > 0 and self.current_start_frame + nfpb > self.all_latents.shape[1]:
             # the budget is spent: skip the plan's anti-drift re-encode
             return None
@@ -445,7 +471,7 @@ class GenerationSession:
 
         if self.interpolated_prompt_embeds:
             self.current_prompt_embeds = self.interpolated_prompt_embeds.pop(0).to(self.dtype)
-            models.pipeline._initialize_crossattn_cache(self.current_prompt_embeds)
+            self._set_text_cache(models)
 
         steps = tuple(float(t) for t in self.denoising_step_list)
         x0 = self.block_step(models, steps, clean_context, noisy_input,
@@ -474,12 +500,10 @@ class GenerationSession:
             drop = max(0, drop - px_i.shape[1])
             parts.append(out_i)
             if out_i.shape[1] and not whole:
-                self.frame_callback(out_i, [], None)
-                self.total_frames_sent += out_i.shape[1]
+                self._emit(out_i)
         pixels = torch.cat(parts, dim=1)
         if whole:
-            self.frame_callback(pixels, [], None)
-            self.total_frames_sent += pixels.shape[1]
+            self._emit(pixels)
         self.current_start_frame += nfpb
         self.block_idx += 1
         self.resume_latents = None
@@ -491,15 +515,15 @@ class GenerationSession:
         anti-drift re-encode and send them, block 0's first 3 dropped
         (session.py:774-790 and 822-830 of the JAX package)."""
         _ensure_taehv_params(models)
-        px, self.decode_vae_cache = taehv_mod.taehv_decode(
-            models.taehv_params, x0.to(torch.bfloat16), self.decode_vae_cache)
+        with trace.span("vae.taehv_decode"):
+            px, self.decode_vae_cache = taehv_mod.taehv_decode(
+                models.taehv_params, x0.to(torch.bfloat16), self.decode_vae_cache)
         pixels = px * 2.0 - 1.0
         for fi in range(pixels.shape[1]):
             self.frame_context_cache.append((pixels, fi))
         if idx == 0:
             pixels = pixels[:, 3:]
-        self.frame_callback(pixels, [], None)
-        self.total_frames_sent += pixels.shape[1]
+        self._emit(pixels)
         self.current_start_frame += self.num_frame_per_block
         self.block_idx += 1
         self.resume_latents = None

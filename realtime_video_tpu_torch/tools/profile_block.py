@@ -18,7 +18,8 @@ re-encode). Then:
 
   * block 3 runs unprofiled: its host wall time, with a device sync at both
     ends, and the device time of each phase (anti-drift VAE re-encode, KV
-    prefill, 4-step denoise, VAE decode) from CUDA events. The session runs
+    prefill, 4-step denoise, VAE decode) from the port's spans
+    (`utils/trace.py`, recorded with CUDA events: `phase_device_ms`). The session runs
     its default throughput mode (RTV_SESSION_MEGAFUSE=1: a warm block's
     frames sent by one callback); with RTV_SESSION_MEGAFUSE=0 in the
     environment it sends each latent's frames, and the reports' names end
@@ -191,33 +192,33 @@ class ConvBounds:
                 "quantize_bound_ms": self.quantize_ms, "shapes": dict(self.shapes)}
 
 
-class PhaseTimer:
-    """Wraps callables so that each call, while enabled, is timed on the
-    device with a pair of CUDA events."""
+#: the report's phase of each span
+PHASES = {"dit.prefill": "prefill", "dit.step": "denoise", "vae.decode": "vae_decode",
+          "vae.encode": "vae_reencode", "vae.taehv_decode": "taehv_decode",
+          "session.webcam_encode": "webcam_encode"}
 
-    def __init__(self):
-        self.enabled = False
-        self.events: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
 
-    def wrap(self, name: str, fn):
-        def timed(*args, **kwargs):
-            if not self.enabled:
-                return fn(*args, **kwargs)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events.append((name, start, end))
-            return out
-        return timed
+def phase_device_ms(records) -> Dict[str, float]:
+    """Device ms of each phase the block ran, summed over its spans (records
+    with device events, the device synchronised): the prefill, the
+    denoise's steps, each latent's decode, the anti-drift re-encode (a
+    `vae.encode` outside the webcam's encode, which is its own phase),
+    TAEHV's decode and the webcam encode."""
+    by_id = {r.id: r for r in records}
 
-    def totals_ms(self) -> Dict[str, float]:
-        torch.cuda.synchronize()
-        out: Dict[str, float] = defaultdict(float)
-        for name, start, end in self.events:
-            out[name] += start.elapsed_time(end)
-        return dict(out)
+    def in_webcam_encode(r) -> bool:
+        while r.parent in by_id:
+            r = by_id[r.parent]
+            if r.name == "session.webcam_encode":
+                return True
+        return False
+
+    out: Dict[str, float] = defaultdict(float)
+    for r in records:
+        phase = PHASES.get(r.name)
+        if phase and not (phase == "vae_reencode" and in_webcam_encode(r)):
+            out[phase] += r.device_ms()
+    return dict(out)
 
 
 def device_events(prof, range_name: str):
@@ -473,12 +474,12 @@ def main() -> None:
 
     from realtime_video_tpu_torch.config import load_server_config
     from realtime_video_tpu_torch.models import t5 as t5_mod
-    from realtime_video_tpu_torch.models import wan_dit
     from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv
     from realtime_video_tpu_torch.serving import session as session_mod
     from realtime_video_tpu_torch.serving.models import load_all
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
+    from realtime_video_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     config = load_server_config(model_name=args.model, num_frame_per_block=3,
@@ -489,32 +490,7 @@ def main() -> None:
     models = load_all(config, dev, seed=0)
     load_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    timer = PhaseTimer()
     conv_bounds = ConvBounds(hopper_conv)
-    vae, gen = models.vae_decoder, models.transformer
-    # the anti-drift re-encode and the webcam encode share encode_stream: the
-    # webcam encode's calls go untimed here, as they are timed as their phase
-    in_webcam_encode = [False]
-    raw_encode = vae.encode_stream
-    reencode = timer.wrap("vae_reencode", raw_encode)
-    vae.encode_stream = lambda *a, **k: (raw_encode if in_webcam_encode[0] else reencode)(
-        *a, **k)
-    vae.decode_block = timer.wrap("vae_decode", vae.decode_block)
-    session_mod.taehv_mod.taehv_decode = timer.wrap("taehv_decode",
-                                                    session_mod.taehv_mod.taehv_decode)
-    wan_dit.context_prefill = timer.wrap("prefill", wan_dit.context_prefill)
-    make_denoise = gen.make_denoise_block_fn
-    gen.make_denoise_block_fn = lambda *a, **k: timer.wrap("denoise", make_denoise(*a, **k))
-    webcam_encode = timer.wrap("webcam_encode", session_mod.encode_video_latent)
-
-    def timed_webcam_encode(*a, **k):
-        in_webcam_encode[0] = True
-        try:
-            return webcam_encode(*a, **k)
-        finally:
-            in_webcam_encode[0] = False
-
-    session_mod.encode_video_latent = timed_webcam_encode
 
     params = GenerateParams(prompt="a red fox running through snow", width=832, height=480,
                             seed=7, num_blocks=BLOCKS, num_denoising_steps=4,
@@ -540,14 +516,13 @@ def main() -> None:
         run_block()
     torch.cuda.reset_peak_memory_stats()
 
-    timer.enabled = True
     torch.cuda.synchronize()
+    trace.start(device_events=True)
     t0 = time.perf_counter()
     run_block()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    timer.enabled = False
-    phases = timer.totals_ms()
+    phases = phase_device_ms(trace.stop())
 
     conv_bounds.enabled = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

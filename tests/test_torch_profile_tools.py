@@ -43,10 +43,24 @@ def test_category(name, want):
     assert pb.category(name) == want
 
 
-def test_phase_timer_passes_through_when_disabled():
-    timer = pb.PhaseTimer()
-    assert timer.wrap("x", lambda a, b=1: a + b)(2, b=3) == 5
-    assert timer.events == []
+def test_phase_device_ms_sums_spans_and_keeps_the_webcam_encode_apart():
+    """The report's phases from the port's spans: the steps summed into
+    `denoise`, a `vae.encode` inside the webcam's encode left to that phase,
+    the anti-drift one counted as `vae_reencode`."""
+    from types import SimpleNamespace
+
+    def rec(id_, name, parent, ms):
+        return SimpleNamespace(id=id_, name=name, parent=parent, device_ms=lambda: ms)
+
+    records = [rec(1, "session.block", None, 50.0), rec(2, "session.context", 1, 6.0),
+               rec(3, "vae.encode", 2, 5.0), rec(4, "session.webcam_encode", 1, 9.0),
+               rec(5, "vae.encode", 4, 8.0), rec(6, "dit.block_step", 1, 30.0),
+               rec(7, "dit.prefill", 6, 4.0)] + [
+        rec(8 + i, "dit.step", 6, 6.0) for i in range(4)] + [
+        rec(12 + i, "vae.decode", 1, 2.5) for i in range(3)]
+    assert pb.phase_device_ms(records) == {"vae_reencode": 5.0, "webcam_encode": 9.0,
+                                           "prefill": 4.0, "denoise": 24.0,
+                                           "vae_decode": 7.5}
 
 
 @pytest.mark.parametrize("length, block_tokens, local_window", [
