@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --vae-phases [split] [fuseup] [multi_gpu]   (those alone)
     python3 chip_smoke.py --session-phases   (session_megafuse alone, bf16 then int8)
+    python3 chip_smoke.py --dit-norm-phases   (phase 2's DiT norm entries alone)
 
 Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), the build of the
@@ -58,6 +59,11 @@ Phases, each reported on its own lines:
          fc2 and o with the device scale), on K-major weights, within 1 bf16
          ulp of the plain version; planted faults: the last K tile, w_scale a
          column off, a ring stage holding the previous K tile;
+       - the DiT's norm row kernels (csrc/dit_norm_sm90.cu, `dit_norm_phase`)
+         at each site of a layer, L 4680 in 3 frames at D 1536 and 5120 (q
+         and k read out of the [L, 3D] qkv output): against the plain chains
+         of models/wan_dit.py, at most 1 bf16 ulp and 99.9% of elements
+         bit-equal; their time beside the bytes bound and the plain chain's;
        - the kt x 3 x 3 conv (csrc/conv_sm90.cu, K4/K5: s8 wgmma, TMA, halos
          by TMA's zero fill) at VAE shapes: s8 with kt 3 at C 384 (60x104) and
          C 96 (480x832), the decoder's head (C 96 -> 3) and first conv (C 16
@@ -2480,9 +2486,10 @@ def split_op_divergence(base, split, z) -> dict:
 
 
 #: the kernels each 1.3B tier's session must launch
-KERNEL_PATHS = {"bf16": ("window", "logit_bound", "block_causal"),
+KERNEL_PATHS = {"bf16": ("window", "logit_bound", "block_causal", "add_ln_modulate",
+                         "qk_norm_rope"),
                 "int8": ("window", "logit_bound", "block_causal", "int8_linear", "conv3x3",
-                         "conv_quantize")}
+                         "conv_quantize", "add_ln_modulate", "qk_norm_rope")}
 #: the server config flags of the int8 tier (calibrated and quantised on the card)
 INT8_FLAGS = {"enable_int8": True, "enable_int8_dit": True, "int8_static_scales": True}
 #: a warm block with the former formulas planted back must make at least
@@ -2558,6 +2565,219 @@ def planted_sync_check(card: str, label: str, models, config) -> dict:
     return row
 
 
+#: the DiT's norm sites at the serving shapes (one warm block's forward:
+#: 3 frames of 1560 tokens), t2v-1.3B and t2v-14B widths
+DIT_NORM_SHAPES = (("1.3b", 4680, 3, 1536, 12), ("14b", 4680, 3, 5120, 40))
+DIT_NORM_SITES = ("msa", "gated_affine", "residual_modulate", "gated_only", "qk_from_qkv",
+                  "cross_q")
+
+
+def bf16_ulps(got, want):
+    """Elementwise |got - want| in units of want's bf16 ulp (8-bit significand)."""
+    import torch
+
+    _, exp = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exp - 8).clamp_min(2.0 ** -126)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def bf16_step(n, k: int):
+    """n with each element moved k bf16 steps along its bit pattern (one
+    neighbour for k = 1, the other for k = -1)."""
+    import torch
+
+    return (n.view(torch.int16) + k).view(torch.bfloat16)
+
+
+def graph_ms(fn, n: int) -> float:
+    """Mean CUDA-event time of fn over n calls captured in one CUDA graph:
+    the card's time alone, without the host's launch cost between calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / n
+
+
+def dit_norm_phase(card: str, dev) -> dict:
+    """The DiT's norm row kernels (csrc/dit_norm_sm90.cu) against the plain
+    chains of models/wan_dit.py on the card, at each site of a layer and
+    the t2v-1.3B and t2v-14B widths (L 4680, 3 frames; q / k read out of
+    the [L, 3D] qkv output).
+
+    Correctness: the kernels make the chains' roundings in their order and
+    sum the f32 statistics in another, so a statistic may differ in its
+    last bit and move the normalised value n (bf16) by one step; the rest
+    of the chain is the same arithmetic. Each element must equal the plain
+    chain's, or the chain's computed from n one bf16 step up or down (for
+    RoPE, either element of the pair), and 99.9% must be bit-equal, or the
+    run fails. The largest difference in bf16 ulps of the output is
+    reported beside: where the last add cancels (modulate's + shift, the
+    affine's + bias, RoPE's difference) one step of n is several ulps of a
+    small result.
+
+    Time: the kernel's and the plain chain's CUDA-event time a call inside
+    a CUDA graph (the card's time; `host_us` the host's cost of a call of
+    the wrapper), beside the bytes bound (bytes / 3.35 TB/s)."""
+    import torch
+
+    from realtime_video_tpu_torch.models import wan_dit
+    from realtime_video_tpu_torch.models.rope import RopeTables, rope_apply_fused
+    from realtime_video_tpu_torch.ops import hopper_dit_norm as hdn
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def rnd(shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def flat(*parts):
+        return torch.cat([t.reshape(-1) for t in parts if t is not None])
+
+    out = {}
+    eps = 1e-6
+    for model, L, f, d, heads in DIT_NORM_SHAPES:
+        dh = d // heads
+        # tokens of a layer's spread, a few rows 30x louder (the stats' range)
+        x = rnd((1, L, d), 1.0)
+        x[:, ::97] *= 30.0
+        y = rnd((1, L, d), 0.5)
+        em = rnd((1, f, 6, d), 0.3, torch.float32)
+        w, bias = rnd((d,), 1.0), rnd((d,), 0.2)
+        q, k, _ = rnd((1, L, 3 * d), 2.0).chunk(3, dim=-1)
+        qc = rnd((1, L, d), 2.0)
+        wq, wk = rnd((d,), 1.0), rnd((d,), 1.0)
+        rope = RopeTables.create(dh, device=dev).fused(f, 30, 52, 3)
+        ones = torch.ones((d,), dtype=torch.bfloat16, device=dev)
+        t_gated, t_sum = x + wan_dit.gate(y, f, em[:, :, 2]), x + y
+
+        def modulated(t, c):  # (n, n -> the rest of the chain) of an AdaLN site
+            return (wan_dit.layer_norm(t, eps=eps),
+                    lambda n: wan_dit.modulate(n, f, em[:, :, c], em[:, :, c + 1]))
+
+        def qk_tail(wt, tables):  # rms-normalised n -> * w, then RoPE
+            def tail(n):
+                o = (n * wt).reshape(1, L, heads, dh)
+                return o if tables is None else rope_apply_fused(o, *tables)
+            return tail
+
+        def steps(n, tail, pairs):
+            """The chain from n moved one step up or down (each element of a
+            RoPE pair on its own)."""
+            if not pairs:
+                return [tail(bf16_step(n, s)) for s in (1, -1)]
+            alts = []
+            even = torch.zeros(d, dtype=torch.int16, device=dev)
+            even[0::2] = 1
+            for a in (-1, 0, 1):
+                for c in (-1, 0, 1):
+                    if a or c:
+                        move = even * a + (1 - even) * c
+                        alts.append(tail((n.view(torch.int16) + move).view(torch.bfloat16)))
+            return alts
+
+        n_msa, g_msa = modulated(x, 0)
+        n_ffn, g_ffn = modulated(t_sum, 3)
+        n_n3 = wan_dit.layer_norm(t_gated, eps=eps)
+        n_q = wan_dit.rms_norm({"scale": ones}, q, eps=eps)
+        n_k = wan_dit.rms_norm({"scale": ones}, k, eps=eps)
+        n_c = wan_dit.rms_norm({"scale": ones}, qc, eps=eps)
+        tq, tk, tc = qk_tail(wq, rope), qk_tail(wk, rope), qk_tail(wq, None)
+        # each site: (the kernel's call, the plain chain, the one-step
+        # alternatives as flat tensors, its bytes)
+        sites = {
+            "msa": (lambda: hdn.add_ln_modulate(x, f, shift=em[:, :, 0], scale=em[:, :, 1],
+                                                eps=eps)[1],
+                    lambda: wan_dit.modulate(wan_dit.layer_norm(x, eps=eps), f, em[:, :, 0],
+                                             em[:, :, 1]),
+                    lambda: [flat(a) for a in steps(n_msa, g_msa, False)],
+                    hdn.add_ln_modulate_bytes(L, d, False, frames=f)),
+            "gated_affine": (
+                lambda: hdn.add_ln_modulate(x, f, y, em[:, :, 2], weight=w, bias=bias, eps=eps),
+                lambda: (lambda t: (t, wan_dit.layer_norm(t, w, bias, eps=eps)))(
+                    x + wan_dit.gate(y, f, em[:, :, 2])),
+                lambda: [flat(t_gated, a) for a in steps(n_n3, lambda n: n * w + bias, False)],
+                hdn.add_ln_modulate_bytes(L, d, True, frames=f, per_frame=1) + 4 * d),
+            "residual_modulate": (
+                lambda: hdn.add_ln_modulate(x, f, y, shift=em[:, :, 3], scale=em[:, :, 4],
+                                            eps=eps),
+                lambda: (lambda t: (t, wan_dit.modulate(wan_dit.layer_norm(t, eps=eps), f,
+                                                        em[:, :, 3], em[:, :, 4])))(x + y),
+                lambda: [flat(t_sum, a) for a in steps(n_ffn, g_ffn, False)],
+                hdn.add_ln_modulate_bytes(L, d, True, frames=f)),
+            "gated_only": (lambda: hdn.add_ln_modulate(x, f, y, em[:, :, 5], norm=False)[0],
+                           lambda: x + wan_dit.gate(y, f, em[:, :, 5]),
+                           lambda: [],
+                           hdn.add_ln_modulate_bytes(L, d, True, False, frames=f,
+                                                     per_frame=1)),
+            "qk_from_qkv": (
+                lambda: hdn.qk_norm_rope(q, k, wq, wk, rope, dh, eps),
+                lambda: tuple(qk_tail(wt, rope)(wan_dit.rms_norm({"scale": ones}, t, eps=eps))
+                              for t, wt in ((q, wq), (k, wk))),
+                lambda: [flat(a, b) for a, b in zip(steps(n_q, tq, True),
+                                                    steps(n_k, tk, True))]
+                + [flat(a, tk(n_k)) for a in steps(n_q, tq, True)]
+                + [flat(tq(n_q), b) for b in steps(n_k, tk, True)],
+                hdn.qk_norm_rope_bytes(L, d, 2, dh // 2, L)),
+            "cross_q": (lambda: hdn.qk_norm_rope(qc, None, wq, None, None, dh, eps)[0],
+                        lambda: tc(wan_dit.rms_norm({"scale": ones}, qc, eps=eps)),
+                        lambda: [flat(a) for a in steps(n_c, tc, False)],
+                        hdn.qk_norm_rope_bytes(L, d, 1)),
+        }
+        for site in DIT_NORM_SITES:
+            kern, plain, alternatives, nbytes = sites[site]
+            res, ref = kern(), plain()
+            got = flat(*(res if isinstance(res, tuple) else (res,)))
+            want = flat(*(ref if isinstance(ref, tuple) else (ref,)))
+            torch.cuda.synchronize()
+            same = got.view(torch.int16) == want.view(torch.int16)
+            explained = same.clone()
+            for alt in alternatives():
+                explained |= got.view(torch.int16) == alt.view(torch.int16)
+            u = bf16_ulps(got, want)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                kern()
+            host_us = (time.perf_counter() - t0) * 1e4
+            ms, plain_ms = graph_ms(kern, 20), graph_ms(plain, 5)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row = dict(bit_equal_share=float(same.float().mean()),
+                       unexplained=int((~explained).sum()), differing=int((~same).sum()),
+                       max_bf16_ulps=float(u.max()), finite=bool(torch.isfinite(got).all()),
+                       ms=ms, plain_ms=plain_ms, host_us=host_us, bound_ms=bound_ms,
+                       bound_by="bytes", bandwidth_share=bound_ms / ms,
+                       gb_per_s=nbytes / ms / 1e6)
+            out[f"{site}_{model}"] = row
+            phase("kernel", kernel="qk_norm_rope" if site in ("qk_from_qkv", "cross_q")
+                  else "add_ln_modulate", case=f"{site}_{model}", rows=L, d=d, frames=f,
+                  **row, card=card)
+            if not (row["finite"] and row["unexplained"] == 0
+                    and row["bit_equal_share"] >= 0.999):
+                fail(f"dit norm {site}_{model}: {row['unexplained']} elements unexplained by "
+                     f"one step of the normalised value, {row['bit_equal_share']:.5f} "
+                     "bit-equal to the plain chain")
+            del res, ref, got, want, same, explained, u
+        del x, y, q, k, qc, t_gated, t_sum, n_msa, n_ffn, n_n3, n_q, n_k, n_c, sites
+        torch.cuda.empty_cache()
+    return out
+
+
 def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, kernel_mods,
                            read_counts, required) -> dict:
     """The session's throughput mode (RTV_SESSION_MEGAFUSE) at t2v-1.3B
@@ -2586,6 +2806,10 @@ def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, ke
         then each such block with the former formulas planted back
         (`planted_sync_check`), which must raise under "error" and make at
         least PLANTED_SYNCS_MIN synchronising calls under "warn";
+      * the DiT norm kernels' launches in a warm block (block 2 of a session
+        less blocks 0-1), which must be 5 forwards (the prefill and 4 steps)
+        of 6 a layer and 1 for the head, with none of their calls on the
+        plain chain;
       * on bf16, `sinusoidal_embedding_1d` and `latent_scale` on the card
         against the formulas they replaced (bit-equal)."""
     import torch
@@ -2593,6 +2817,7 @@ def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, ke
     from realtime_video_tpu_torch.config import load_server_config
     from realtime_video_tpu_torch.models import rope as rope_mod
     from realtime_video_tpu_torch.models import vae as vae_mod
+    from realtime_video_tpu_torch.ops import hopper_dit_norm as hdn
     from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper
     from realtime_video_tpu_torch.serving.models import Models
     from realtime_video_tpu_torch.serving.session import _ensure_taehv_params
@@ -2622,6 +2847,7 @@ def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, ke
         runs = [ss.timed_session(models, config, megafuse=mf, keep_frames=True)
                 for mf in ("1", "0", "0", "1")]
         launches, plain = read_counts()
+        plain = dict(plain, **{f"dit_norm_{k}": v for k, v in hdn.PLAIN_ON_CUDA.items()})
         # the switch at 1 against 0, then each mode against its own repeat
         equal = compare(runs[0], runs[1])
         repeats = {"streamed": compare(runs[1], runs[2]), "fused": compare(runs[0], runs[3])}
@@ -2670,6 +2896,20 @@ def session_megafuse_phase(card: str, dev, tier: str, config, models, head_w, ke
             row["planted"] = planted_sync_check(card, case, m, cfg)
             syncs[case] = row
         out["syncs"] = syncs
+        counts = {}
+        for upto in (1, 2):  # blocks 0..upto, the last one counted by difference
+            hdn.reset_launch_counts()
+            ss.warm_block_syncs(models, config, megafuse="1", block=upto)
+            counts[upto] = (dict(hdn.LAUNCHES), dict(hdn.PLAIN_ON_CUDA))
+        layers = models.transformer.cfg.num_layers
+        warm = {k: counts[2][0][k] - counts[1][0][k] for k in hdn.LAUNCHES}
+        want = {"add_ln_modulate": 5 * (4 * layers + 1), "qk_norm_rope": 5 * 2 * layers}
+        out["dit_norm_launches"] = dict(warm_block=warm, expected=want,
+                                        plain_on_cuda=counts[2][1])
+        phase("session_dit_norm_launches", tier=tier, **out["dit_norm_launches"], card=card)
+        if warm != want or any(counts[2][1].values()):
+            fail(f"session_megafuse {tier}: DiT norm launches a warm block {warm}, want "
+                 f"{want}; plain chain on CUDA {counts[2][1]}")
         raised = {c: r["error_mode_raised"] for c, r in syncs.items() if r["error_mode_raised"]}
         if raised:
             fail(f"session_megafuse: a warm block made a synchronising call: {raised}")
@@ -3246,6 +3486,7 @@ def main() -> None:
     from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
     from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.ops import hopper_dit_norm as hdn
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
     from realtime_video_tpu_torch.ops import kv_cache as kvc
     from realtime_video_tpu_torch.parallel.plan import serving_memory_plan
@@ -3271,13 +3512,18 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernel_mods = (hk, hm, hc)
+    kernel_mods = (hk, hm, hc, hdn)
 
     def read_counts():
+        """(launches, plain-on-CUDA counts). The DiT norm kernels have no
+        backward, so training takes their plain chains on a card by design:
+        their PLAIN_ON_CUDA is left out here and held at 0 where a session
+        serves (`session_megafuse_phase`)."""
         launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
         launches.update(hk.PREPASS_LAUNCHES)
         launches.update(hc.PREPASS_LAUNCHES)
-        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+        return launches, {k: v for m in kernel_mods if m is not hdn
+                          for k, v in m.PLAIN_ON_CUDA.items()}
 
     # ---- phase 1: device and kernel builds ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3285,7 +3531,7 @@ def main() -> None:
                          timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
-    sources = [*hk.SOURCES, hm.SOURCE, hc.SOURCE]
+    sources = [*hk.SOURCES, hm.SOURCE, hc.SOURCE, hdn.SOURCE]
     archived = [src for src in (*EARLIER_SOURCES, BWD_EARLIER) if src.exists()]
     t0 = time.perf_counter()
     libs = cuda_build.build_all(sources + archived)
@@ -3951,6 +4197,9 @@ def main() -> None:
                     fail(f"the int8 linear check passes the planted fault {fault}")
         del x, w_q, bias, got, want, bf16_w, x2
         torch.cuda.empty_cache()
+
+    # -- the DiT's norm sites (csrc/dit_norm_sm90.cu) --
+    dit_norm_phase(card, dev)
 
     # -- the kt x 3 x 3 conv (K4/K5) --
     # Weights are the K-major views the int8 VAE stores (hc.k_major), inputs
@@ -5610,6 +5859,7 @@ def _phases_alone(what: str):
     from realtime_video_tpu_torch.ops import cuda_build
     from realtime_video_tpu_torch.ops import hopper_attention as hk
     from realtime_video_tpu_torch.ops import hopper_conv as hc
+    from realtime_video_tpu_torch.ops import hopper_dit_norm as hdn
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
 
     if not torch.cuda.is_available():
@@ -5620,20 +5870,25 @@ def _phases_alone(what: str):
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(card, flush=True)
     t0 = time.perf_counter()
-    cuda_build.build_all([*hk.SOURCES, hm.SOURCE, hc.SOURCE])
+    cuda_build.build_all([*hk.SOURCES, hm.SOURCE, hc.SOURCE, hdn.SOURCE])
     phase("device", card=card, kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), kernel_build_s=time.perf_counter() - t0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ["USE_STATIC_ENCODER_COND_DICT"] = "1"
     os.environ["RTV_QUANT_CACHE"] = "0"
-    kernel_mods = (hk, hm, hc)
+    kernel_mods = (hk, hm, hc, hdn)
 
     def read_counts():
+        """(launches, plain-on-CUDA counts). The DiT norm kernels have no
+        backward, so training takes their plain chains on a card by design:
+        their PLAIN_ON_CUDA is left out here and held at 0 where a session
+        serves (`session_megafuse_phase`)."""
         launches = {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
         launches.update(hk.PREPASS_LAUNCHES)
         launches.update(hc.PREPASS_LAUNCHES)
-        return launches, {k: v for m in kernel_mods for k, v in m.PLAIN_ON_CUDA.items()}
+        return launches, {k: v for m in kernel_mods if m is not hdn
+                          for k, v in m.PLAIN_ON_CUDA.items()}
 
     return card, torch.device("cuda", 0), kernel_mods, read_counts
 
@@ -5701,9 +5956,19 @@ def megafuse_main() -> None:
     _ok_line()
 
 
+def dit_norm_main() -> None:
+    """`python3 chip_smoke.py --dit-norm-phases`: phase 2's DiT norm entries
+    alone (`dit_norm_phase`)."""
+    card, dev, _, _ = _phases_alone("DiT norm phases")
+    dit_norm_phase(card, dev)
+    _ok_line()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--vae-phases"]:
         vae_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--dit-norm-phases"]:
+        dit_norm_main()
     elif sys.argv[1:2] == ["--session-phases"]:
         megafuse_main()
     else:

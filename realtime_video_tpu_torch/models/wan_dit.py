@@ -31,7 +31,11 @@ leaves it to XLA), and a small MLP maps the gathered tokens to logits.
 
 AdaLN modulation is per frame ([B, F, 6, C], causal_model.py:463-491).
 Numerics as in the JAX package: params and activations bf16, norms, RoPE and
-the time MLP in f32. Attention goes through `ops/attention.py`.
+the time MLP in f32. Attention goes through `ops/attention.py`. A layer's
+norm sites (`norm_site`: the residual, LayerNorm and AdaLN or the affine;
+the q/k RMSNorm with RoPE) run `ops/hopper_dit_norm.py`'s row kernels where
+`hopper_dit_norm.engages` (a bf16 forward on a card with no gradient, and
+no tp for q/k), the plain functions below otherwise: the same roundings.
 
 Two tiers of block linears, chosen by the parameters:
   * bf16 (`w`): plain `torch.matmul`, as the JAX package leaves them to `jnp.dot`;
@@ -85,6 +89,7 @@ from realtime_video_tpu_torch.models.rope import (
     sinusoidal_embedding_1d,
 )
 from realtime_video_tpu_torch.ops import attention as attn_ops
+from realtime_video_tpu_torch.ops import hopper_dit_norm
 from realtime_video_tpu_torch.ops import hopper_int8_mm
 from realtime_video_tpu_torch.ops import kv_cache as kvc
 from realtime_video_tpu_torch.parallel import collectives as coll
@@ -295,6 +300,28 @@ def gate(x: torch.Tensor, num_frames, g: torch.Tensor) -> torch.Tensor:
     b, L, d = x.shape
     xf = x.reshape(b, num_frames, L // num_frames, d)
     return (xf * g[:, :, None, :].to(x.dtype)).reshape(b, L, d)
+
+
+def norm_site(tokens: torch.Tensor, f, eps: float, y: Optional[torch.Tensor] = None,
+              g: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None, weight: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None,
+              norm: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One norm site of a layer: (tokens, out), tokens + gate(y, f, g) (+ y
+    without g, tokens itself without y), and out = modulate(layer_norm(
+    tokens), f, shift, scale), or layer_norm with the affine weight / bias
+    (None with norm=False). One launch of `hopper_dit_norm.add_ln_modulate`
+    where it engages, else these functions."""
+    if hopper_dit_norm.engages("add_ln_modulate", tokens, y, g, shift, scale, weight, bias,
+                               frames=f):
+        return hopper_dit_norm.add_ln_modulate(tokens, f, y, g, shift, scale, weight, bias,
+                                               eps=eps, norm=norm)
+    if y is not None:
+        tokens = tokens + (y if g is None else gate(y, f, g))
+    if not norm:
+        return tokens, None
+    out = layer_norm(tokens, weight, bias, eps=eps)
+    return tokens, (out if shift is None else modulate(out, f, shift, scale))
 
 
 # ---------------------------------------------------------------------------
@@ -544,40 +571,51 @@ def _block(cfg: WanModelConfig, bp: Params, tokens: torch.Tensor, f,
     sh_msa, sc_msa, g_msa = em[:, :, 0], em[:, :, 1], em[:, :, 2]
     sh_ffn, sc_ffn, g_ffn = em[:, :, 3], em[:, :, 4], em[:, :, 5]
 
+    def qk_norm(q, k, p_q, p_k=None, tables=None):
+        """The q (and k) RMSNorm over the whole width, then RoPE with
+        `tables` (none without), as [B, L, N, Dh]: one launch of
+        `hopper_dit_norm.qk_norm_rope` where it engages."""
+        w_q, w_k = p_q["scale"], None if p_k is None else p_k["scale"]
+        if hopper_dit_norm.engages("qk_norm_rope", q, k, w_q, w_k, tp=tp, head_dim=dh):
+            return hopper_dit_norm.qk_norm_rope(q, k, w_q, w_k, tables, dh, eps=cfg.eps)
+
+        def one(x, p):
+            x = norm(p, x, eps=cfg.eps).reshape(b, L, n, dh)
+            return x if tables is None else rope_apply_fused(x, *tables)
+
+        return one(q, p_q), None if k is None else one(k, p_k)
+
     # ---- self attention ----
-    xn = enter(modulate(layer_norm(tokens, eps=cfg.eps), f, sh_msa, sc_msa))
+    _, xn = norm_site(tokens, f, cfg.eps, shift=sh_msa, scale=sc_msa)
+    xn = enter(xn)
     sa = bp["self_attn"]
     if "qkv" in sa:
         q, k, v = lin(sa["qkv"], xn).chunk(3, dim=-1)
     else:
         q, k, v = lin(sa["q"], xn), lin(sa["k"], xn), lin(sa["v"], xn)
-    q = norm(sa["norm_q"], q, eps=cfg.eps).reshape(b, L, n, dh)
-    k = norm(sa["norm_k"], k, eps=cfg.eps).reshape(b, L, n, dh)
+    q, k = qk_norm(q, k, sa["norm_q"], sa["norm_k"], rope)
     v = v.reshape(b, L, n, dh)
-    q = rope_apply_fused(q, *rope)
-    k = rope_apply_fused(k, *rope)
     y = attend(q, k, v)
     y = out_lin(sa["o"], y.reshape(b, L, n * dh))
-    tokens = tokens + gate(y, f, g_msa)
 
     # ---- cross attention over the cached text K/V ----
     ca = bp["cross_attn"]
-    if cfg.cross_attn_norm:
-        xc = layer_norm(tokens, bp["norm3"]["scale"], bp["norm3"]["bias"], eps=cfg.eps)
-    else:
-        xc = tokens
-    qc = norm(ca["norm_q"], lin(ca["q"], enter(xc)), eps=cfg.eps).reshape(b, L, n, dh)
+    n3 = bp["norm3"] if cfg.cross_attn_norm else {}
+    tokens, xc = norm_site(tokens, f, cfg.eps, y, g_msa, weight=n3.get("scale"),
+                           bias=n3.get("bias"), norm=cfg.cross_attn_norm)
+    qc, _ = qk_norm(lin(ca["q"], enter(tokens if xc is None else xc)), None, ca["norm_q"])
     yc = attn_ops.attention(qc, cross[0].to(qc.dtype), cross[1].to(qc.dtype), bound_group=bound)
     if len(cross) == 4:  # i2v: the image tokens, before o
         yc = yc + attn_ops.attention(qc, cross[2].to(qc.dtype), cross[3].to(qc.dtype),
                                      bound_group=bound)
-    tokens = tokens + out_lin(ca["o"], yc.reshape(b, L, n * dh))
 
     # ---- ffn ----
-    xf2 = enter(modulate(layer_norm(tokens, eps=cfg.eps), f, sh_ffn, sc_ffn))
+    tokens, xf2 = norm_site(tokens, f, cfg.eps, out_lin(ca["o"], yc.reshape(b, L, n * dh)),
+                            shift=sh_ffn, scale=sc_ffn)
     ff = bp["ffn"]
-    y = out_lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], xf2)))
-    return tokens + gate(y, f, g_ffn), k, v
+    y = out_lin(ff["fc2"], gelu_tanh(lin(ff["fc1"], enter(xf2))))
+    tokens, _ = norm_site(tokens, f, cfg.eps, y, g_ffn, norm=False)
+    return tokens, k, v
 
 
 def register_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -829,8 +867,8 @@ def dit_forward(
         tokens, e, f = tokens[:, L // 2:], e[:, f // 2:], f // 2
     hp = params["head"]
     eh = hp["modulation"][None].float() + e[:, :, None, :]  # [B, F, 2, D]
-    yh = modulate(layer_norm(tokens, eps=cfg.eps), frames if sp_attn is not None else f,
-                  eh[:, :, 0], eh[:, :, 1])
+    _, yh = norm_site(tokens, frames if sp_attn is not None else f, cfg.eps,
+                      shift=eh[:, :, 0], scale=eh[:, :, 1])
     out = linear(hp["head"], yh)
     if sp_attn is not None and sp_attn.size > 1:
         # the head is per token, so its output is gathered, not its 1536-wide

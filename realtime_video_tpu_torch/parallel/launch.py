@@ -69,11 +69,12 @@ def _entry(fn, rank: int, world: int, backend: str, device: str, init_file: str,
 
 def kernel_sources() -> list:
     """The CUDA sources of the DiT's kernels (attention forward and
-    backward, the int8 linear)."""
+    backward, the int8 linear, the norm sites)."""
     from realtime_video_tpu_torch.ops import hopper_attention as hk
+    from realtime_video_tpu_torch.ops import hopper_dit_norm as hdn
     from realtime_video_tpu_torch.ops import hopper_int8_mm as hm
 
-    return [*hk.SOURCES, hm.SOURCE]
+    return [*hk.SOURCES, hm.SOURCE, hdn.SOURCE]
 
 
 def run(fn: Callable[..., Any], world: int, *args, backend: str = "nccl",

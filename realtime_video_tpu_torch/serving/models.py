@@ -44,7 +44,8 @@ from realtime_video_tpu_torch.models import wan_dit
 from realtime_video_tpu_torch.models.diffusion_wrapper import WanDiffusion
 from realtime_video_tpu_torch.models.text_encoder import StaticTextEncoder, WanTextEncoder
 from realtime_video_tpu_torch.models.vae_wrapper import VAEWrapper, fuseup_enabled
-from realtime_video_tpu_torch.ops import hopper_attention, hopper_conv, hopper_int8_mm
+from realtime_video_tpu_torch.ops import (hopper_attention, hopper_conv, hopper_dit_norm,
+                                          hopper_int8_mm)
 from realtime_video_tpu_torch.pipelines.causal_inference import CausalInferencePipeline
 from realtime_video_tpu_torch.scheduler import FlowMatchSchedule, get_denoising_schedule
 from realtime_video_tpu_torch.utils import qcache, trace
@@ -305,9 +306,9 @@ def _has_int8(tree) -> bool:
 
 def kernel_sources(models: Models) -> list:
     """The CUDA sources of every kernel library the loaded tier launches while
-    serving: the attention kernel always, K3 for int8 DiT linears, the conv
-    kernel for an int8 VAE."""
-    sources = [hopper_attention.SM90_SOURCE]
+    serving: the attention kernel and the DiT's norm kernels always, K3 for
+    int8 DiT linears, the conv kernel for an int8 VAE."""
+    sources = [hopper_attention.SM90_SOURCE, hopper_dit_norm.SOURCE]
     if _has_int8(models.transformer.params):
         sources.append(hopper_int8_mm.SOURCE)
     if _has_int8(models.vae_decoder.params):
@@ -363,6 +364,7 @@ def warmup_models(models: Models, config, shapes=None) -> dict:
             sources = kernel_sources(models)
             libs = cuda_build.build_all(sources)
             hopper_attention._load()
+            hopper_dit_norm._load()
             if hopper_int8_mm.SOURCE in libs:
                 hopper_int8_mm._load()
             if hopper_conv.SOURCE in libs:

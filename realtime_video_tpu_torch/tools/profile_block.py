@@ -100,7 +100,8 @@ import torch
 BLOCKS = 5
 CATEGORIES = ("attention_kernel", "attention_bound_prepass", "attention_int8_prepass",
               "attention_backward_kernel", "int8_linear_kernel",
-              "conv3x3_kernel", "gemm", "conv", "copy/memset", "elementwise/other")
+              "conv3x3_kernel", "dit_norm_kernel", "gemm", "conv", "copy/memset",
+              "elementwise/other")
 #: the H100 SXM data-sheet rates the bounds use (chip_smoke.py's)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -113,7 +114,7 @@ def category(kernel_name: str) -> str:
     """Bucket a device kernel by its name: the port's hand-written kernels
     (the attention kernels, the logit-bound pre-pass, the int8 QK^T
     pre-pass, the attention backward, the int8 linear with its quantise pre-pass, the conv with
-    its quantise pre-pass), then
+    its quantise pre-pass, the DiT's norm kernels), then
     library GEMMs and convolutions, copies, and the rest."""
     n = kernel_name.lower()
     if "attn_bwd_" in n:
@@ -128,6 +129,8 @@ def category(kernel_name: str) -> str:
         return "int8_linear_kernel"
     if "conv_kernel<" in n or "conv_kernel_sm90" in n or "conv_quantize_kernel" in n:
         return "conv3x3_kernel"  # the int8 VAE convs with their quantise pre-pass
+    if "dit_add_ln_modulate_kernel" in n or "dit_qk_norm_rope_kernel" in n:
+        return "dit_norm_kernel"  # the DiT's norm sites (csrc/dit_norm_sm90.cu)
     if n.startswith("memcpy") or n.startswith("memset"):
         return "copy/memset"
     if "fprop" in n or "conv" in n or "cudnn" in n:

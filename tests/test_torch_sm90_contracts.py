@@ -11,7 +11,8 @@ only on a card: tests/test_torch_kernels_cuda.py, test_torch_int8_kernels_cuda.p
     an N-contiguous w_q;
   * the build keys a library on the headers its source includes, the port's
     sources are the four wgmma libraries, the attention backward's among
-    them (the mma.sync ones are gone), and ptxas's report of registers and
+    them (the mma.sync ones are gone), and the DiT norm's row kernels, and
+    ptxas's report of registers and
     spills is read from the build's log;
   * the block profiler's buckets for the new kernels' names (the conv with
     its quantise pre-pass in one bucket, the VAE convs, the backward's
@@ -162,7 +163,10 @@ def test_port_sources_hash_the_shared_header():
             [cuda_build.CSRC / "sm90.cuh", cuda_build.CSRC / "attention_mask.cuh"])
     assert cuda_build.local_headers(cuda_build.CSRC / "attention_mask.cuh") == []
     assert sorted(p.name for p in cuda_build.CSRC.glob("*.cu")) == [
-        "attention_bwd_sm90.cu", "attention_sm90.cu", "conv_sm90.cu", "int8_mm.cu"]
+        "attention_bwd_sm90.cu", "attention_sm90.cu", "conv_sm90.cu", "dit_norm_sm90.cu",
+        "int8_mm.cu"]
+    # the norm kernels are plain row kernels: no header of the wgmma ones
+    assert cuda_build.local_headers(cuda_build.CSRC / "dit_norm_sm90.cu") == []
 
 
 @pytest.mark.parametrize("name, want", [
