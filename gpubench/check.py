@@ -18,7 +18,9 @@ computes:
     program's host copies hold.
 Each number is ||program - reference|| / ||reference|| (float64 sums), the
 largest over the sample; `correct` holds when each is at most its limit
-(the configuration's `limits`).
+(the configuration's `limits`). The reference classes, the latent's shape
+and the frames each latent decodes to are the configuration's
+(`layout.py`).
 
 The control (`control=True`) puts the reference at int4 in the program's
 place: its outputs are judged under the same names and limits, so that the
@@ -34,9 +36,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from gpubench import layout
 from gpubench.reference import umt5
-from gpubench.reference.wan_dit import WanDiT, relative_error
-from gpubench.reference.wan_vae import WanVAE, frames_of_latents
+from gpubench.reference.wan_dit import relative_error
+from gpubench.reference.wan_vae import frames_of_latents
 from gpubench.weights import sub_seed
 
 NUMBERS = ("x0_block0", "x0_warm", "px_block0", "px_warm")
@@ -59,8 +62,7 @@ def session_draws(cfg: dict, seed: int, index: int, num_blocks: int, blocks: int
     """(initial noise, per-block renoise draws) of a session, bf16-rounded
     as the program receives them."""
     s = cfg["session"]
-    shape = (1, num_blocks * s["num_frame_per_block"], cfg["in_dim"],
-             s["height"] // 8, s["width"] // 8)
+    shape = layout.latent_shape(cfg, num_blocks * s["num_frame_per_block"])
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "session", index))
     noise = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     block_shape = (1, s["num_frame_per_block"]) + shape[2:]
@@ -81,10 +83,11 @@ def program_outputs(cfg: dict, record) -> Dict[str, torch.Tensor]:
     return out
 
 
-def reference_outputs(cfg: dict, seed: int, record, emb: torch.Tensor, dit: WanDiT,
-                      vae: WanVAE, device) -> Dict[str, torch.Tensor]:
+def reference_outputs(cfg: dict, seed: int, record, emb: torch.Tensor, dit, vae,
+                      device) -> Dict[str, torch.Tensor]:
     s = cfg["session"]
     nfpb = s["num_frame_per_block"]
+    t_stride = layout.vae_stride(cfg)[0]
     warm = record.spec.num_blocks > WARM_BLOCK
     noise, draws = session_draws(cfg, seed, record.spec.index, record.spec.num_blocks,
                                  WARM_BLOCK + 1 if warm else 1, device)
@@ -95,7 +98,7 @@ def reference_outputs(cfg: dict, seed: int, record, emb: torch.Tensor, dit: WanD
                                   s["kv_cache_num_frames"], cross)}
     blocks = WARM_BLOCK + 1 if warm else 1
     pixels = vae.decode_stream(lat[0, :blocks * nfpb])
-    out["px_block0"] = pixels[frames_of_latents(0, nfpb)][3:][None]
+    out["px_block0"] = pixels[frames_of_latents(0, nfpb, t_stride)][3:][None]
     if warm:
         w = WARM_BLOCK * nfpb
         frame = torch.from_numpy(record.frames[WARM_BLOCK - 1][0, 0]).to(device) * 2 - 1
@@ -104,7 +107,7 @@ def reference_outputs(cfg: dict, seed: int, record, emb: torch.Tensor, dit: WanD
         context = torch.cat([first[None, None], lat[:, w - (k - 1):w]], 1)
         out["x0_warm"] = dit.block(emb, noise[:, w:w + nfpb], draws[WARM_BLOCK], steps,
                                    context, k, cross)
-        out["px_warm"] = pixels[frames_of_latents(w, nfpb)][None]
+        out["px_warm"] = pixels[frames_of_latents(w, nfpb, t_stride)][None]
     return {k: v.cpu() for k, v in out.items()}
 
 
@@ -119,10 +122,11 @@ def readings(cfg: dict, seed: int, sessions: list, device, qmax: int = 127) -> L
     for r in sessions:
         ids, mask = umt5.tokenize(r.spec.prompt, t5["text_len"], t5["vocab_size"])
         embs.append(umt5.encode(t5, seed, ids, mask, device))
-    dit = WanDiT(cfg, seed, device, qmax=qmax, int8_qk=cfg["port"]["int8_qk_attention"],
-                 shift=s["timestep_shift"])
+    dit = layout.reference(cfg, "dit")(cfg, seed, device, qmax=qmax,
+                                       int8_qk=cfg["port"]["int8_qk_attention"],
+                                       shift=s["timestep_shift"])
     dit.calibrate(dit.schedule.steps(s["num_denoising_steps"]), load_seed=seed)
-    vae = WanVAE(cfg["vae"], seed, device, qmax=qmax)
+    vae = layout.reference(cfg, "vae")(cfg["vae"], seed, device, qmax=qmax)
     vae.calibrate(load_seed=seed + 1)
     with torch.no_grad():
         return [reference_outputs(cfg, seed, r, e, dit, vae, device)

@@ -2,7 +2,7 @@
 block's matrix work (DiT linears, QK^T and PV, VAE convs and attention
 products), each at its own precision's H100 peak, over the traced run's
 mean gap between consecutive warm blocks' last frames (profiled blocks left
-out)."""
+out), times the cards the cell runs on (their peaks add up)."""
 import statistics
 
 from gpubench import roofline
@@ -12,4 +12,5 @@ def read(run):
     gaps = run["warm_gaps_ms"]
     if not gaps:
         return None
-    return 100.0 * roofline.matrix_time_s(run["work"]) / (statistics.mean(gaps) / 1e3)
+    seconds = statistics.mean(gaps) / 1e3 * run.get("cards", 1)
+    return 100.0 * roofline.matrix_time_s(run["work"]) / seconds

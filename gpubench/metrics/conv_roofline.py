@@ -1,7 +1,7 @@
 """Share of its roofline of the VAE conv family (the int8 conv kernel with
 its quantise pre-pass, library convolutions): the least time of the
 profiled warm blocks' decode and re-encode convs over that family's device
-time in the trace, in %."""
+time in the trace, summed over the cards that ran it, in %."""
 from gpubench import roofline
 
 

@@ -1,5 +1,6 @@
 """Share of the profiled span of warm blocks in which no kernel ran on the
-card, in %; an upper bound, for the profiler's own host cost is in it."""
+DiT's card (card 0), in %; an upper bound, for the profiler's own host cost
+is in it."""
 
 
 def read(run):

@@ -1,4 +1,6 @@
-"""Median CUDA-event milliseconds per warm block of the VAE's decode_block calls and the re-encode's encode_stream, summed."""
+"""Median CUDA-event milliseconds per warm block of the VAE's decode_block
+calls and the re-encode's encode_stream, summed; timed on the VAE's (first)
+card."""
 import statistics
 
 

@@ -154,16 +154,17 @@ def attention(q, k, v, lo: int, hi: int, int8_qk: bool, qmax: int,
 
 
 class WanDiT:
-    """The DiT of config `cfg` with the weights of `seed`, on `device`.
-    qmax: 127 (int8), 7 (int4, the control) or None (float, no quanta).
-    Call `calibrate` before any quantised forward."""
+    """The DiT of config `cfg` with the weights of `seed` and `key` (0: the
+    run's DiT; another key: another DiT of the process, as `weights` draws
+    it), on `device`. qmax: 127 (int8), 7 (int4, the control) or None
+    (float, no quanta). Call `calibrate` before any quantised forward."""
 
     def __init__(self, cfg: dict, seed: int, device, qmax: Optional[int] = 127,
-                 int8_qk: bool = False, shift: float = 5.0):
-        self.cfg, self.seed, self.device = cfg, seed, torch.device(device)
+                 int8_qk: bool = False, shift: float = 5.0, key: int = 0):
+        self.cfg, self.seed, self.device, self.key = cfg, seed, torch.device(device), key
         self.qmax, self.int8_qk = qmax, int8_qk
         self.schedule = Schedule(shift)
-        top = weights.dit_top(cfg, seed, self.device)
+        top = weights.dit_top(cfg, seed, self.device, key)
         self.top = {k: v.float() for k, v in top.items()}
         self.amax: Optional[Dict[str, List[float]]] = None
         self._layers: Dict[int, dict] = {}
@@ -172,7 +173,7 @@ class WanDiT:
 
     def float_layer(self, i: int) -> dict:
         raw = {k: v.float() for k, v in weights.dit_layer(self.cfg, self.seed, i,
-                                                          self.device).items()}
+                                                          self.device, self.key).items()}
         g = lambda *p: raw[p]  # noqa: E731
         lin = lambda grp, n: (g(grp, n, "w"), g(grp, n, "b"))  # noqa: E731
         qkv_w = torch.cat([g("self_attn", n, "w") for n in "qkv"], 1)

@@ -193,9 +193,10 @@ class WanVAE:
         self._quanta.clear()
 
 
-def frames_of_latents(first: int, count: int) -> List[int]:
-    """Indices, in a stream's decoded frames, of latents [first, first + count)."""
+def frames_of_latents(first: int, count: int, t_stride: int = 4) -> List[int]:
+    """Indices, in a stream's decoded frames, of latents [first, first + count)
+    (the first latent decodes to one frame, each later one to t_stride)."""
     out: List[int] = []
     for j in range(first, first + count):
-        out += [0] if j == 0 else list(range(1 + 4 * (j - 1), 1 + 4 * j))
+        out += [0] if j == 0 else list(range(1 + t_stride * (j - 1), 1 + t_stride * j))
     return out

@@ -5,7 +5,8 @@ name to its family.
 
 A warm block (block_idx >= 1, kv_cache_num_frames = 3, 3 latent frames a
 block) runs the context prefill and the 4 denoise forwards of the DiT, each
-over one block's tokens (3 frames of (H/16) * (W/16)), the prefill's
+over one block's tokens (3 latent frames, each cut into patches: (H/16) *
+(W/16) at the VAE's stride 8 and the DiT's 2 x 2 patches), the prefill's
 self-attention over its own tokens and each denoise's over the context and
 its own (twice as many keys), every forward's cross-attention over the
 512 text tokens; then the streamed decode of 3 latents (4 frames each) and,
@@ -17,9 +18,10 @@ operations over the peak of each operation's precision and its bytes
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
-from gpubench import weights
+from gpubench import layout, weights
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -54,9 +56,9 @@ def _work() -> Dict[str, float]:
     return {"bf16": 0.0, "int8": 0.0, "bytes": 0.0}
 
 
-def block_tokens(session: dict) -> int:
-    fsl = (session["height"] // 16) * (session["width"] // 16)
-    return session["num_frame_per_block"] * fsl
+def block_tokens(cfg: dict) -> int:
+    (lat_h, lat_w), (_, ph, pw) = layout.latent_hw(cfg), cfg["patch_size"]
+    return cfg["session"]["num_frame_per_block"] * (lat_h // ph) * (lat_w // pw)
 
 
 def dit_linear_work(cfg: dict, tokens: int, forwards: int) -> Dict[str, float]:
@@ -68,8 +70,8 @@ def dit_linear_work(cfg: dict, tokens: int, forwards: int) -> Dict[str, float]:
     for k, n in shapes:
         w["int8"] += forwards * nl * 2.0 * tokens * k * n
         w["bytes"] += forwards * nl * (2.0 * tokens * k + k * n + 6.0 * n + 2.0 * tokens * n)
-    patch = cfg["in_dim"] * 4
-    for k, n in ((patch, d), (d, cfg["out_dim"] * 4)):
+    patch = math.prod(cfg["patch_size"])
+    for k, n in ((cfg["in_dim"] * patch, d), (d, cfg["out_dim"] * patch)):
         w["bf16"] += forwards * 2.0 * tokens * k * n
         w["bytes"] += forwards * (2.0 * tokens * k + 2.0 * k * n + 2.0 * tokens * n)
     return w
@@ -168,9 +170,9 @@ def _add(a: dict, b: dict) -> dict:
 def warm_block_work(cfg: dict) -> Dict[str, Dict[str, float]]:
     """Work of one warm block with the re-encode, by family."""
     s = cfg["session"]
-    n = block_tokens(s)
+    n = block_tokens(cfg)
     ctx = n  # kv_cache_num_frames = 3 latents of context: one block
-    lat_h, lat_w = s["height"] // 8, s["width"] // 8
+    lat_h, lat_w = layout.latent_hw(cfg)
     steps = s["num_denoising_steps"]
     linear = dit_linear_work(cfg, n, steps + 1)
     pairs = [(ctx, ctx)] + [(n, ctx + n)] * steps + [(n, cfg["text_len"])] * (steps + 1)

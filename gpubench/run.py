@@ -3,7 +3,9 @@
     python -m gpubench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout that holds `realtime_video_tpu_torch`. One
-process a run, on one CUDA card; no card, no result (exit 2).
+process a run, on the cards the cell asks for; too few cards, no result
+(exit 2). The port runs on card 0, with its VAE where the traffic mix's
+`placement` puts it (its own card, or split by rows over cards 1..N).
 
 Set-up: the models through the port's own loader (`serving.models.load_all`:
 the int8 tier calibrated and quantised on the card, the quantised-tree cache
@@ -18,8 +20,9 @@ models freed, then the check of what the window produced against the
 float32 reference (`reference/`), each number beside its limit.
 
 `--trace 1` runs the same window with CUDA-event spans around the port's
-layers (wrapped here, at run time), profiles one session's warm blocks 1-3
-with torch.profiler, and prints the per-layer metrics that
+layers (wrapped here, at run time; the VAE's on the VAE's card), profiles
+one session's warm blocks 1-3 with torch.profiler, each card's kernels
+kept apart, and prints the per-layer metrics that
 `gpubench/metrics/<name>.py` read from them.
 """
 from __future__ import annotations
@@ -124,41 +127,59 @@ def card_line(torch) -> str:
             f"nvidia-smi: {limit}")
 
 
+#: the DiT's sizes that the file and the port's WanModelConfig both hold
+DIT_SIZES = ("dim", "ffn_dim", "num_heads", "num_layers", "in_dim", "out_dim", "freq_dim",
+             "text_len", "text_dim", "eps", "patch_size")
+
+
+def port_fields(port_cfg, keys) -> dict:
+    """`keys` of a port config, as the file writes them (tuples as lists)."""
+    return {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in ((k, getattr(port_cfg, k)) for k in keys)}
+
+
 def check_port_sizes(cfg: dict) -> None:
-    """The port's configs for the model name must hold the file's sizes."""
+    """The port's configs for the model name and the VAE entry must hold the
+    file's sizes."""
+    from gpubench import layout
     from realtime_video_tpu_torch.config import T5_CONFIGS, VAE_CONFIGS, WAN_CONFIGS
 
-    port = WAN_CONFIGS[cfg["port"]["model_name"]]
-    want = {k: cfg[k] for k in ("dim", "ffn_dim", "num_heads", "num_layers", "in_dim",
-                                 "out_dim", "freq_dim", "text_len", "text_dim", "eps")}
-    want["patch_size"] = tuple(cfg["patch_size"])
-    got = {k: getattr(port, k) for k in want}
-    for name, have, ref in (("dit", got, want),
-                            ("umt5", {k: getattr(T5_CONFIGS["umt5-xxl"], k)
-                                      for k in cfg["text_encoder"]}, cfg["text_encoder"]),
-                            ("vae", {k: (list(v) if isinstance(v, tuple) else v)
-                                     for k, v in ((k, getattr(VAE_CONFIGS["wan2.1"], k))
-                                                  for k in cfg["vae"])}, cfg["vae"])):
+    for name, port_cfg, ref in (
+            ("dit", WAN_CONFIGS[cfg["port"]["model_name"]], {k: cfg[k] for k in DIT_SIZES}),
+            ("umt5", T5_CONFIGS["umt5-xxl"], cfg["text_encoder"]),
+            ("vae", VAE_CONFIGS[layout.vae_name(cfg)], layout.vae_sizes(cfg))):
+        have = port_fields(port_cfg, ref)
         if have != ref:
             raise SystemExit(f"the port's {name} config {have} is not the file's {ref}")
 
 
 def install_weight_hooks(cfg: dict, seed: int) -> None:
-    """The port's random-init functions draw the benchmark's weights instead."""
+    """The port's random-init functions draw the benchmark's weights instead.
+    Each DiT the port makes is drawn at the sizes of the config it passes,
+    keyed by its generator's seed less the run's (`weights.dit_params`' key):
+    the port's DiT, made from the run's seed, has key 0; another DiT of the
+    process, made from another seed, draws other weights, which the
+    reference draws again from the same key."""
     from gpubench import weights
     from realtime_video_tpu_torch.models import t5 as t5_mod
     from realtime_video_tpu_torch.models import vae as vae_mod
     from realtime_video_tpu_torch.models import wan_dit
 
-    wan_dit.init_wan_params = lambda _c, _g, device=None, dtype=None: weights.dit_params(
-        cfg, seed, device)
+    def dit(port_cfg, gen, device=None, dtype=None):
+        key = gen.initial_seed() - seed if gen is not None else 0
+        return weights.dit_params(dict(cfg, **port_fields(port_cfg, DIT_SIZES)), seed,
+                                  device, key)
+
+    wan_dit.init_wan_params = dit
     t5_mod.init_t5_encoder_params = lambda _c, _g, device=None, dtype=None: \
         weights.t5_params(cfg["text_encoder"], seed, device)
     vae_mod.init_vae_params = lambda _c, _g, device=None, dtype=None: weights.vae_params(
         cfg["vae"], seed, device)
 
 
-def server_config(cfg: dict):
+def server_config(cfg: dict, mix: dict):
+    """The port's server config: the file's model and session, and the
+    mix's placement of the port over the cards."""
     from realtime_video_tpu_torch.config import load_server_config
 
     s = cfg["session"]
@@ -168,7 +189,16 @@ def server_config(cfg: dict):
         enable_int8=p["enable_int8"], enable_int8_dit=p["enable_int8_dit"],
         int8_static_scales=p["int8_static_scales"],
         num_denoising_steps=s["num_denoising_steps"], timestep_shift=s["timestep_shift"],
-        kv_cache_num_frames=s["kv_cache_num_frames"], num_frame_per_block=s["num_frame_per_block"])
+        kv_cache_num_frames=s["kv_cache_num_frames"], num_frame_per_block=s["num_frame_per_block"],
+        **mix.get("placement", {}))
+
+
+def used_devices(models) -> list:
+    """The devices the port's models run on, the DiT's first."""
+    from realtime_video_tpu_torch.serving.models import vae_devices
+
+    return list(dict.fromkeys((models.transformer.device, *vae_devices(models.vae_decoder),
+                               *vae_devices(models.vae_encoder))))
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +269,8 @@ class HostCopies:
 
 class Spans:
     """CUDA-event spans around the port's layers, wrapped at run time
-    (`--trace 1` only), and the host time of each generate_block."""
+    (`--trace 1` only), and the host time of each generate_block. A span is
+    timed on the card its layer runs on."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -248,17 +279,28 @@ class Spans:
         self.host_ms: Dict[tuple, float] = {}
         self.active = True  # off: calls run untimed
 
-    def wrap(self, name: str, fn):
+    def wrap(self, name: str, fn, card=None, others=()):
+        """fn timed by events on `card`'s stream (default: the current
+        card's). Where the call's first tensor lies on another card, the
+        start waits for that card's queue, as the call's first copy from
+        there would; the end waits for `others`, the further cards the call
+        runs on."""
         torch = self.torch
 
         def timed(*args, **kwargs):
             if not self.active:
                 return fn(*args, **kwargs)
+            stream = torch.cuda.current_stream(card)
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
-            start.record()
+            first = next((a for a in args if isinstance(a, torch.Tensor)), None)
+            if first is not None and first.is_cuda and first.device != stream.device:
+                stream.wait_stream(torch.cuda.current_stream(first.device))
+            start.record(stream)
             out = fn(*args, **kwargs)
-            end.record()
+            for other in others:
+                stream.wait_stream(torch.cuda.current_stream(other))
+            end.record(stream)
             self.events.setdefault(name, []).append((self.block, start, end))
             return out
         return timed
@@ -282,11 +324,13 @@ class TextEncoderSpan:
 
 def install_spans(models, spans: Spans) -> None:
     from realtime_video_tpu_torch.serving import session as session_mod
+    from realtime_video_tpu_torch.serving.models import vae_devices
 
     session_mod.block_step = spans.wrap("dit", session_mod.block_step)
     vae = models.vae_decoder
-    vae.decode_block = spans.wrap("vae", vae.decode_block)
-    vae.encode_stream = spans.wrap("vae", vae.encode_stream)
+    card, *others = vae_devices(vae)  # split: timed on its first card, ended on all
+    vae.decode_block = spans.wrap("vae", vae.decode_block, card, others)
+    vae.encode_stream = spans.wrap("vae", vae.encode_stream, card, others)
     models.text_encoder = TextEncoderSpan(models.text_encoder, spans)
 
 
@@ -295,9 +339,11 @@ def install_spans(models, spans: Spans) -> None:
 # ---------------------------------------------------------------------------
 
 
-def read_trace(prof, torch, span_name: str) -> dict:
-    """Busy time, device time by family and by kernel, and the longest idle
-    gaps with the host operation running at each, inside the span."""
+def read_trace(prof, torch, span_name: str, cards: List[int]) -> dict:
+    """Inside the span: each card's busy time and kernels; over all cards,
+    device time by family and by kernel; the DiT's card's (`cards[0]`) busy
+    time and its longest idle gaps, with the host operation running at
+    each."""
     from gpubench import roofline
 
     events = prof.events()
@@ -306,32 +352,42 @@ def read_trace(prof, torch, span_name: str) -> dict:
     cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
             and e.name != span_name and not getattr(e, "is_user_annotation", False)
             and lo <= e.time_range.start < hi]
-    intervals = sorted((e.time_range.start, min(e.time_range.end, hi)) for e in cuda)
     by_family = {f: 0.0 for f in roofline.FAMILIES}
     by_kernel: Dict[str, float] = {}
+    kernels: Dict[int, list] = {c: [] for c in cards}  # [start us, end us, family]
     for e in cuda:
         us = e.time_range.end - e.time_range.start
-        by_family[roofline.family(e.name)] += us / 1e6
+        fam = roofline.family(e.name)
+        by_family[fam] += us / 1e6
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us / 1e6
-    gaps, end, busy_us = [], lo, 0.0
-    for start, stop in intervals:  # the union of the kernels' intervals, and its holes
-        if start > end:
-            gaps.append((end, start))
-        busy_us += max(stop - max(start, end), 0.0)
-        end = max(end, stop)
-    if hi > end:
-        gaps.append((end, hi))
+        kernels.setdefault(getattr(e, "device_index", cards[0]), []).append(
+            [e.time_range.start, min(e.time_range.end, hi), fam])
+
+    def busy_and_gaps(card):
+        gaps, end, busy_us = [], lo, 0.0
+        for start, stop, _ in sorted(kernels[card]):  # the union of the kernels, and its holes
+            if start > end:
+                gaps.append((end, start))
+            busy_us += max(stop - max(start, end), 0.0)
+            end = max(end, stop)
+        if hi > end:
+            gaps.append((end, hi))
+        return busy_us / 1e6, gaps
+
+    busy = {c: busy_and_gaps(c) for c in kernels}
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
             and e.name != span_name and lo <= e.time_range.start < hi]
     named = []
-    for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:10]:
+    for a, b in sorted(busy[cards[0]][1], key=lambda g: g[0] - g[1])[:10]:
         mid = (a + b) / 2
         inside = [e for e in host if e.time_range.start <= mid < e.time_range.end]
         label = max(inside, key=lambda e: e.time_range.start).name if inside else "no host op"
         named.append([label[:120], (b - a) / 1e6])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": busy_us / 1e6, "window_s": (hi - lo) / 1e6, "by_family_s": by_family,
-            "device_ops": [[n[:160], s] for n, s in top], "idle_gaps": named}
+    return {"busy_s": busy[cards[0]][0], "window_s": (hi - lo) / 1e6, "by_family_s": by_family,
+            "device_ops": [[n[:160], s] for n, s in top], "idle_gaps": named,
+            "dit_card": cards[0],
+            "cards": {c: {"busy_s": busy[c][0], "kernels": kernels[c]} for c in kernels}}
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +434,7 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
             raise SystemExit(2)
         log(card_line(torch))
         check_port_sizes(cfg)
-    from gpubench import check, traffic_gen
+    from gpubench import check, layout, traffic_gen
     from realtime_video_tpu_torch.serving.models import load_all, warmup_models
     from realtime_video_tpu_torch.serving.params import GenerateParams
     from realtime_video_tpu_torch.serving.session import GenerationSession
@@ -386,11 +442,15 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
     seed = int(args.seed)
     install_weight_hooks(cfg, seed)
     s = cfg["session"]
-    config = server_config(cfg)
+    config = server_config(cfg, mix)
     models = load_all(config, device, seed)
     dev = models.transformer.device
-    shape_of = lambda nb: (1, nb * s["num_frame_per_block"], cfg["in_dim"],  # noqa: E731
-                           s["height"] // 8, s["width"] // 8)
+    devices = used_devices(models)
+    cards = [d.index for d in devices] if on_card else []
+    if on_card and len(cards) != work["chips"]:
+        raise SystemExit(f"{work['name']} asks for {work['chips']} cards and the port runs on "
+                         f"{len(cards)}: {devices}")
+    shape_of = lambda nb: layout.latent_shape(cfg, nb * s["num_frame_per_block"])  # noqa: E731
     copies = HostCopies(check.WARM_BLOCK)
 
     def params(spec):
@@ -401,8 +461,8 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
                               timestep_shift=s["timestep_shift"])
 
     def sync():
-        if on_card:
-            torch.cuda.synchronize()
+        for card in cards:
+            torch.cuda.synchronize(card)
 
     spans: Optional[Spans] = None
 
@@ -444,8 +504,8 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             (torch.ones(1, device=dev) + 1).sum().item()  # the profiler's own start-up
     records: List[SessionRecord] = []
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     setup_s = time.time() - PROCESS_START
     log(f"set-up {setup_s:.1f} s: to the models loaded {t_load:.1f} s "
         f"(load_all {models.load_seconds}), warm-up {setup_s - t_load:.1f} s")
@@ -469,7 +529,10 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
             log(f"session {spec.index} failed:\n{traceback.format_exc()}")
     copies.wait()
     sync()
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = {card: torch.cuda.max_memory_allocated(card) for card in cards}
+    peak = max(peaks.values(), default=0)
+    if len(cards) > 1:
+        log("peak memory by card (bytes): " + json.dumps(peaks))
     # the window closes with the first block that completes at or after its
     # nominal end, so that a rate is taken over whole blocks
     t_close = min((t for r in records for t in r.block_last.values() if t >= t_end),
@@ -496,7 +559,7 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
         extra = next(plan)._replace(num_blocks=4)
         run_session(extra, SessionRecord(extra, time.perf_counter()), after=profile_blocks)
         copies.wait()
-        profiled = read_trace(prof, torch, "warm_blocks")
+        profiled = read_trace(prof, torch, "warm_blocks", cards or [0])
     copies.close()
 
     # -- end-to-end metrics --------------------------------------------------
@@ -511,6 +574,7 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
     log(f"window {seconds} s: {len(records)} sessions started, {failed} failed, "
         f"{frames} frames, {len(ttff)} TTFF samples, {len(gaps)} block gaps "
         f"(blocks per session: {[r.blocks_run for r in records]})")
+    log("TTFF by session (ms): " + json.dumps([round(t, 1) for t in ttff]))
     if gaps:
         top = sorted(gaps, key=lambda g: -g[2])[:8]
         by_block: Dict[int, list] = {}
@@ -522,7 +586,7 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
 
     per_layer = None
     if spans is not None:
-        per_layer = layer_metrics(cfg, work, manifest, spans, profiled, gaps)
+        per_layer = layer_metrics(cfg, work, manifest, spans, profiled, gaps, len(devices))
 
     # -- the check, after the program's state is freed ----------------------
     finished = [r for r in records if not r.failed and r.latents is not None]
@@ -549,10 +613,14 @@ def run(args, device: str = "cuda", cfg: Optional[dict] = None, mix: Optional[di
                     if not args.trace else per_layer["metrics"]),
         "device": {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-                   "count": 1, "memory_peak_bytes": int(peak)},
+                   "count": len(devices), "memory_peak_bytes": int(peak)},
     }
     if args.trace and per_layer["breakdown"] is not None:
-        result["device"].update(busy_s=profiled["busy_s"], window_s=profiled["window_s"])
+        busy = {c: profiled["cards"][c]["busy_s"] for c in cards}
+        if len(busy) > 1:
+            log("busy s in the profiled blocks by card: " + json.dumps(busy))
+        result["device"].update(busy_s=statistics.mean(busy.values()),
+                                window_s=profiled["window_s"])
         result["breakdown"] = per_layer["breakdown"]
     result["checks"] = checks
     return result
@@ -584,9 +652,9 @@ def window_metrics(stamps, records, t_end: float, seconds: float):
     return metrics, gaps, frames, ttff, failed
 
 
-def layer_metrics(cfg, work, manifest, spans: Spans, profiled, gaps) -> dict:
+def layer_metrics(cfg, work, manifest, spans: Spans, profiled, gaps, cards: int) -> dict:
     """The per-layer metrics of the cell, each read by its own reader."""
-    from gpubench import roofline
+    from gpubench import layout
 
     host = {k: v for k, v in spans.host_ms.items() if k[1] >= 1}
     dit = spans.per_block_ms("dit")
@@ -598,8 +666,9 @@ def layer_metrics(cfg, work, manifest, spans: Spans, profiled, gaps) -> dict:
         "vae_ms": [vae[k] for k in host if k in vae],
         "profile": profiled,
         "profiled_blocks": 3,
-        "work": roofline.warm_block_work(cfg),
+        "work": layout.work(cfg),
         "warm_gaps_ms": [g for _, b, g in gaps if b >= 1],
+        "cards": cards,
     }
     out = {}
     for m in manifest["per_layer"]:

@@ -127,3 +127,53 @@ def test_busy_readers_per_profiled_block_and_none_without_spans():
         read = run.metric_reader(name)
         assert read({"program_spans": [], "span_busy_ms": {}, "profiled_blocks": 3}) is None
         assert read({"profiled_blocks": 3}) is None
+
+
+def card_trace():
+    """Kernels of three cards inside a 1000 us range: the DiT's card 0 runs
+    0-100 and 200-300 and a copy 100-150; card 1 runs 50-120 and 250-260,
+    card 2 400-420."""
+    import torch
+
+    gpu = torch.autograd.DeviceType.CUDA
+
+    def k(name, start, end, card):
+        e = ev(name, 0, start, end, device=gpu)
+        e.device_index = card
+        return e
+
+    return [ev("warm_blocks", 1, 0, 1000, device=torch.autograd.DeviceType.CPU),
+            k("int8_linear_kernel", 0, 100, 0), k("Memcpy PtoP", 100, 150, 0),
+            k("attention_kernel", 200, 300, 0), k("conv_kernel<3, 1>", 50, 120, 1),
+            k("conv_kernel<3, 1>", 250, 260, 1), k("conv_kernel<3, 1>", 400, 420, 2)]
+
+
+def test_the_trace_keeps_each_cards_kernels_apart():
+    import torch
+
+    prof = SimpleNamespace(events=card_trace)
+    got = run.read_trace(prof, torch, "warm_blocks", [0, 1, 2])
+    assert got["dit_card"] == 0 and got["window_s"] == pytest.approx(1e-3)
+    assert got["busy_s"] == pytest.approx(250e-6)  # card 0's: kernels and its copy
+    assert {c: v["busy_s"] for c, v in got["cards"].items()} == pytest.approx(
+        {0: 250e-6, 1: 80e-6, 2: 20e-6})
+    assert got["by_family_s"]["conv"] == pytest.approx(100e-6)  # over all cards
+    # card 0's idle gaps: 150-200 and 300-1000
+    assert sorted(g for _, g in got["idle_gaps"]) == pytest.approx([50e-6, 700e-6])
+    run_keys = {"profile": got}
+    # 60 of the VAE cards' 100 us lie under card 0's kernels (its copy left out)
+    assert run.metric_reader("vae_overlap_pct")(run_keys) == pytest.approx(60.0)
+    assert run.metric_reader("device_idle_pct")(run_keys) == pytest.approx(75.0)
+
+
+def test_one_card_has_no_vae_overlap_and_mfu_divides_by_the_cards():
+    import torch
+
+    one = [e for e in card_trace() if getattr(e, "device_index", 0) == 0]
+    got = run.read_trace(SimpleNamespace(events=lambda: one), torch, "warm_blocks", [0])
+    assert run.metric_reader("vae_overlap_pct")({"profile": got}) is None
+    assert run.metric_reader("vae_overlap_pct")({"profile": None}) is None
+    work = {"linear": {"bf16": 989e12, "int8": 0.0, "bytes": 0.0}}  # 1 s at the bf16 peak
+    mfu = run.metric_reader("block_mfu")
+    assert mfu({"warm_gaps_ms": [2000.0], "work": work}) == pytest.approx(50.0)
+    assert mfu({"warm_gaps_ms": [2000.0], "work": work, "cards": 4}) == pytest.approx(12.5)

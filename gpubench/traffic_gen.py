@@ -14,6 +14,12 @@ session a text-to-video `GenerationSession` of the cell's configuration. A
 mix that asks for anything else (another `kind`, more `clients`, or a key
 this generator does not know, such as a session option) is refused, never
 run as something it did not ask for.
+
+A mix may place the port over the cell's cards: `placement` holds keys of
+the port's server config that `serving/models.vae_placement` reads
+(`vae_sp_devices`: the VAE split by rows over cards 1..N beside the DiT on
+card 0; `vae_device_index`: the VAE on a card of its own), passed through
+as they are; any other key is refused.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from gpubench.weights import sub_seed
 
 TRAFFIC_DIR = Path(__file__).resolve().parent / "traffic"
 #: the keys a mix may hold, and the values the harness implements
-KEYS = {"kind", "clients", "why", "blocks_deck", "prompt_words", "check_sessions"}
+KEYS = {"kind", "clients", "why", "blocks_deck", "prompt_words", "check_sessions",
+        "placement"}
 IMPLEMENTED = {"kind": ("closed_loop",), "clients": (1,)}
+PLACEMENT_KEYS = {"vae_sp_devices", "vae_device_index"}
 
 
 class SessionSpec(NamedTuple):
@@ -47,6 +55,9 @@ def check(mix: dict) -> dict:
         if mix.get(key) not in allowed:
             raise ValueError(f"traffic {key}={mix.get(key)!r}: the harness implements "
                              f"only {list(allowed)}")
+    unknown = sorted(set(mix.get("placement", {})) - PLACEMENT_KEYS)
+    if unknown:
+        raise ValueError(f"placement keys the port's server config does not read: {unknown}")
     return mix
 
 

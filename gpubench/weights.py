@@ -103,12 +103,18 @@ def dit_top_specs(cfg: dict) -> List[Leaf]:
             + [Leaf(("head", "modulation"), (1, 2, d), "normal", d ** -0.5, f32)])
 
 
-def dit_layer(cfg: dict, seed: int, i: int, device) -> Dict[Path, torch.Tensor]:
-    return draw(dit_layer_specs(cfg), seed, ("dit", cfg["dim"], "layer", i), device)
+def _dit_tags(cfg: dict, key: int, *group) -> tuple:
+    """A DiT group's tags: key 0 is the DiT that the run's seed draws, any
+    other key (a second DiT of the process) draws other weights."""
+    return ("dit", cfg["dim"]) + group + ((key,) if key else ())
 
 
-def dit_top(cfg: dict, seed: int, device) -> Dict[Path, torch.Tensor]:
-    return draw(dit_top_specs(cfg), seed, ("dit", cfg["dim"], "top"), device)
+def dit_layer(cfg: dict, seed: int, i: int, device, key: int = 0) -> Dict[Path, torch.Tensor]:
+    return draw(dit_layer_specs(cfg), seed, _dit_tags(cfg, key, "layer", i), device)
+
+
+def dit_top(cfg: dict, seed: int, device, key: int = 0) -> Dict[Path, torch.Tensor]:
+    return draw(dit_top_specs(cfg), seed, _dit_tags(cfg, key, "top"), device)
 
 
 def _nest(flat: Dict[Path, torch.Tensor]) -> dict:
@@ -131,11 +137,12 @@ def _stacked(layer_specs: List[Leaf], layers: int, make_layer, device) -> dict:
     return _nest(flat)
 
 
-def dit_params(cfg: dict, seed: int, device) -> dict:
-    """The whole DiT in the program's tree layout (blocks stacked on a layer axis)."""
-    tree = _nest(dit_top(cfg, seed, device))
+def dit_params(cfg: dict, seed: int, device, key: int = 0) -> dict:
+    """The whole DiT of `key` in the program's tree layout (blocks stacked on
+    a layer axis)."""
+    tree = _nest(dit_top(cfg, seed, device, key))
     tree["blocks"] = _stacked(dit_layer_specs(cfg), cfg["num_layers"],
-                              lambda i: dit_layer(cfg, seed, i, device), device)
+                              lambda i: dit_layer(cfg, seed, i, device, key), device)
     return tree
 
 
